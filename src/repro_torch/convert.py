@@ -1,0 +1,96 @@
+"""Convert the JAX package's parameters and plans into the port's.
+
+Everything crosses as numpy arrays (``np.asarray`` of any array-like), so
+this module imports neither JAX nor the JAX package: it reads the same
+field names from duck-typed objects. bfloat16 leaves (numpy dtype named
+``bfloat16``) are read as their raw uint16 bits and reinterpreted, never
+rounded through float32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import pim
+from repro_torch.kernels.runtime import resolve_device
+
+# PimConfig fields of the reference that the port has no counterpart for:
+# the Pallas interpret flag and the deprecated boolean route aliases
+_DROPPED_CFG_FIELDS = ("interpret", "analog", "use_pallas")
+
+
+def tensor_from_numpy(x: Any, device=None) -> torch.Tensor:
+    """One array leaf -> a torch tensor on ``device`` (``None`` -> CUDA)."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16).copy()
+        t = torch.from_numpy(bits).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return t.to(resolve_device(device))
+
+
+def params_from_reference(tree: Any, device=None) -> Any:
+    """A nested dict / list / tuple of array leaves (e.g. the reference's
+    ``init_cnn`` params) -> the same structure of torch tensors."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_reference(v, device) for v in tree)
+    return tensor_from_numpy(tree, device)
+
+
+def config_from_reference(cfg: Any) -> pim.PimConfig:
+    """The reference's ``PimConfig`` (an object or a mapping of its
+    fields) -> the port's. The deprecated boolean route pair resolves the
+    way the reference resolves it; JAX substrate names map to their
+    counterparts through the engine's aliases."""
+    fields = dict(cfg) if isinstance(cfg, Mapping) else {
+        f: getattr(cfg, f) for f in _field_names(cfg)}
+    substrate = fields.get("substrate")
+    if substrate is None:
+        if fields.get("analog", False):
+            substrate = "analog"
+        elif not fields.get("use_pallas", True):
+            substrate = pim.EXACT_TORCH
+    for name in _DROPPED_CFG_FIELDS:
+        fields.pop(name, None)
+    fields["substrate"] = None if substrate is None else \
+        pim.SUBSTRATE_ALIASES.get(substrate, substrate)
+    known = {f.name for f in pim.PimConfig.__dataclass_fields__.values()}
+    return pim.PimConfig(**{k: v for k, v in fields.items() if k in known})
+
+
+def _field_names(obj: Any):
+    dc_fields = getattr(obj, "__dataclass_fields__", None)
+    if dc_fields is None:
+        raise TypeError(f"cannot read PimConfig fields from {type(obj)}")
+    return list(dc_fields)
+
+
+def plan_from_reference(plan: Any, device=None) -> pim.Plan:
+    """A reference ``DensePlan`` or ``DepthwisePlan`` (or a mapping of its
+    fields) -> the port's plan of the same kind, fields unchanged."""
+    get = plan.get if isinstance(plan, Mapping) else \
+        (lambda name, default=None: getattr(plan, name, default))
+    cfg = config_from_reference(get("cfg"))
+    values = tensor_from_numpy(get("values"), device)
+    scale = tensor_from_numpy(get("scale"), device)
+    planes = tensor_from_numpy(get("planes"), device)
+    if get("padded_scale") is not None:
+        return pim.DensePlan(
+            values=values, scale=scale, planes=planes,
+            padded_scale=tensor_from_numpy(get("padded_scale"), device),
+            bits=int(get("bits")), k=int(get("k")), n=int(get("n")), cfg=cfg)
+    return pim.DepthwisePlan(values=values, scale=scale, planes=planes,
+                             bits=int(get("bits")), cfg=cfg)
+
+
+def plans_from_reference(plans: Mapping[str, Any], device=None
+                         ) -> Dict[str, pim.Plan]:
+    """A ``{layer name: plan}`` dict (e.g. the reference's
+    ``plan_cnn_weights`` output) -> the port's plans."""
+    return {name: plan_from_reference(p, device)
+            for name, p in plans.items()}

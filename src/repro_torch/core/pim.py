@@ -1,7 +1,7 @@
-"""The OPIMA PIM datapath math, exact half (counterpart of
-``repro/core/pim.py``): the operating point (:class:`PimConfig`), plans
-(weights programmed into 'OPCM'), programming, and the exact / emulation
-arithmetic each substrate runs. Dispatch lives in :mod:`repro_torch.engine`.
+"""The OPIMA PIM datapath math (counterpart of ``repro/core/pim.py``): the
+operating point (:class:`PimConfig`), plans (weights programmed into
+'OPCM'), programming, and the exact / analog / emulation arithmetic each
+substrate runs. Dispatch lives in :mod:`repro_torch.engine`.
 
   1. Weights are programmed once: :func:`prepare_weights` quantizes per
      output channel, nibble-decomposes into int8 digit planes and pads
@@ -14,17 +14,27 @@ arithmetic each substrate runs. Dispatch lives in :mod:`repro_torch.engine`.
      ``exact-cuda`` this is the hand-written kernel's fused epilogue, bit
      for bit equal to ``exact-torch`` and :func:`reference_quantized_matmul`.
 
-The analog readout, ABFT verification and expert-stacked plans of the
-reference come with later slices of the port.
+  5. The analog substrates model the paper's physical readout instead
+     (``analog`` in plain PyTorch, ``analog-cuda`` through the two-pass
+     hand-written kernel): per-WDM-chunk photodetector sums, optional
+     transmission noise, a shared auto-ranged ADC and integer code
+     accumulation; the two are bit-identical with ``rng=None``.
+
+ABFT verification and expert-stacked plans of the reference come with
+later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.cell import DEFAULT_CELL
+from repro_torch.kernels.analog_readout import ops as analog_ops
+from repro_torch.kernels.analog_readout.ref import analog_readout_fused_ref
 from repro_torch.kernels.pim_matmul import ops as pim_ops
 from repro_torch.kernels.pim_matmul.pim_matmul import kernel_tiles
 from repro_torch.kernels.pim_matmul.ref import (pim_matmul_ref,
@@ -36,9 +46,12 @@ from repro_torch.quant.quantize import QTensor, quantize
 # Canonical substrate names (registry keys, see engine/substrates.py).
 EXACT_CUDA = "exact-cuda"
 EXACT_TORCH = "exact-torch"
+ANALOG = "analog"
+ANALOG_CUDA = "analog-cuda"
 EMULATE = "emulate"
 # The JAX package's names, accepted so that configs and plans carry over.
-SUBSTRATE_ALIASES = {"exact-pallas": EXACT_CUDA, "exact-jnp": EXACT_TORCH}
+SUBSTRATE_ALIASES = {"exact-pallas": EXACT_CUDA, "exact-jnp": EXACT_TORCH,
+                     "analog-pallas": ANALOG_CUDA}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +68,8 @@ class PimConfig:
     wdm_chunk: int = 8            # products summed in analog before one ADC
                                   # conversion (programming pads K to it)
     substrate: Optional[str] = None  # registry key (JAX names accepted)
-    read_noise_sigma: float = 0.0  # relative transmission read noise
+    read_noise_sigma: float = 0.0  # relative transmission read noise; if 0
+                                   # and an rng is given, the cell-implied one
     verify: str = "off"           # ABFT checksum policy (reliability slice)
     abft_tag: Optional[str] = None  # violation-report tag
 
@@ -82,6 +96,10 @@ class PimConfig:
 
 
 DEFAULT_PIM = PimConfig()
+
+# The cell model's implied read-noise sigma, evaluated once at import.
+_IMPLIED_READ_NOISE_SIGMA = DEFAULT_CELL.level_noise_sigma()
+_warned_noiseless_analog = False
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +288,93 @@ def emulate_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
     if bias is not None:
         out = out + bias.to(torch.float32).reshape(1, -1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Analog readout math
+# ---------------------------------------------------------------------------
+# The readout chain itself (chunked photodetector sums -> transmission
+# noise -> shared auto-ranged ADC -> integer code accumulation ->
+# shift-and-add -> dequant epilogue) lives in kernels/analog_readout/:
+# ``ref.py`` is the plain version the ``analog`` substrate runs, and the
+# two-pass CUDA kernel behind ``analog-cuda`` equals it bit for bit on the
+# deterministic path. Both consume the plans' pre-padded layout (K lands
+# on a WDM-chunk boundary at programming time).
+def _resolve_analog_sigma(cfg: PimConfig, rng: Optional[torch.Generator]
+                          ) -> float:
+    """The transmission-noise sigma an analog substrate models.
+
+    An explicit ``read_noise_sigma > 0`` without an rng raises (the noise
+    must not silently vanish); with ``read_noise_sigma == 0`` the cell
+    model's implied sigma applies when an rng is given, and without one
+    the model is the deterministic ADC-only transfer, with a
+    once-per-process warning."""
+    sigma = cfg.read_noise_sigma
+    if sigma > 0.0 and rng is None:
+        raise ValueError(
+            "analog substrate with an explicit read_noise_sigma > 0 "
+            "requires an rng (pass rng=, or leave read_noise_sigma=0 for "
+            "the deterministic ADC-only readout)")
+    if sigma == 0.0:
+        global _warned_noiseless_analog
+        if rng is None and not _warned_noiseless_analog:
+            _warned_noiseless_analog = True
+            warnings.warn(
+                "analog readout without an rng models the deterministic "
+                "transfer only (ADC quantization, no transmission noise); "
+                "pass rng= for the noise study", stacklevel=3)
+        sigma = _IMPLIED_READ_NOISE_SIGMA
+    return sigma
+
+
+def _analog_inputs(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
+                   rng: Optional[torch.Generator]):
+    """Shared analog-substrate prep: dynamic activation quantization,
+    act-plane padding to the plan's layout, the WDM chunk length, the
+    effective noise sigma (0 without an rng) and the noise seed, a host
+    int drawn from ``rng`` (a CPU ``torch.Generator``; no device sync)."""
+    a_q, a_planes = _quantize_activations(x2, cfg)
+    # wdm_chunk <= 0 means one chunk spans all of K, as in programming
+    chunk = min(cfg.wdm_chunk, plan.k) if cfg.wdm_chunk > 0 else plan.k
+    sigma = _resolve_analog_sigma(cfg, rng)
+    seed = None
+    if rng is not None:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng,
+                                 device="cpu"))
+    return (a_q, _pad_act_planes(a_planes, plan), chunk,
+            sigma if rng is not None else 0.0, seed)
+
+
+def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
+                    bias: Optional[torch.Tensor] = None,
+                    rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``analog`` substrate: the plain readout model (the kernel's plain
+    version, folded over chunk blocks); the bias is added after the
+    slice."""
+    a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng)
+    out = analog_readout_fused_ref(
+        a_planes, plan.planes, a_q.scale, plan.padded_scale, chunk,
+        cfg.adc_bits, sigma=sigma, seed=seed)[:, :plan.n]
+    if bias is not None:
+        out = out + bias.to(torch.float32).reshape(1, -1)
+    return out
+
+
+def analog_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
+                         bias: Optional[torch.Tensor] = None,
+                         rng: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """``analog-cuda`` substrate: the two-pass hand-written kernel, bias
+    fused (counterpart of ``analog_pallas_matmul2d``). Bit-identical to
+    :func:`analog_matmul2d` for the same rng state, with or without a
+    bias, up to the noise normals' transcendental ulps. On CPU tensors
+    the same call runs the plain version."""
+    a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng)
+    out = analog_ops.analog_matmul_fused(
+        a_planes, plan.planes, a_q.scale, plan.padded_scale, seed,
+        _pad_bias(bias, plan), chunk=chunk, adc_bits=cfg.adc_bits,
+        sigma=sigma)
+    return out[:, :plan.n]
 
 
 # ---------------------------------------------------------------------------

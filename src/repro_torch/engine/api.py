@@ -37,13 +37,17 @@ def program(w: torch.Tensor, cfg: pim.PimConfig = pim.DEFAULT_PIM, *,
 
 def matmul(x: torch.Tensor, plan: pim.Plan, *,
            cfg: Optional[pim.PimConfig] = None,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None,
+           rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Drive activations past a programmed plan — no mode flags.
 
     The route is the plan's recorded substrate, overridable with an
     explicit ``cfg``. Dense plans take x (..., K) -> (..., N), depthwise
     plans x (..., K, C) -> (..., C); ``bias`` is an optional (N,) dense
-    bias, fused into the kernel epilogue on ``exact-cuda``.
+    bias, fused into the kernel epilogue on ``exact-cuda`` and
+    ``analog-cuda``. ``rng`` is an optional CPU ``torch.Generator`` that
+    keys the analog substrates' transmission noise (the other substrates
+    ignore it).
 
     An override ``cfg`` must agree with the plan's programmed weight
     width: the planes were decomposed at ``plan.bits`` and cannot be
@@ -60,4 +64,4 @@ def matmul(x: torch.Tensor, plan: pim.Plan, *,
             "into the plan at programming time — build the override with "
             "dataclasses.replace(plan.cfg, ...) to change only the route")
     sub = get_substrate(cfg.resolved_substrate)
-    return sub.matmul(x, plan, cfg=cfg, bias=bias)
+    return sub.matmul(x, plan, cfg=cfg, bias=bias, rng=rng)

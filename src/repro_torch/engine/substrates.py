@@ -14,9 +14,18 @@ Registered substrates:
   ``exact-torch``  the same integer math in plain PyTorch — bit-identical
                    to ``exact-cuda``, with or without a bias (alias
                    ``exact-jnp``).
+  ``analog``       the paper's physical readout model (per-WDM-chunk
+                   photodetector sums, transmission noise, a shared
+                   auto-ranged ADC, integer code accumulation) in plain
+                   PyTorch, folded over chunk blocks.
+  ``analog-cuda``  the same readout model through the two-pass
+                   hand-written Hopper kernel, bias fused; bit-identical
+                   to ``analog`` with ``rng=None`` (alias
+                   ``analog-pallas``).
   ``emulate``      weight-quantization-only float matmul.
 
-The analog substrates come with the port's analog slice.
+``rng`` is an optional CPU ``torch.Generator``; only the analog
+substrates read it (transmission noise).
 """
 from __future__ import annotations
 
@@ -62,7 +71,8 @@ class Substrate:
     # -- execution --------------------------------------------------------
     def matmul(self, x: torch.Tensor, plan: pim.Plan, *,
                cfg: Optional[pim.PimConfig] = None,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None,
+               rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Dense plans take x (..., K) -> (..., N); depthwise plans take
         x (..., K, C) -> (..., C)."""
         cfg = plan.cfg if cfg is None else cfg
@@ -76,27 +86,27 @@ class Substrate:
             return self._depthwise(x, plan, cfg)
         if not isinstance(plan, pim.DensePlan):
             raise TypeError(f"unsupported plan type {type(plan).__name__}")
-        return self._dense_nd(x, plan, cfg, bias)
+        return self._dense_nd(x, plan, cfg, bias, rng)
 
     def _dense_nd(self, x: torch.Tensor, plan: pim.DensePlan,
-                  cfg: pim.PimConfig, bias: Optional[torch.Tensor]
-                  ) -> torch.Tensor:
+                  cfg: pim.PimConfig, bias: Optional[torch.Tensor],
+                  rng: Optional[torch.Generator]) -> torch.Tensor:
         orig_shape = tuple(x.shape)
         k = orig_shape[-1]
         if k != plan.k:
             raise ValueError(f"contraction mismatch {k} vs plan {plan.k}")
-        out = self._dense2d(x.reshape(-1, k), plan, cfg, bias)
+        out = self._dense2d(x.reshape(-1, k), plan, cfg, bias, rng)
         return out.reshape(orig_shape[:-1] + (plan.n,))
 
     def _dense2d(self, x2: torch.Tensor, plan: pim.DensePlan,
-                 cfg: pim.PimConfig, bias: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
+                 cfg: pim.PimConfig, bias: Optional[torch.Tensor],
+                 rng: Optional[torch.Generator]) -> torch.Tensor:
         raise NotImplementedError
 
     def _depthwise(self, x: torch.Tensor, plan: pim.DepthwisePlan,
                    cfg: pim.PimConfig) -> torch.Tensor:
-        # depthwise K = kh*kw taps: every exact substrate runs the
-        # per-channel integer math
+        # depthwise filters (K = kh*kw taps) fit below one WDM chunk, so
+        # every substrate but ``emulate`` runs the exact per-channel math
         return pim.depthwise_exact_matmul(x, plan, cfg)
 
 
@@ -106,7 +116,7 @@ class ExactCudaSubstrate(Substrate):
     name = pim.EXACT_CUDA
     is_exact = True
 
-    def _dense2d(self, x2, plan, cfg, bias):
+    def _dense2d(self, x2, plan, cfg, bias, rng):
         return pim.exact_cuda_matmul2d(x2, plan, cfg, bias)
 
 
@@ -116,8 +126,31 @@ class ExactTorchSubstrate(Substrate):
     name = pim.EXACT_TORCH
     is_exact = True
 
-    def _dense2d(self, x2, plan, cfg, bias):
+    def _dense2d(self, x2, plan, cfg, bias, rng):
         return pim.exact_torch_matmul2d(x2, plan, cfg, bias)
+
+
+class AnalogSubstrate(Substrate):
+    """Physical-readout model in plain PyTorch: PD chunk sums + noise +
+    ADC quantization + integer code accumulation."""
+
+    name = pim.ANALOG
+    is_exact = False
+
+    def _dense2d(self, x2, plan, cfg, bias, rng):
+        return pim.analog_matmul2d(x2, plan, cfg, bias, rng)
+
+
+class AnalogCudaSubstrate(Substrate):
+    """The same readout model through the two-pass CUDA kernel. Plans are
+    interchangeable with ``analog``; with ``rng=None`` the outputs are
+    bit-identical."""
+
+    name = pim.ANALOG_CUDA
+    is_exact = False
+
+    def _dense2d(self, x2, plan, cfg, bias, rng):
+        return pim.analog_cuda_matmul2d(x2, plan, cfg, bias, rng)
 
 
 class EmulateSubstrate(Substrate):
@@ -129,7 +162,7 @@ class EmulateSubstrate(Substrate):
     is_exact = False
     integer_datapath = False
 
-    def _dense2d(self, x2, plan, cfg, bias):
+    def _dense2d(self, x2, plan, cfg, bias, rng):
         return pim.emulate_matmul2d(x2, plan, cfg, bias)
 
     def _depthwise(self, x, plan, cfg):
@@ -171,4 +204,6 @@ def available_substrates() -> Tuple[str, ...]:
 
 register_substrate(ExactCudaSubstrate())
 register_substrate(ExactTorchSubstrate())
+register_substrate(AnalogSubstrate())
+register_substrate(AnalogCudaSubstrate())
 register_substrate(EmulateSubstrate())

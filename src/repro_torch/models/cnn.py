@@ -16,6 +16,7 @@ pool is never bridged before the flatten head).
 """
 from __future__ import annotations
 
+import zlib
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -92,15 +93,26 @@ class _Executor:
     drives activations past the stationary plan via
     :func:`repro_torch.engine.matmul`, with the layer bias fused into the
     kernel's dequant epilogue.
+
+    ``rng`` (a CPU ``torch.Generator``) keys the analog substrates'
+    noise: one 31-bit base seed is drawn from it per forward, and every
+    layer gets its own generator seeded with that base XOR the CRC-32 of
+    its name, so same-shaped layers draw independent noise and the same
+    generator state gives the same logits. (The seed stays within 32
+    bits: PyTorch's CPU generator keeps only the low 32 bits of a seed.)
     """
 
     def __init__(self, params: Params, quant_bits: int = 0,
                  pim: Optional[PimConfig] = None,
-                 plans: Optional[Dict[str, Any]] = None):
+                 plans: Optional[Dict[str, Any]] = None,
+                 rng: Optional[torch.Generator] = None):
         self.params = params
         self.quant_bits = quant_bits
         self.pim = pim
         self._plans: Dict[str, Any] = {} if plans is None else plans
+        self._rng_base = None if rng is None else int(
+            torch.randint(0, 2 ** 31 - 1, (1,), generator=rng,
+                          device="cpu"))
 
     def _plan(self, name: str, w: torch.Tensor, depthwise: bool = False):
         plan = self._plans.get(name)
@@ -110,6 +122,12 @@ class _Executor:
             self._plans[name] = plan
         return plan
 
+    def _layer_rng(self, name: str) -> Optional[torch.Generator]:
+        if self._rng_base is None:
+            return None
+        return torch.Generator().manual_seed(
+            self._rng_base ^ zlib.crc32(name.encode()))
+
     def matmul(self, x: torch.Tensor, w: torch.Tensor, per_col_axis,
                name: str, bias: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
@@ -117,7 +135,7 @@ class _Executor:
             w = fake_quantize(w, self.quant_bits, axis=per_col_axis)
         if self.pim is not None:
             return engine.matmul(x, self._plan(name, w), cfg=self.pim,
-                                 bias=bias)
+                                 bias=bias, rng=self._layer_rng(name))
         y = x @ w
         return y if bias is None else y + bias
 
@@ -179,12 +197,14 @@ def plan_cnn_weights(params: Params, layers: Sequence[LayerSpec],
 
 def cnn_forward(params: Params, layers: Sequence[LayerSpec], x: torch.Tensor,
                 quant_bits: int = 0, pim: Optional[PimConfig] = None,
+                rng: Optional[torch.Generator] = None,
                 plans: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """x: (B, H, W, 3) NHWC float -> logits (B, classes)."""
+    """x: (B, H, W, 3) NHWC float -> logits (B, classes). ``rng``, a CPU
+    ``torch.Generator``, turns on the analog substrates' noise."""
     if plans is not None and quant_bits:
         raise ValueError("precomputed plans capture raw float weights; they "
                          "cannot honor quant_bits — pass one or the other")
-    ex = _Executor(params, quant_bits, pim, plans)
+    ex = _Executor(params, quant_bits, pim, plans, rng)
     specs = list(layers)
     i = 0
     while i < len(specs):

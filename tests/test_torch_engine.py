@@ -150,7 +150,8 @@ def test_emulate_matches_jax():
 
 
 def test_registry_and_aliases():
-    assert engine.available_substrates() == ("emulate", "exact-cuda",
+    assert engine.available_substrates() == ("analog", "analog-cuda",
+                                             "emulate", "exact-cuda",
                                              "exact-torch")
     assert engine.get_substrate("exact-pallas").name == "exact-cuda"
     assert engine.get_substrate("exact-jnp").name == "exact-torch"
@@ -165,7 +166,7 @@ def test_registry_and_aliases():
     class Doubling(engine.Substrate):
         name = "test-doubling"
 
-        def _dense2d(self, x2, plan, cfg, bias):
+        def _dense2d(self, x2, plan, cfg, bias, rng):
             return 2 * pim.exact_torch_matmul2d(x2, plan, cfg, bias)
 
     engine.register_substrate(Doubling())

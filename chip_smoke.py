@@ -40,10 +40,33 @@ package. Phases, each of which raises on failure:
    kernels named, and per shape, on the inputs the path gave it, each
    pass's time, launches, bound and plain-version time;
 7. the ADC ablation and Table II (``repro_torch.benchmarks_impl.table2``)
-   on the card, printing their rows.
+   on the card, printing their rows;
+8. the SSD scan kernel against its plain version (the chunked form, or
+   the sequential recurrence for a ragged length) and the sequential
+   recurrence, within the tolerance stated at ``SSD_RTOL``, at
+   hymba-1.5b's and mamba2-370m's scan shapes, a ragged one and the
+   long-decay case, with its time at each;
+9. the LM path: hymba-1.5b at full width (32 layers, d_model 1600, random
+   weights from seed 0), its float prefill logits through the SSD kernel
+   against the chunked route (within ``LM_FLOAT_TOL``), then programmed
+   once at w4a4 on ``exact-cuda`` and served with
+   ``ssd_backend="cuda"`` by the static loop of
+   ``repro_torch.launch.serve`` (batch 8, prompt 512, 16 new tokens):
+   32 SSD launches per prefill and none per decode step, 7 x 32 PIM
+   launches per prefill and per decode step, no analog launch; prefill
+   logits bit-identical to ``exact-torch``; the PIM route's logit gap and
+   greedy agreement against the chunked SSD route, reported; prefill and
+   decode times, tokens/s, peak memory, a profile by stage, and the PIM
+   kernel at the path's shapes (bit for bit, then timed);
+10. ``repro_torch.launch.serve.serve("hymba-1.5b", ..., pim=True)`` itself
+    at full width (default ``ssd_backend="chunked"``);
+11. mamba2-370m at full width (48 layers) with ``ssd_backend="cuda"``: 48
+    SSD launches per prefill, its prefill logits against the chunked
+    route, and the request's time.
 
 Each path's launch counts are set to 0 just before its requests and read
-just after. It prints a ``{"kernels": [...]}`` line, then the device line
+just after. It prints a ``{"kernels": [...]}`` line (one entry per kernel
+and path), then the device line
 ``{"ok": true, "device": {...}}`` last. ``--json PATH`` also writes every
 number of the run (per-shape timings, the profiles, the study rows) to
 ``PATH``.
@@ -75,7 +98,9 @@ CHECK_SHAPES = {                 # (M, K, N) as the kernel sees them
 }
 KERNEL_SOURCE = "src/repro_torch/csrc/pim_matmul.cu"
 ANALOG_SOURCE = "src/repro_torch/csrc/analog_readout.cu"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 REPLACES = {
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:67",
     "pim_matmul_fused": "src/repro/kernels/pim_matmul/pim_matmul.py:227",
     "pim_matmul_int": "src/repro/kernels/pim_matmul/pim_matmul.py:108",
     "analog_fullscale":
@@ -97,6 +122,27 @@ NOISE_SEED = 1234
 # relative, at most NOISY_SHARE of the outputs may differ, and each by at
 # most 2 codes of the top shift level.
 NOISY_SHARE = 1e-3
+# The LM paths: static serving of batch 8, prompt 512, 16 new tokens
+LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = 8, 512, 16, 3
+# SSD kernel checks, (BH, L, P, N, chunk, decay): hymba-1.5b's and
+# mamba2-370m's scans at that batch and prompt, a ragged tail, and the
+# long-decay case (a = 1e-6, where exp(cl_i - cl_j) above the diagonal
+# overflows). The kernel must agree with its plain version (the chunked
+# form, or the sequential recurrence where L % chunk != 0) within JAX's
+# own kernel-vs-oracle bound, |got - want| <= SSD_ATOL + SSD_RTOL * |want|:
+# float32 sums in another order.
+SSD_CHECKS = {
+    "hymba": (400, 512, 64, 16, 128, None),
+    "mamba2": (256, 512, 64, 128, 128, None),
+    "ragged": (400, 600, 64, 16, 128, None),
+    "long_decay": (400, 512, 64, 16, 128, 1e-6),
+}
+SSD_RTOL, SSD_ATOL = 2e-4, 2e-5
+# Float-path prefill logits of the SSD kernel route against the chunked
+# plain route, through every layer of the model: each layer's scan
+# differs within the bound above, and the gap may grow through depth, so
+# the logits are held to |gap| <= LM_FLOAT_TOL * max |logit|.
+LM_FLOAT_TOL = 1e-3
 
 
 def log(*args):
@@ -455,15 +501,18 @@ def capture_analog_inputs(aops, run):
     return seen
 
 
-def shape_numbers(torch, dev, kern, ref, shapes):
+def shape_numbers(torch, dev, kern, ref, shapes, with_bias=True):
     """Per main-path shape: kernel, plain and library times beside the
-    bound, at w4a4 (one plane pair), with the main path's bias."""
+    bound, at w4a4 (one plane pair), with the main path's bias (the CNN
+    path has one, the LM path none)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
     for (m, k, n), count in sorted(shapes.items(), key=lambda s: -s[0][0]):
         a = planes(torch, gen, 1, m, k, dev)
         w = planes(torch, gen, 1, k, n, dev)
         a_s, w_s, bias = scales(torch, gen, m, n, dev)
+        if not with_bias:
+            bias = None
         row = {"M": m, "K": k, "N": n, "launches_per_request": count}
         args = (a, w, a_s, w_s, bias)
         row["fused_ms"] = time_ms(
@@ -474,12 +523,14 @@ def shape_numbers(torch, dev, kern, ref, shapes):
         row["int_plain_ms"] = time_ms(
             torch, lambda: ref.pim_matmul_ref(a, w))
         row["fused_bound_ms"], row["fused_bound_by"] = bound(
-            1, 1, m, k, n, 4, 4 * m + 8 * n)
+            1, 1, m, k, n, 4, 4 * m + (8 if with_bias else 4) * n)
         row["int_bound_ms"], row["int_bound_by"] = bound(1, 1, m, k, n, 4, 0)
         # torch._int_mm takes M > 16 and K, N multiples of 8
         if m > 16 and k % 8 == 0 and n % 8 == 0:
-            lib_fused = lambda: torch._int_mm(a[0], w[0]).float() * a_s * \
-                w_s + bias
+            lib_fused = (lambda: torch._int_mm(a[0], w[0]).float() * a_s
+                         * w_s) if bias is None else \
+                (lambda: torch._int_mm(a[0], w[0]).float() * a_s * w_s
+                 + bias)
             max_err(torch, lib_fused(),
                     kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias))
             row["fused_library_ms"] = time_ms(torch, lib_fused)
@@ -578,13 +629,16 @@ ANALOG_KERNELS = {  # demangled and mangled template names of each pass
 }
 
 
-def profile_request(torch, modules, run, kernels, what):
+def profile_request(torch, modules, run, kernels, what, profiled=PROFILED,
+                    nested=None):
     """Device time of one request by stage, and the device's idle share,
     from torch.profiler. The stages are named ranges wrapped around the
-    port's functions for this run only, plus each kernel of ``kernels``
-    (label -> name fragments) by name; "other" is the rest of the busy
-    time (relu, residual adds, pooling, means, bias padding, output
-    allocation and slicing)."""
+    port's functions for this run only (``profiled``: module key,
+    attribute, label), plus each kernel of ``kernels`` (label -> name
+    fragments) by name; ``nested`` maps a range's label to the kernel
+    labels inside it, whose time it does not count. "other" is the rest of
+    the busy time (on the CNN path relu, residual adds, pooling, means,
+    bias padding, output allocation and slicing)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def ranged(fn, label):
@@ -594,8 +648,8 @@ def profile_request(torch, modules, run, kernels, what):
         return wrapper
 
     saved = [(modules[m], attr, getattr(modules[m], attr))
-             for m, attr, _ in PROFILED]
-    for (mod, attr, fn), (_, _, label) in zip(saved, PROFILED):
+             for m, attr, _ in profiled]
+    for (mod, attr, fn), (_, _, label) in zip(saved, profiled):
         setattr(mod, attr, ranged(fn, label))
     try:
         run()
@@ -608,8 +662,14 @@ def profile_request(torch, modules, run, kernels, what):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     events = list(prof.events())
+    labels = {label for _, _, label in profiled}
+    # the ranges also appear on the device timeline as user annotations
+    # that span from their first kernel to their last, idle gaps
+    # included; they are not device work
     device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in labels]
     if not device:
         log("profile: the profiler saw no device activity; device busy "
             "time and stage breakdown not measured")
@@ -625,33 +685,47 @@ def profile_request(torch, modules, run, kernels, what):
     busy += cur_e - cur_s
     window = max(e.time_range.end for e in events) - \
         min(e.time_range.start for e in events)
+    # a stage is the device time of the kernels launched inside its
+    # host-side range (the profiler's correlation of launch and kernel)
     stages = {}
-    for avg in prof.key_averages():
-        for _, _, label in PROFILED:
-            if avg.key == label:
-                stages[label] = getattr(avg, "device_time_total", None) \
-                    or getattr(avg, "cuda_time_total", 0.0)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name in labels:
+            stages[e.name] = stages.get(e.name, 0.0) + e.device_time_total
+    by_name = Counter()
+    launches = Counter()
+    for e in device:
+        by_name[e.name] += e.time_range.elapsed_us()
+        launches[e.name] += 1
+    top = [{"kernel": name[:120], "ms": us / 1e3, "count": launches[name]}
+           for name, us in by_name.most_common(12)]
     for label, fragments in kernels.items():
         stages[label] = sum(e.time_range.elapsed_us() for e in device
                             if any(f in e.name for f in fragments))
         if not stages[label]:
             raise AssertionError(f"the profile of one {what} request shows "
                                  f"no {label}")
+    for outer, inner in (nested or {}).items():
+        stages[outer] = stages.get(outer, 0.0) - sum(stages[k] for k in inner)
     stages = {k: v / 1e3 for k, v in stages.items()}
     stages["other"] = busy / 1e3 - sum(stages.values())
     result = {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
               "device_idle_share": 1.0 - busy / window,
-              "stages_ms": stages}
+              "device_events": len(device), "stages_ms": stages,
+              "top_device_events": top}
     log(f"profile of one {what} request: device busy {busy / 1e3:.3f} ms "
         f"of a "
         f"{window / 1e3:.3f} ms profiled window (idle share "
-        f"{result['device_idle_share']:.3f}); by stage: "
+        f"{result['device_idle_share']:.3f}, {len(device)} device events);"
+        " by stage: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    log("  top device events: " + "; ".join(
+        f"{t['kernel'][:60]} {t['ms']:.3f} ms x{t['count']}" for t in top))
     return result
 
 
 def kernel_entry(name, prefix, rows, launches, err, source=KERNEL_SOURCE,
-                 per=None):
+                 per=None, path="resnet18 exact"):
     """Per-request totals over the path's launches of each shape."""
     tot = lambda key: sum(r[key] * r["launches_per_request"] for r in rows)
     lib_rows = [r for r in rows if r[f"{prefix}_library_ms"] is not None]
@@ -660,7 +734,7 @@ def kernel_entry(name, prefix, rows, launches, err, source=KERNEL_SOURCE,
         bound_by[r[f"{prefix}_bound_by"]] += \
             r[f"{prefix}_bound_ms"] * r["launches_per_request"]
     return {
-        "name": name, "route": "cuda", "source": source,
+        "name": name, "path": path, "route": "cuda", "source": source,
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": err[name], "ms": tot(f"{prefix}_ms"),
         "plain_ms": tot(f"{prefix}_plain_ms"),
@@ -682,6 +756,446 @@ ANALOG_PER = ("one analog-path request (batch 128, w4a4, 5-bit ADC): sum "
               "single PyTorch call computes the per-chunk ADC readout chain "
               "(chunk sums, shared full scale, per-chunk rounding, code "
               "sums)")
+
+
+# ---------------------------------------------------------------------------
+# The LM paths: the SSD scan kernel, hymba-1.5b served on the PIM engine,
+# the serve() entry point, mamba2-370m
+# ---------------------------------------------------------------------------
+def ssd_inputs(torch, dev, bh, l, p, n, seed, decay=None):
+    """x, a, b, c as the tests make them: unit normals, decays
+    sigmoid(z + 2) (or a constant), b and c scaled by 1/sqrt(N)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((bh, l, p), generator=gen, device=dev)
+    a = torch.sigmoid(torch.randn((bh, l), generator=gen, device=dev) + 2.0) \
+        if decay is None else torch.full((bh, l), decay, device=dev)
+    b = torch.randn((bh, l, n), generator=gen, device=dev) / n ** 0.5
+    c = torch.randn((bh, l, n), generator=gen, device=dev) / n ** 0.5
+    return x, a, b, c
+
+
+def ssd_plain(sref, x, a, b, c, chunk):
+    """The kernel's plain version: the chunked form, or the sequential
+    recurrence for a ragged length (what the ops route takes on the CPU)."""
+    if x.shape[1] % chunk:
+        return sref.ssd_scan_ref(x, a, b, c)
+    return sref.ssd_chunked_ref(x, a, b, c, chunk)
+
+
+def ssd_bound(bh, l, p, n, chunk):
+    """Least time (ms) of one scan: the bytes of x, a, b, c read once and
+    y and the final state written once, at HBM bandwidth; the float32
+    multiply-adds the chunked form needs (the causal half of the two
+    Q x Q products, the inter-chunk product and the state update, for the
+    chunk lengths of this L) at the CUDA cores' peak. Returns
+    (ms, "bytes" | "operations")."""
+    moved = 4 * bh * (2 * l * p + l + 2 * l * n + n * p)
+    flops = 0
+    for start in range(0, l, chunk):
+        q = min(chunk, l - start)
+        tri = q * (q + 1) // 2
+        flops += 2 * (tri * n + tri * p + 2 * q * n * p)
+    flops *= bh
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_gap(torch, got, want):
+    """Max |got - want| over (y, state), raising outside the stated
+    tolerance |got - want| <= SSD_ATOL + SSD_RTOL * |want|."""
+    gap = 0.0
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).abs()
+        limit = SSD_ATOL + SSD_RTOL * w.double().abs()
+        if not bool(torch.isfinite(g).all()) or bool((diff > limit).any()):
+            raise AssertionError(
+                f"SSD kernel outside rtol {SSD_RTOL}, atol {SSD_ATOL} of its "
+                f"plain version: max |diff| {diff.max().item()}, worst "
+                f"excess {(diff - limit).max().item()}")
+        gap = max(gap, diff.max().item())
+    return gap
+
+
+def ssd_time_row(torch, skern, sref, label, args, chunk, count):
+    """Kernel, plain and bound times of one scan on ``args``."""
+    x = args[0]
+    bh, l, p = x.shape
+    n = args[2].shape[-1]
+    row = {"shape": label, "BH": bh, "L": l, "P": p, "N": n, "chunk": chunk,
+           "launches_per_request": count}
+    row["ms"] = time_ms(torch, lambda: skern.ssd_scan_cuda(*args, chunk))
+    row["plain_ms"] = time_ms(torch, lambda: ssd_plain(sref, *args, chunk))
+    row["bound_ms"], row["bound_by"] = ssd_bound(bh, l, p, n, chunk)
+    log(f"ssd_scan {label} BH={bh} L={l} P={p} N={n} Q={chunk}: kernel "
+        f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}, plain {row['plain_ms']:.4f} ms)")
+    return row
+
+
+def ssd_kernel_phase(torch, dev, skern, sref):
+    """(a) The SSD kernel against its plain version on every SSD_CHECKS
+    shape, and against the sequential recurrence too; then its time at
+    each shape."""
+    err, rows = 0.0, []
+    for seed, (label, (bh, l, p, n, q, decay)) in enumerate(
+            SSD_CHECKS.items()):
+        args = ssd_inputs(torch, dev, bh, l, p, n, seed, decay)
+        got = skern.ssd_scan_cuda(*args, q)
+        torch.cuda.synchronize()
+        gap = ssd_gap(torch, got, ssd_plain(sref, *args, q))
+        gap_seq = ssd_gap(torch, got, sref.ssd_scan_ref(*args))
+        err = max(err, gap)
+        log(f"ssd check {label} BH={bh} L={l} P={p} N={n} Q={q}"
+            + (f" a={decay}" if decay else "") + f": within rtol "
+            f"{SSD_RTOL}, atol {SSD_ATOL} of the plain version (max |diff| "
+            f"{gap:.3g}) and of the sequential recurrence ({gap_seq:.3g})")
+        rows.append(ssd_time_row(torch, skern, sref, label, args, q, 0))
+        del args, got
+        torch.cuda.empty_cache()
+    return err, rows
+
+
+def capture_ssd_inputs(sops, run):
+    """The SSD kernel's inputs at its first launch in ``run``."""
+    seen = []
+    original = sops.ssd_scan_cuda
+
+    def recording(x, a, b, c, chunk):
+        if not seen:
+            seen.append(((x, a, b, c), chunk))
+        return original(x, a, b, c, chunk)
+
+    sops.ssd_scan_cuda = recording
+    try:
+        run()
+    finally:
+        sops.ssd_scan_cuda = original
+    return seen[0]
+
+
+def lm_tokens(torch, dev, vocab):
+    """The prompt batch serve() makes: numpy's default_rng(0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(
+        0, vocab, size=(LM_BATCH, LM_PROMPT))).to(dev)
+
+
+def logit_gap(torch, got, want, vocab, what, tol=None):
+    """Max |gap| of two (B, V) logit tensors over the first ``vocab``
+    entries (the rest are the -1e30 vocab padding) and their greedy
+    agreement; with ``tol``, raise unless |gap| <= tol * max |want|."""
+    got, want = got[:, :vocab], want[:, :vocab]
+    gap = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).double().mean().item()
+    log(f"{what}: max |logit gap| {gap:.4g} (max |logit| {scale:.4g}), "
+        f"greedy agreement {agree:.3f}")
+    if not bool(torch.isfinite(got).all()) or \
+            (tol is not None and gap > tol * scale):
+        raise AssertionError(f"{what}: gap {gap} above {tol} x {scale}")
+    return {"max_abs_gap": gap, "max_abs_logit": scale,
+            "greedy_agreement": agree}
+
+
+def with_substrate(planned, substrate):
+    """The planned tree with every plan re-stamped to ``substrate``."""
+    import dataclasses
+    if isinstance(planned, dict):
+        return {k: with_substrate(v, substrate) for k, v in planned.items()}
+    if isinstance(planned, list):
+        return [dataclasses.replace(p, cfg=dataclasses.replace(
+            p.cfg, substrate=substrate)) for p in planned]
+    return planned
+
+
+def lm_plan_shapes(planned):
+    """(M, K, N) as the PIM kernel sees them -> launches per request
+    (one prefill of B * S rows, LM_GEN decode steps of B rows)."""
+    shapes = Counter()
+    for blk in ("attn", "mlp"):
+        for plans in planned["layers"][blk].values():
+            if not isinstance(plans, list):
+                continue
+            for plan in plans:
+                k, n = plan.planes.shape[1:]
+                shapes[(LM_BATCH * LM_PROMPT, k, n)] += 1
+                shapes[(LM_BATCH, k, n)] += LM_GEN
+    return shapes
+
+
+def lm_kernel_checks(torch, dev, kern, ref, shapes):
+    """The PIM kernel at the LM path's shapes (w4a4, no bias, as serving
+    drives it), bit for bit against its plain version."""
+    err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for m, k, n in sorted(shapes):
+        a = planes(torch, gen, 1, m, k, dev)
+        w = planes(torch, gen, 1, k, n, dev)
+        a_s, w_s, _ = scales(torch, gen, m, n, dev)
+        err = max(err, max_err(torch, kern.pim_matmul_fused_cuda(
+            a, w, a_s, w_s), ref.pim_matmul_fused_ref(a, w, a_s, w_s)))
+    log(f"kernel check at the {len(shapes)} LM path shapes (w4a4, no bias):"
+        " fused bit-exact")
+    return err
+
+
+def lm_serve_requests(torch, serve_mod, params, cfg, tokens, counters):
+    """A warm-up, then LM_REQUESTS requests through the static serving
+    loop, launch counts set to 0 just before and read just after;
+    per-request prefill and decode times (CUDA events)."""
+    serve_mod.static_loop(params, cfg, tokens, LM_GEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters)
+    outs = [serve_mod.static_loop(params, cfg, tokens, LM_GEN)
+            for _ in range(LM_REQUESTS)]
+    torch.cuda.synchronize()
+    launches = read_counts(*counters)
+    for generated, _, _, logits in outs:
+        if tuple(generated.shape) != (LM_BATCH, LM_GEN) or \
+                tuple(logits.shape) != (LM_BATCH, cfg.padded_vocab) or \
+                not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            raise AssertionError("bad serve output")
+        if not torch.equal(generated, outs[0][0]):
+            raise AssertionError("repeated requests generated other tokens")
+    prefill_ms = [o[1] * 1e3 for o in outs]
+    decode_ms = [o[2] * 1e3 / LM_GEN for o in outs]
+    request_ms = [p + d * LM_GEN for p, d in zip(prefill_ms, decode_ms)]
+    return outs[0], {
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "prefill_ms_median": statistics.median(prefill_ms),
+        "decode_ms_per_token_median": statistics.median(decode_ms),
+        "request_ms_median": statistics.median(request_ms),
+        "tokens_per_s": LM_BATCH * LM_GEN
+        / (statistics.median(request_ms) / 1e3),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches}
+
+
+def phase_counts(torch, lm, params, cfg, tokens, counters):
+    """Launch counts of one prefill and of one decode step alone."""
+    reset_counts(*counters)
+    logits, cache = lm.prefill(params, cfg, {"tokens": tokens},
+                               LM_PROMPT + LM_GEN)
+    torch.cuda.synchronize()
+    pre = read_counts(*counters)
+    reset_counts(*counters)
+    lm.decode_step(params, cfg, cache, logits.argmax(-1)[:, None],
+                   LM_PROMPT)
+    torch.cuda.synchronize()
+    return pre, read_counts(*counters)
+
+
+LM_PROFILED = (  # (module, attribute, range name) wrapped while profiling
+    ("pim", "_quantize_activations", "quantize+nibbles"),
+    ("attention", "_sdpa", "attention"),
+    ("ssm", "ssm_apply", "ssm glue"),
+    ("ssm", "ssm_step", "ssm glue"),
+    ("ssm", "_project", "ssm in-projections (float32 GEMMs)"),
+)
+LM_KERNELS = {"pim_matmul kernel": ("pim_matmul_kernel",),
+              "ssd_scan kernel": ("ssd_scan_kernel",)}
+
+
+def hymba_path(torch, dev, mods, counters):
+    """(b) hymba-1.5b at full width (32 layers, d_model 1600), random
+    weights from seed 0, programmed once at w4a4 on exact-cuda, served
+    with ssd_backend="cuda": launch counts, the float-path and PIM-path
+    comparisons with the chunked route, exact-cuda against exact-torch,
+    and the numbers."""
+    import dataclasses
+    lm, serve_mod, pim, configs = (mods["lm"], mods["serve"], mods["pim"],
+                                   mods["configs"])
+    cfg = dataclasses.replace(configs.get_config("hymba-1.5b"),
+                              ssd_backend="cuda")
+    chunked = dataclasses.replace(cfg, ssd_backend="chunked")
+    params = lm.init_lm(cfg, 0, device=dev)
+    tokens = lm_tokens(torch, dev, cfg.vocab_size)
+    out = {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "batch": LM_BATCH,
+                      "prompt": LM_PROMPT, "gen": LM_GEN, "bits": "w4a4"}}
+
+    float_kernel, _ = lm.prefill(params, cfg, {"tokens": tokens},
+                                 LM_PROMPT + LM_GEN)
+    float_plain, _ = lm.prefill(params, chunked, {"tokens": tokens},
+                                LM_PROMPT + LM_GEN)
+    out["float_prefill_cuda_vs_chunked"] = logit_gap(
+        torch, float_kernel, float_plain, cfg.vocab_size,
+        "hymba float prefill, ssd cuda vs chunked", tol=LM_FLOAT_TOL)
+    del float_plain
+
+    t0 = time.perf_counter()
+    planned = serve_mod.plan_params_for_pim(
+        params, pim.PimConfig(weight_bits=4, act_bits=4,
+                              substrate="exact-cuda"))
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    (generated, _, _, logits), numbers = lm_serve_requests(
+        torch, serve_mod, planned, cfg, tokens, counters)
+    out.update(numbers)
+    per_step = 7 * cfg.num_layers
+    want = {"ssd_scan": cfg.num_layers * LM_REQUESTS,
+            "pim_matmul_fused": per_step * (1 + LM_GEN) * LM_REQUESTS}
+    got = numbers["launches"]
+    if any(got[k] != v for k, v in want.items()) or any(
+            got[k] for k in got if k not in want):
+        raise AssertionError(f"hymba launches {got}, expected {want} and "
+                             "no other kernel")
+    pre, step = phase_counts(torch, lm, planned, cfg, tokens, counters)
+    if pre["ssd_scan"] != cfg.num_layers or step["ssd_scan"] or \
+            pre["pim_matmul_fused"] != per_step or \
+            step["pim_matmul_fused"] != per_step:
+        raise AssertionError(f"per-phase launches: prefill {pre}, one "
+                             f"decode step {step}")
+    out["launches_prefill"], out["launches_decode_step"] = pre, step
+    log(f"hymba path: {LM_REQUESTS} requests of batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, {LM_GEN} new tokens, finite logits; launches per "
+        f"prefill {pre['ssd_scan']} ssd_scan + {pre['pim_matmul_fused']} "
+        f"pim_matmul_fused, per decode step {step['ssd_scan']} + "
+        f"{step['pim_matmul_fused']}, no analog launch")
+
+    plain_pim = with_substrate(planned, "exact-torch")
+    ref_logits, _ = lm.prefill(plain_pim, cfg, {"tokens": tokens},
+                               LM_PROMPT + LM_GEN)
+    if not torch.equal(ref_logits, logits):
+        raise AssertionError("hymba exact-cuda prefill logits differ from "
+                             "exact-torch")
+    del plain_pim, ref_logits
+    log("hymba prefill logits on exact-cuda bit-identical to exact-torch")
+    gen_plain, _, _, logits_plain = serve_mod.static_loop(
+        planned, chunked, tokens, LM_GEN)
+    out["pim_prefill_cuda_vs_chunked"] = logit_gap(
+        torch, logits, logits_plain, cfg.vocab_size,
+        "hymba PIM prefill, ssd cuda vs chunked (reported, not held)")
+    out["pim_generated_token_agreement"] = \
+        (generated == gen_plain).double().mean().item()
+    # how far w4a4 is from the float model at all (random weights)
+    out["pim_prefill_vs_float"] = logit_gap(
+        torch, logits, float_kernel, cfg.vocab_size,
+        "hymba PIM (w4a4) vs float prefill, both ssd cuda (reported)")
+    log("hymba PIM greedy tokens, ssd cuda vs chunked: agreement "
+        f"{out['pim_generated_token_agreement']:.3f} of "
+        f"{LM_BATCH * LM_GEN}")
+    log(f"hymba serving: prefill median {out['prefill_ms_median']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in out['prefill_ms'])}), decode "
+        f"median {out['decode_ms_per_token_median']:.3f} ms/token "
+        f"({', '.join(f'{t:.3f}' for t in out['decode_ms_per_token'])}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, programming "
+        f"{out['program_s']:.3f} s, peak device memory "
+        f"{out['peak_bytes'] / 2 ** 30:.3f} GiB")
+
+    run = lambda: serve_mod.static_loop(planned, cfg, tokens, LM_GEN)
+    out["profile"] = profile_request(
+        torch, mods, run, LM_KERNELS, "hymba", profiled=LM_PROFILED,
+        nested={"ssm glue": ("ssd_scan kernel",
+                             "ssm in-projections (float32 GEMMs)")})
+    ssd_args, chunk = capture_ssd_inputs(mods["ssd_kern"], run)
+    out["ssd_row"] = ssd_time_row(torch, mods["ssd_kern"], mods["ssd_ref"],
+                                  "hymba (path inputs)", ssd_args, chunk,
+                                  cfg.num_layers)
+    out["ssd_row"]["max_abs_err"] = ssd_gap(
+        torch, mods["ssd_kern"].ssd_scan_cuda(*ssd_args, chunk),
+        ssd_plain(mods["ssd_ref"], *ssd_args, chunk))
+    out["shapes"] = lm_plan_shapes(planned)
+    del planned, ssd_args
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_entry_phase(torch, serve_mod, configs, counters):
+    """(c) The entry point itself at full width, default ssd_backend
+    ("chunked"): 7 x 32 PIM launches per forward step, no SSD launch."""
+    layers = configs.get_config("hymba-1.5b").num_layers
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    res = serve_mod.serve("hymba-1.5b", batch=LM_BATCH,
+                          prompt_len=LM_PROMPT, gen=LM_GEN, pim=True)
+    seconds = time.perf_counter() - t0
+    launches = read_counts(*counters)
+    if launches["pim_matmul_fused"] != 7 * layers * (1 + LM_GEN) or \
+            launches["ssd_scan"] or tuple(res["generated"].shape) != \
+            (LM_BATCH, LM_GEN):
+        raise AssertionError(f"serve(): launches {launches}, generated "
+                             f"{res['generated'].shape}")
+    log(f"serve('hymba-1.5b', batch={LM_BATCH}, prompt_len={LM_PROMPT}, "
+        f"gen={LM_GEN}, pim=True): keys {sorted(res)}; tokens_per_s "
+        f"{res['tokens_per_s']:.1f}, prefill_s {res['prefill_s']:.4f}, "
+        f"decode_s_per_token {res['decode_s_per_token']:.4f}; "
+        f"{launches['pim_matmul_fused']} pim_matmul_fused launches, "
+        f"no ssd_scan launch; {seconds:.1f} s with set-up")
+    torch.cuda.empty_cache()
+    return {k: v for k, v in res.items() if k not in ("generated", "emitted",
+                                                      "row_stop_reasons")}
+
+
+def mamba2_path(torch, dev, mods, counters):
+    """(d) mamba2-370m at full width (48 layers, d_model 1024), random
+    weights from seed 0, ssd_backend="cuda": one request of prefill + 16
+    decode steps, 48 SSD launches per prefill, prefill logits against the
+    chunked route."""
+    import dataclasses
+    lm, serve_mod = mods["lm"], mods["serve"]
+    cfg = dataclasses.replace(mods["configs"].get_config("mamba2-370m"),
+                              ssd_backend="cuda")
+    params = lm.init_lm(cfg, 0, device=dev)
+    tokens = lm_tokens(torch, dev, cfg.vocab_size)
+    (generated, _, _, logits), numbers = lm_serve_requests(
+        torch, serve_mod, params, cfg, tokens, counters)
+    want = cfg.num_layers * LM_REQUESTS
+    if numbers["launches"]["ssd_scan"] != want or \
+            numbers["launches"]["pim_matmul_fused"]:
+        raise AssertionError(f"mamba2 launches {numbers['launches']}, "
+                             f"expected {want} ssd_scan")
+    plain, _ = lm.prefill(params, dataclasses.replace(
+        cfg, ssd_backend="chunked"), {"tokens": tokens}, LM_PROMPT + LM_GEN)
+    numbers["float_prefill_cuda_vs_chunked"] = logit_gap(
+        torch, logits, plain, cfg.vocab_size,
+        "mamba2 prefill, ssd cuda vs chunked",
+        tol=LM_FLOAT_TOL)
+    log(f"mamba2 path: {LM_REQUESTS} requests, {cfg.num_layers} ssd_scan "
+        f"launches per prefill, finite logits; prefill median "
+        f"{numbers['prefill_ms_median']:.3f} ms, decode median "
+        f"{numbers['decode_ms_per_token_median']:.3f} ms/token, request "
+        f"median {numbers['request_ms_median']:.3f} ms, "
+        f"{numbers['tokens_per_s']:.1f} tokens/s, peak device memory "
+        f"{numbers['peak_bytes'] / 2 ** 30:.3f} GiB")
+    run = lambda: serve_mod.static_loop(params, cfg, tokens, LM_GEN)
+    ssd_args, chunk = capture_ssd_inputs(mods["ssd_kern"], run)
+    numbers["ssd_row"] = ssd_time_row(
+        torch, mods["ssd_kern"], mods["ssd_ref"], "mamba2 (path inputs)",
+        ssd_args, chunk, cfg.num_layers)
+    numbers["ssd_row"]["max_abs_err"] = ssd_gap(
+        torch, mods["ssd_kern"].ssd_scan_cuda(*ssd_args, chunk),
+        ssd_plain(mods["ssd_ref"], *ssd_args, chunk))
+    del params, ssd_args
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def ssd_entry(hymba, err):
+    """The SSD kernel's line: one hymba request's 32 launches, each timed
+    on the path's own inputs."""
+    row = hymba["ssd_row"]
+    count = row["launches_per_request"]
+    return {
+        "name": "ssd_scan", "path": "hymba-1.5b pim", "route": "cuda",
+        "source": SSD_SOURCE, "replaces": REPLACES["ssd_scan"],
+        "launches": hymba["launches"]["ssd_scan"],
+        "max_abs_err": max(err, row["max_abs_err"]),
+        "ms": row["ms"] * count, "plain_ms": row["plain_ms"] * count,
+        "bound_ms": row["bound_ms"] * count, "bound_by": row["bound_by"],
+        "library_ms": None,
+        "per": (f"one hymba-1.5b request (batch {LM_BATCH}, prompt "
+                f"{LM_PROMPT}): {count} launches of BH {row['BH']}, L "
+                f"{row['L']}, P {row['P']}, N {row['N']}, Q {row['chunk']}"
+                ", timed on the path's own inputs; library_ms is null "
+                "because no single PyTorch call computes the chunked SSD "
+                "scan")}
 
 
 def study_phase(table2):
@@ -718,6 +1232,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on "
               "an NVIDIA GPU only", file=sys.stderr)
         return 1
+    from repro_torch import configs
     from repro_torch.benchmarks_impl import table2
     from repro_torch.core import pim, workloads
     from repro_torch.data import pipeline
@@ -727,8 +1242,14 @@ def main() -> int:
     from repro_torch.kernels.analog_readout import ref as aref
     from repro_torch.kernels.pim_matmul import pim_matmul as kern
     from repro_torch.kernels.pim_matmul import ref
-    from repro_torch.models import cnn
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as skern
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention, cnn, lm, ssm
 
+    # every plain version that runs on the card here (the SSD scan's
+    # chunked form, the LM's float matmuls) runs in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -750,7 +1271,8 @@ def main() -> int:
     err = kernel_phase(torch, dev, kern, ref)
     analog_err, noisy = analog_kernel_phase(torch, dev, akern, aref)
     err.update(analog_err)
-    counters = (kern, akern)
+    ssd_err, ssd_rows = ssd_kernel_phase(torch, dev, skern, sref)
+    counters = (kern, akern, skern)
     model = build_model(torch, dev, cnn, workloads, pipeline)
     path, run_request, exact_logits = main_path(torch, model, cnn, pim,
                                                 counters)
@@ -771,10 +1293,30 @@ def main() -> int:
     arows = analog_shape_numbers(torch, akern, aref, apath["shapes"],
                                  capture_analog_inputs(aops, run_analog))
     kernels += [kernel_entry(name, prefix, arows, apath["launches"], err,
-                             source=ANALOG_SOURCE, per=ANALOG_PER)
+                             source=ANALOG_SOURCE, per=ANALOG_PER,
+                             path="resnet18 analog")
                 for name, prefix in (("analog_fullscale", "fullscale"),
                                      ("analog_readout", "readout"))]
     studies = study_phase(table2)
+
+    mods = {"lm": lm, "serve": serve_mod, "pim": pim, "configs": configs,
+            "attention": attention, "ssm": ssm, "ssd_kern": sops,
+            "ssd_ref": sref}
+    hymba = hymba_path(torch, dev, mods, counters)
+    lm_err = lm_kernel_checks(torch, dev, kern, ref, hymba["shapes"])
+    lm_rows = shape_numbers(torch, dev, kern, ref, hymba["shapes"],
+                            with_bias=False)
+    kernels.append(kernel_entry(
+        "pim_matmul_fused", "fused", lm_rows, hymba["launches"],
+        {"pim_matmul_fused": lm_err}, path="hymba-1.5b pim",
+        per=(f"one hymba-1.5b request (batch {LM_BATCH}, prompt "
+             f"{LM_PROMPT}, {LM_GEN} new tokens, w4a4): sum over the "
+             "prefill's and the decode steps' launches of each shape; "
+             "library_ms covers the prefill shapes (torch._int_mm takes "
+             "M > 16)")))
+    kernels.append(ssd_entry(hymba, ssd_err))
+    entry = serve_entry_phase(torch, serve_mod, configs, counters)
+    mamba2 = mamba2_path(torch, dev, mods, counters)
     log(f"command time after the card query: "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -787,7 +1329,10 @@ def main() -> int:
              "profile": profile, "shapes": rows,
              "analog_path": listed(apath), "analog_profile": aprofile,
              "analog_shapes": arows, "analog_noisy_checks": noisy,
-             "studies": studies, "kernels": kernels}, indent=1))
+             "studies": studies, "ssd_shapes": ssd_rows,
+             "hymba": listed(hymba), "hymba_shapes": lm_rows,
+             "serve_entry": entry, "mamba2": mamba2, "kernels": kernels},
+            indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,13 @@ rounded through float32.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import pim
 from repro_torch.kernels.runtime import resolve_device
 
@@ -34,7 +36,9 @@ def tensor_from_numpy(x: Any, device=None) -> torch.Tensor:
 
 def params_from_reference(tree: Any, device=None) -> Any:
     """A nested dict / list / tuple of array leaves (e.g. the reference's
-    ``init_cnn`` params) -> the same structure of torch tensors."""
+    ``init_cnn`` params, or its ``init_lm`` params with the layers stacked
+    along a leading axis, which the port keeps) -> the same structure of
+    torch tensors."""
     if isinstance(tree, Mapping):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -94,3 +98,31 @@ def plans_from_reference(plans: Mapping[str, Any], device=None
     ``plan_cnn_weights`` output) -> the port's plans."""
     return {name: plan_from_reference(p, device)
             for name, p in plans.items()}
+
+
+def planned_params_from_reference(tree: Any, device=None) -> Any:
+    """The reference's ``plan_params_for_pim`` tree -> the port's.
+
+    There, each planned projection is one vmapped ``DensePlan`` whose
+    array fields carry a leading layer axis while ``bits``, ``k``, ``n``
+    and ``cfg`` are shared pytree aux data; here it becomes a list of
+    per-layer plans (what ``repro_torch.launch.serve.plan_params_for_pim``
+    builds). Every other leaf converts as in
+    :func:`params_from_reference`."""
+    if isinstance(tree, Mapping):
+        return {k: planned_params_from_reference(v, device)
+                for k, v in tree.items()}
+    if hasattr(tree, "planes"):          # a (vmapped) plan
+        fields = ("values", "scale", "planes", "padded_scale")
+        arrays = {f: np.asarray(getattr(tree, f)) for f in fields}
+        return [plan_from_reference(
+            dict({f: arrays[f][i] for f in fields}, bits=tree.bits,
+                 k=tree.k, n=tree.n, cfg=tree.cfg), device)
+            for i in range(arrays["values"].shape[0])]
+    return tensor_from_numpy(tree, device)
+
+
+def model_config_from_reference(cfg: Any) -> ModelConfig:
+    """The reference's ``ModelConfig`` -> the port's (the same fields)."""
+    return ModelConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})

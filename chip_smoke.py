@@ -62,7 +62,26 @@ package. Phases, each of which raises on failure:
     at full width (default ``ssd_backend="chunked"``);
 11. mamba2-370m at full width (48 layers) with ``ssd_backend="cuda"``: 48
     SSD launches per prefill, its prefill logits against the chunked
-    route, and the request's time.
+    route, and the request's time;
+12. the flash-attention kernels against their plain versions: the
+    forward on the JAX kernel test's cases in float32 and bfloat16 (within
+    the tolerances stated at ``FLASH_RTOL``), then the forward and the
+    three backward kernels (dQ, dK/dV per query head, the head sum) at
+    gemma3-1b's training shapes (window 512 and global), each against its
+    own plain version, timed with it and with its bound, and
+    ``scaled_dot_product_attention`` as a yardstick;
+13. the training path: gemma3-1b at full width (26 layers, d_model 1152,
+    vocab 262144, float32, random weights from seed 0) through
+    ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
+    gradient norm and every gradient leaf against the ``"jnp"`` route on
+    one state (within ``TRAIN_LOSS_REL``, ``TRAIN_GNORM_REL`` and
+    ``TRAIN_LEAF_GAP_REL``, with a control that the leaf check sees a lost
+    window), then AdamW steps of batch 2 x 2048 tokens (a warm-up and
+    ``TRAIN_STEPS`` timed: 26 launches of each flash kernel per step, no
+    other kernel), one step with int8 gradient compression, and a profile
+    of one step by stage;
+14. checkpoint and restart on the card at a reduced gemma3-1b: a run
+    resumed from a step-6 checkpoint against the unbroken run.
 
 Each path's launch counts are set to 0 just before its requests and read
 just after. It prints a ``{"kernels": [...]}`` line (one entry per kernel
@@ -75,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -99,7 +119,18 @@ CHECK_SHAPES = {                 # (M, K, N) as the kernel sees them
 KERNEL_SOURCE = "src/repro_torch/csrc/pim_matmul.cu"
 ANALOG_SOURCE = "src/repro_torch/csrc/analog_readout.cu"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = {
+    "flash_attention_fwd":
+        "src/repro/kernels/flash_attention/flash_attention.py:94",
+    # the TPU kernel has no backward; these three kernels are the
+    # gradient of that kernel
+    "flash_attention_bwd_dq":
+        "src/repro/kernels/flash_attention/flash_attention.py:94",
+    "flash_attention_bwd_dkv":
+        "src/repro/kernels/flash_attention/flash_attention.py:94",
+    "flash_attention_bwd_sum":
+        "src/repro/kernels/flash_attention/flash_attention.py:94",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:67",
     "pim_matmul_fused": "src/repro/kernels/pim_matmul/pim_matmul.py:227",
     "pim_matmul_int": "src/repro/kernels/pim_matmul/pim_matmul.py:108",
@@ -143,6 +174,44 @@ SSD_RTOL, SSD_ATOL = 2e-4, 2e-5
 # differs within the bound above, and the gap may grow through depth, so
 # the logits are held to |gap| <= LM_FLOAT_TOL * max |logit|.
 LM_FLOAT_TOL = 1e-3
+# Flash-attention kernel checks, (b, s, h, kv, d, causal, window, prefix):
+# the JAX kernel test's cases (tests/test_kernels.py), in float32 within
+# that test's rtol 2e-4, atol 2e-5 of the plain version and in bfloat16
+# within 3e-2; then gemma3-1b's training shapes (local window 512 and
+# global), forward and backward. Each backward gradient (dQ, dK, dV) must
+# lie within FLASH_BWD_REL of that gradient's largest magnitude: float32
+# sums over thousands of keys or queries in another order, through exp
+# and the recomputed probabilities. The same holds for each backward
+# kernel against its own plain version; delta = rowsum(dO * O) is held to
+# the float32 forward's tolerance, and the head sum (four float32 adds)
+# to FLASH_SUM_REL of its largest magnitude.
+FLASH_CASES = (
+    (2, 128, 4, 2, 32, True, 0, 0),
+    (1, 128, 8, 1, 16, True, 0, 0),
+    (2, 64, 4, 4, 32, False, 0, 0),
+    (1, 128, 4, 2, 16, True, 40, 0),
+    (1, 128, 4, 2, 16, True, 0, 24),
+    (1, 128, 4, 2, 16, True, 24, 16),
+)
+FLASH_RTOL, FLASH_ATOL, FLASH_BF16_TOL = 2e-4, 2e-5, 3e-2
+FLASH_BWD_REL = 1e-3
+FLASH_SUM_REL = 1e-6
+# The training path: gemma3-1b at full width (26 layers, d_model 1152,
+# vocab 262144), float32 parameters, AdamW, batch 2 x 2048 tokens.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+GEMMA_FLASH = {"local": (TRAIN_BATCH, TRAIN_SEQ, 4, 1, 256, True, 512, 0),
+               "global": (TRAIN_BATCH, TRAIN_SEQ, 4, 1, 256, True, 0, 0)}
+# End to end, the "cuda" route against the "jnp" route on one parameter
+# state: the loss within TRAIN_LOSS_REL and the gradient's global norm
+# within TRAIN_GNORM_REL, relative (float32 through 26 layers; the
+# attention differs only in summation order). The loss and the norm are
+# means and sums over the whole model and barely see attention, so every
+# gradient leaf is held too: its largest gap within TRAIN_LEAF_GAP_REL of
+# that leaf's largest gradient (7.0e-6 measured on an H100; about 14x
+# margin). A control run, the "cuda" route with every layer global, must
+# exceed that limit, or the check could not see a miswired window.
+TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_GAP_REL = 1e-4, 1e-3, 1e-4
+RESTART_TOL = 1e-4   # resumed vs unbroken training, last loss (absolute)
 
 
 def log(*args):
@@ -635,8 +704,8 @@ def profile_request(torch, modules, run, kernels, what, profiled=PROFILED,
     from torch.profiler. The stages are named ranges wrapped around the
     port's functions for this run only (``profiled``: module key,
     attribute, label), plus each kernel of ``kernels`` (label -> name
-    fragments) by name; ``nested`` maps a range's label to the kernel
-    labels inside it, whose time it does not count. "other" is the rest of
+    fragments) by name; ``nested`` maps a stage's label to the labels of
+    stages inside it, whose time it does not count. "other" is the rest of
     the busy time (on the CNN path relu, residual adds, pooling, means,
     bias padding, output allocation and slicing)."""
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1198,6 +1267,478 @@ def ssd_entry(hymba, err):
                 "scan")}
 
 
+# ---------------------------------------------------------------------------
+# The training path: the flash-attention kernel, gemma3-1b training steps,
+# checkpoint and restart
+# ---------------------------------------------------------------------------
+def flash_inputs(torch, dev, b, s, h, kv, d, seed):
+    """q (b, s, h, d), k and v (b, s, kv, d): unit normals."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def flash_mask(torch, dev, s, causal, window, prefix):
+    """The (s, s) boolean mask of the kernel and its plain version."""
+    qp = torch.arange(s, device=dev)[:, None]
+    kp = torch.arange(s, device=dev)[None, :]
+    ok = (qp >= kp) if causal else torch.ones((s, s), dtype=torch.bool,
+                                              device=dev)
+    ok = ok | (kp < prefix)
+    if window > 0:
+        ok = ok & (((qp - kp) < window) | (kp < prefix))
+    return ok
+
+
+def flash_visited(s, causal, window, prefix, bq, bk):
+    """(query, key) pairs in the bq x bk tiles the kernel visits, by the
+    source's tile_live rule."""
+    n = 0
+    for q0 in range(0, s, bq):
+        qlast = min(q0 + bq, s) - 1
+        for k0 in range(0, s, bk):
+            klast = min(k0 + bk, s) - 1
+            if k0 >= prefix and ((causal and k0 > qlast) or
+                                 (window > 0 and q0 - klast >= window)):
+                continue
+            n += (qlast - q0 + 1) * (klast - k0 + 1)
+    return n
+
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_sum")
+
+
+def flash_bound(b, s, h, kv, d, pairs, kernel):
+    """Least time (ms) of one launch of ``kernel``: its float32 operations
+    at the CUDA cores' peak, and the bytes of its inputs read once and its
+    outputs written once at HBM bandwidth. Per unmasked pair and head the
+    forward needs 2 products of width d (the logit, P V), the dQ pass 3
+    (the logit, dP, dQ) and the dK/dV pass 4 (the logit, dP, dV, dK), at 2
+    operations per multiply-add; the head sum adds h / kv - 1 times per
+    output element. Bytes: forward q, k, v in, o and the log-sum-exp out;
+    dQ pass q, k, v, o, dO, lse in, dQ and delta out; dK/dV pass q, k, v,
+    dO, lse, delta in, per-query-head dK and dV out; head sum the two
+    partials in, dK and dV out. Returns (ms, "bytes" | "operations")."""
+    qo, kvb, rows = b * s * h * d, b * s * kv * d, b * h * s
+    flops, moved = {
+        "flash_attention_fwd": (4 * d * pairs * b * h,
+                                4 * (2 * qo + 2 * kvb + rows)),
+        "flash_attention_bwd_dq": (6 * d * pairs * b * h,
+                                   4 * (4 * qo + 2 * kvb + 2 * rows)),
+        "flash_attention_bwd_dkv": (8 * d * pairs * b * h,
+                                    4 * (4 * qo + 2 * kvb + 2 * rows)),
+        "flash_attention_bwd_sum": (2 * (qo - kvb), 4 * (2 * qo + 2 * kvb)),
+    }[kernel]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_gap(torch, got, want, rtol, atol, what):
+    """Max |got - want|, raising unless |got - want| <= atol + rtol |want|
+    everywhere."""
+    diff = (got.double() - want.double()).abs()
+    limit = atol + rtol * want.double().abs()
+    if not bool(torch.isfinite(got).all()) or bool((diff > limit).any()):
+        raise AssertionError(f"flash kernel outside rtol {rtol}, atol {atol}"
+                             f" of its plain version ({what}): max |diff| "
+                             f"{diff.max().item()}")
+    return diff.max().item()
+
+
+def flash_grad_gap(torch, got, want, what):
+    """Max |got - want| of one gradient, raising above FLASH_BWD_REL of
+    its largest magnitude."""
+    gap = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    if not bool(torch.isfinite(got).all()) or gap > FLASH_BWD_REL * scale:
+        raise AssertionError(f"flash backward {what}: max |diff| {gap} above"
+                             f" {FLASH_BWD_REL} x {scale}")
+    return gap
+
+
+def sdpa_call(torch, q, k, v, mask):
+    """torch's scaled_dot_product_attention on the same (b, s, h, d)
+    tensors and boolean mask, as a yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                          enable_gqa=True).transpose(1, 2)
+
+
+def flash_shape_row(torch, dev, fkern, fref, label, shape):
+    """The four kernels at one training shape: the forward against the
+    plain version, the backward kernels' gradients against autograd of
+    the plain version, and each backward kernel against its own plain
+    version on the same inputs; then each kernel's time, its plain
+    version's and its bound, SDPA with the same mask (forward, and
+    forward + backward) as a yardstick, and the pairs the kernels visit
+    against those counted."""
+    b, s, h, kv, d, causal, win, pre = shape
+    mask_args = (causal, win, pre)
+    q, k, v = flash_inputs(torch, dev, b, s, h, kv, d, 20)
+    dout = flash_inputs(torch, dev, b, s, h, h, d, 21)[0]
+    o, lse = fkern.flash_attention_fwd_cuda(q, k, v, *mask_args)
+    dq, delta = fkern.flash_attention_bwd_dq_cuda(q, k, v, o, lse, dout,
+                                                  *mask_args)
+    dk_p, dv_p = fkern.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta,
+                                                    dout, *mask_args)
+    dk, dv = fkern.flash_attention_bwd_sum_cuda(dk_p, dv_p, kv)
+    torch.cuda.synchronize()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_o = fref.flash_attention_ref(*leaves, *mask_args)
+    ref_o.backward(dout)
+    row = {"shape": label, "b": b, "s": s, "h": h, "kv": kv, "d": d,
+           "window": win, "prefix": pre}
+    err = {"flash_attention_fwd": flash_gap(torch, o, ref_o.detach(),
+                                            FLASH_RTOL, FLASH_ATOL, label)}
+    row["grad_err"] = max(flash_grad_gap(torch, g, r.grad, f"{label} {n}")
+                          for g, r, n in zip((dq, dk, dv), leaves, "qkv"))
+    mask = flash_mask(torch, dev, s, causal, win, pre)
+    lib_o = sdpa_call(torch, q, k, v, mask)
+    row["sdpa_max_abs_gap"] = (lib_o - ref_o.detach()).abs().max().item()
+    del leaves, ref_o, lib_o
+    want_dq, want_delta = fref.flash_attention_bwd_dq_ref(q, k, v, o, lse,
+                                                          dout, *mask_args)
+    err["flash_attention_bwd_dq"] = max(
+        flash_grad_gap(torch, dq, want_dq, f"{label} dQ pass"),
+        flash_gap(torch, delta, want_delta, FLASH_RTOL, FLASH_ATOL,
+                  f"{label} delta"))
+    want_dk, want_dv = fref.flash_attention_bwd_dkv_ref(
+        q, k, v, lse, delta, dout, *mask_args)
+    err["flash_attention_bwd_dkv"] = max(
+        flash_grad_gap(torch, dk_p, want_dk, f"{label} dK pass"),
+        flash_grad_gap(torch, dv_p, want_dv, f"{label} dV pass"))
+    del want_dq, want_delta, want_dk, want_dv
+    sums = fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)
+    err["flash_attention_bwd_sum"] = max(
+        flash_gap(torch, got, want, FLASH_SUM_REL,
+                  FLASH_SUM_REL * want.abs().max().item(), f"{label} sum")
+        for got, want in zip((dk, dv), sums))
+    row["err"] = err
+    del sums
+
+    def plain_fwd_bwd():
+        ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        fref.flash_attention_ref(*ls, *mask_args).backward(dout)
+
+    def sdpa_fwd_bwd():
+        ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa_call(torch, *ls, mask).backward(dout)
+
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fkern.flash_attention_fwd_cuda(q, k, v, *mask_args),
+            lambda: fref.flash_attention_ref(q, k, v, *mask_args)),
+        "flash_attention_bwd_dq": (
+            lambda: fkern.flash_attention_bwd_dq_cuda(q, k, v, o, lse, dout,
+                                                      *mask_args),
+            lambda: fref.flash_attention_bwd_dq_ref(q, k, v, o, lse, dout,
+                                                    *mask_args)),
+        "flash_attention_bwd_dkv": (
+            lambda: fkern.flash_attention_bwd_dkv_cuda(
+                q, k, v, lse, delta, dout, *mask_args),
+            lambda: fref.flash_attention_bwd_dkv_ref(
+                q, k, v, lse, delta, dout, *mask_args)),
+        "flash_attention_bwd_sum": (
+            lambda: fkern.flash_attention_bwd_sum_cuda(dk_p, dv_p, kv),
+            lambda: fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)),
+    }
+    pairs = int(mask.sum())
+    row["pairs_per_head"] = pairs
+    row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"] = \
+        {}, {}, {}, {}
+    for name, (kernel_call, plain_call) in calls.items():
+        row["ms"][name] = time_ms(torch, kernel_call)
+        row["plain_ms"][name] = time_ms(torch, plain_call)
+        row["bound_ms"][name], row["bound_by"][name] = flash_bound(
+            b, s, h, kv, d, pairs, name)
+    row["plain_fwd_bwd_ms"] = time_ms(torch, plain_fwd_bwd)
+    row["sdpa_fwd_ms"] = time_ms(torch, lambda: sdpa_call(torch, q, k, v,
+                                                          mask))
+    row["sdpa_fwd_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd)
+    row["visited_fwd"] = flash_visited(s, causal, win, pre, 64, 32)
+    row["visited_dkv"] = flash_visited(s, causal, win, pre, 32, 32)
+    log(f"flash {label} b={b} s={s} h={h} kv={kv} d={d} window={win}: "
+        + "; ".join(
+            f"{name} {row['ms'][name]:.4f} ms (bound "
+            f"{row['bound_ms'][name]:.4f} ms by {row['bound_by'][name]}, "
+            f"plain {row['plain_ms'][name]:.4f} ms, max |diff| "
+            f"{err[name]:.3g})" for name in FLASH_KERNELS)
+        + f"; SDPA forward {row['sdpa_fwd_ms']:.4f} ms, forward+backward "
+        f"{row['sdpa_fwd_bwd_ms']:.4f} ms; the plain version's autograd "
+        f"forward+backward {row['plain_fwd_bwd_ms']:.4f} ms; the backward "
+        f"kernels' gradients against that autograd: max |diff| "
+        f"{row['grad_err']:.3g}; unmasked pairs per head {pairs}, visited "
+        f"by the forward's 64x32 tiles {row['visited_fwd']} "
+        f"({row['visited_fwd'] / pairs:.3f}x), by the dK/dV pass's 32x32 "
+        f"tiles {row['visited_dkv']} ({row['visited_dkv'] / pairs:.3f}x);"
+        f" SDPA's gap to the plain version {row['sdpa_max_abs_gap']:.3g} "
+        "(reported)")
+    del q, k, v, dout, o, lse, dq, delta, dk_p, dv_p, dk, dv
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_kernel_phase(torch, dev, fkern, fref):
+    """The flash kernels against their plain versions: forward on
+    FLASH_CASES in float32 and bfloat16, then all four kernels at
+    gemma3-1b's training shapes with their times."""
+    err = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for i, (b, s, h, kv, d, causal, win, pre) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(torch, dev, b, s, h, kv, d, 10 + i)
+        args = (causal, win, pre)
+        got, _ = fkern.flash_attention_fwd_cuda(q, k, v, *args)
+        what = f"b={b} s={s} h={h} kv={kv} d={d} causal={causal} " \
+            f"window={win} prefix={pre}"
+        gap = flash_gap(torch, got, fref.flash_attention_ref(q, k, v, *args),
+                        FLASH_RTOL, FLASH_ATOL, what)
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], gap)
+        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+        got_b, _ = fkern.flash_attention_fwd_cuda(qb, kb, vb, *args)
+        gap_b = flash_gap(torch, got_b.float(), fref.flash_attention_ref(
+            qb, kb, vb, *args).float(), FLASH_BF16_TOL, FLASH_BF16_TOL,
+            what + " bf16")
+        log(f"flash check {what}: float32 within rtol {FLASH_RTOL}, atol "
+            f"{FLASH_ATOL} (max |diff| {gap:.3g}), bfloat16 within "
+            f"{FLASH_BF16_TOL} (max |diff| {gap_b:.3g})")
+    rows = {label: flash_shape_row(torch, dev, fkern, fref, label, shape)
+            for label, shape in GEMMA_FLASH.items()}
+    for row in rows.values():
+        for name in FLASH_KERNELS:
+            err[name] = max(err[name], row["err"][name])
+    return err, rows
+
+
+TRAIN_PROFILED = (  # (module, attribute, range name) wrapped while profiling
+    ("lm", "unembed", "logits (unembed GEMM, forward)"),
+    ("train", "cross_entropy", "loss (forward)"),
+    ("train", "adamw_update", "optimizer"),
+)
+TRAIN_KERNELS = {"flash fwd": ("flash_fwd_kernel",),
+                 "flash bwd dQ": ("flash_bwd_dq_kernel",),
+                 "flash bwd dK/dV": ("flash_bwd_dkv_kernel",),
+                 "flash bwd head sum": ("flash_bwd_sum_heads",),
+                 "GEMMs": ("gemm",)}   # cuBLAS's sm80_xmma_gemm_*, sgemm
+
+
+def train_path(torch, dev, mods, counters):
+    """gemma3-1b at full width (26 layers, d_model 1152, vocab 262144),
+    float32 parameters from seed 0, attn_backend="cuda": the loss and
+    gradient norm against the "jnp" route on one state, then AdamW steps
+    through make_train_step (one warm-up, TRAIN_STEPS timed, launch counts
+    set to 0 just before and read just after), one step with int8 gradient
+    compression, and a profiled step."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, LMDataIterator
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    from repro_torch.optim.compression import init_error_state
+    train, lm, fkern = mods["train"], mods["lm"], mods["flash_kern"]
+    cfg = dataclasses.replace(mods["configs"].get_config("gemma3-1b"),
+                              attn_backend="cuda")
+    layers = cfg.num_layers
+    it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH), cfg)
+    batches = [train.batch_to_device(next(it), dev)
+               for _ in range(TRAIN_STEPS + 4)]
+    out = {"config": {"arch": cfg.name, "layers": layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                      "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                      "windows": dict(Counter(cfg.layer_window(i)
+                                              for i in range(layers)))}}
+
+    params = lm.init_lm(cfg, 0, device=dev)
+    out["parameters"] = sum(p.numel() for p in mods["tree"].leaves(params))
+    leaves = mods["tree"].leaves
+    loss_j, _, grads_j = train.loss_and_grads(
+        params, dataclasses.replace(cfg, attn_backend="jnp"), batches[0])
+    gnorm_j = global_norm(grads_j).item()
+
+    def against_jnp(run_cfg):
+        """Loss, gradient norm and the largest per-leaf gradient gap (over
+        that leaf's largest gradient) of ``run_cfg`` against "jnp"."""
+        loss, _, grads = train.loss_and_grads(params, run_cfg, batches[0])
+        gap = max((g - gj).abs().max().item()
+                  / max(gj.abs().max().item(), 1e-30)
+                  for g, gj in zip(leaves(grads), leaves(grads_j)))
+        return loss.item(), global_norm(grads).item(), gap
+
+    reset_counts(*counters)
+    loss_c, gnorm_c, leaf_gap = against_jnp(cfg)
+    once = read_counts(*counters)
+    # the control: the same route with every layer global, as a kernel
+    # wired without its window would run
+    control = against_jnp(dataclasses.replace(cfg, sliding_window=0))
+    del grads_j, params
+    torch.cuda.empty_cache()
+    loss_j = loss_j.item()
+    out["cuda_vs_jnp"] = {"loss_cuda": loss_c, "loss_jnp": loss_j,
+                          "grad_norm_cuda": gnorm_c, "grad_norm_jnp": gnorm_j,
+                          "max_leaf_grad_gap_rel": leaf_gap,
+                          "launches": once,
+                          "control_all_global": dict(zip(
+                              ("loss", "grad_norm", "max_leaf_grad_gap_rel"),
+                              control))}
+    log(f"gemma3-1b, one state: loss cuda {loss_c:.7f} vs jnp {loss_j:.7f} "
+        f"(rel {abs(loss_c - loss_j) / abs(loss_j):.3g}), gradient norm "
+        f"cuda {gnorm_c:.7g} vs jnp {gnorm_j:.7g} (rel "
+        f"{abs(gnorm_c - gnorm_j) / gnorm_j:.3g}), largest per-leaf "
+        f"gradient gap {leaf_gap:.3g} of the leaf's largest gradient "
+        f"(limit {TRAIN_LEAF_GAP_REL}); launches {once}; control (cuda, "
+        f"every layer global): loss {control[0]:.7f}, gradient norm "
+        f"{control[1]:.7g}, largest per-leaf gap {control[2]:.3g}")
+    if abs(loss_c - loss_j) > TRAIN_LOSS_REL * abs(loss_j) or \
+            abs(gnorm_c - gnorm_j) > TRAIN_GNORM_REL * gnorm_j or \
+            leaf_gap > TRAIN_LEAF_GAP_REL or \
+            any(once[name] != layers for name in FLASH_KERNELS):
+        raise AssertionError(f"the cuda route differs from jnp: {out}")
+    if not control[2] > TRAIN_LEAF_GAP_REL:
+        raise AssertionError(f"the per-leaf check does not see a lost "
+                             f"window: control gap {control[2]}")
+
+    state = train.init_state(cfg, 0, device=dev)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    step_fn = train.make_train_step(cfg, opt_cfg)
+    state, _ = step_fn(state, batches[0])                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters)
+    step_ms, losses = [], []
+    for batch in batches[1:1 + TRAIN_STEPS]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+    launches = read_counts(*counters)
+    want = dict.fromkeys(FLASH_KERNELS, layers * TRAIN_STEPS)
+    if any(launches[k] != v for k, v in want.items()) or any(
+            launches[k] for k in launches if k not in want) or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training launches {launches} (expected "
+                             f"{want} and no other kernel), losses {losses}")
+    med = statistics.median(step_ms)
+    out.update({"step_ms": step_ms, "step_ms_median": med,
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "losses": losses, "launches": launches,
+                "launches_per_step": {k: v // TRAIN_STEPS
+                                      for k, v in want.items()}})
+    log(f"gemma3-1b training (batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, "
+        f"attn cuda): step median {med:.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in step_ms)
+        + f"), {out['tokens_per_s']:.1f} tokens/s, peak device memory "
+        f"{out['peak_bytes'] / 2 ** 30:.3f} GiB, losses "
+        + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; launches per step: {layers} of each of " + ", ".join(want))
+
+    state["grad_err"] = init_error_state(state["params"])
+    reset_counts(*counters)
+    state, metrics = train.make_train_step(cfg, opt_cfg, compress_bits=8)(
+        state, batches[1 + TRAIN_STEPS])
+    comp = read_counts(*counters)
+    out["compressed_step"] = {"loss": metrics["loss"].item(),
+                              "grad_norm": metrics["grad_norm"].item(),
+                              "launches": comp}
+    if any(comp[name] != layers for name in FLASH_KERNELS) or \
+            not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"compressed step: {out['compressed_step']}")
+    log(f"gemma3-1b step with int8 gradient compression: loss "
+        f"{out['compressed_step']['loss']:.5f}, gradient norm "
+        f"{out['compressed_step']['grad_norm']:.5g}, launches {comp}")
+    del state["grad_err"]
+    torch.cuda.empty_cache()
+
+    run = lambda: step_fn(state, batches[2 + TRAIN_STEPS])
+    out["profile"] = profile_request(
+        torch, mods, run, TRAIN_KERNELS, "gemma3-1b training step",
+        profiled=TRAIN_PROFILED,
+        nested={"GEMMs": ("logits (unembed GEMM, forward)",)})
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def restart_phase(train):
+    """Checkpoint and restart on the card at a reduced gemma3-1b (2
+    layers, d_model 256, vocab 512, attn cuda): an unbroken run of 10
+    steps writes a checkpoint at step 6; a second run resumes from it
+    (state, step and data position) and runs steps 6-9 under the same
+    schedule. The two last losses must agree within RESTART_TOL: the
+    resumed run repeats the same arithmetic, and only the card's
+    atomics (the embedding gradient's scatter-add) may reorder sums."""
+    import shutil
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(steps=10, batch=2, seq=128, layers=2, d_model=256,
+              log_every=1, device="cuda", attn_backend="cuda")
+    straight = train.train_loop("gemma3-1b", ckpt_dir=str(ck), ckpt_every=6,
+                                **kw)
+    resumed = train.train_loop("gemma3-1b", ckpt_dir=str(ck),
+                               ckpt_every=100, **kw)
+    shutil.rmtree(ck, ignore_errors=True)
+    gap = abs(resumed["last_loss"] - straight["last_loss"])
+    log(f"restart: the run resumed at step 6 ends at loss "
+        f"{resumed['last_loss']:.7f}, the unbroken run at "
+        f"{straight['last_loss']:.7f}, gap {gap:.3g}")
+    if gap > RESTART_TOL:
+        raise AssertionError(f"resumed training differs: gap {gap}")
+    return {"resumed": resumed, "straight": straight, "gap": gap}
+
+
+def flash_entries(rows, windows, launches, err):
+    """The four flash kernels' lines: one training step's launches (each
+    kernel once per layer), each priced at its window's shape."""
+    count = {"local": sum(n for w, n in windows.items() if w),
+             "global": windows.get(0, 0)}
+    tot = lambda key, name: sum(rows[lb][key][name] * n
+                                for lb, n in count.items())
+    per = (f"one gemma3-1b training step (batch {TRAIN_BATCH}, seq "
+           f"{TRAIN_SEQ}): {count['local']} layers at window 512 and "
+           f"{count['global']} global, each shape timed alone on random "
+           f"inputs; launches counts the main path's {TRAIN_STEPS} timed "
+           "steps")
+    library = {
+        "flash_attention_fwd": (
+            sum(rows[lb]["sdpa_fwd_ms"] * n for lb, n in count.items()),
+            "library_ms is scaled_dot_product_attention with the same "
+            "boolean mask"),
+        "flash_attention_bwd_dq": (None, "no single PyTorch call computes "
+                                   "the dQ pass alone"),
+        "flash_attention_bwd_dkv": (None, "no single PyTorch call computes "
+                                    "the dK/dV pass alone"),
+        "flash_attention_bwd_sum": (
+            tot("plain_ms", "flash_attention_bwd_sum"),
+            "the plain version is torch.sum over each kv head's query "
+            "heads, which is also the library call"),
+    }
+    sdpa_bwd = sum((rows[lb]["sdpa_fwd_bwd_ms"] - rows[lb]["sdpa_fwd_ms"])
+                   * n for lb, n in count.items())
+    entries = []
+    for name in FLASH_KERNELS:
+        bound_by = Counter({rows[lb]["bound_by"][name]:
+                            rows[lb]["bound_ms"][name] * n
+                            for lb, n in count.items()}).most_common(1)[0][0]
+        lib_ms, lib_note = library[name]
+        note = per + "; " + lib_note
+        if name != "flash_attention_fwd":
+            note += (f"; for scale, SDPA's whole backward (forward+backward "
+                     f"minus forward) takes {sdpa_bwd:.4f} ms per step")
+        entries.append({
+            "name": name, "path": "gemma3-1b training", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": tot("ms", name), "plain_ms": tot("plain_ms", name),
+            "bound_ms": tot("bound_ms", name), "bound_by": bound_by,
+            "library_ms": lib_ms, "per": note})
+    return entries
+
+
 def study_phase(table2):
     """The ADC ablation and Table II on the card; each row printed."""
     out = {}
@@ -1239,13 +1780,17 @@ def main() -> int:
     from repro_torch.kernels import runtime
     from repro_torch.kernels.analog_readout import analog_readout as akern
     from repro_torch.kernels.analog_readout import ops as aops
+    from repro_torch import tree
     from repro_torch.kernels.analog_readout import ref as aref
+    from repro_torch.kernels.flash_attention import flash_attention as fkern
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.pim_matmul import pim_matmul as kern
     from repro_torch.kernels.pim_matmul import ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan as skern
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train
     from repro_torch.models import attention, cnn, lm, ssm
 
     # every plain version that runs on the card here (the SSD scan's
@@ -1272,7 +1817,8 @@ def main() -> int:
     analog_err, noisy = analog_kernel_phase(torch, dev, akern, aref)
     err.update(analog_err)
     ssd_err, ssd_rows = ssd_kernel_phase(torch, dev, skern, sref)
-    counters = (kern, akern, skern)
+    flash_err, flash_rows = flash_kernel_phase(torch, dev, fkern, fref)
+    counters = (kern, akern, skern, fkern)
     model = build_model(torch, dev, cnn, workloads, pipeline)
     path, run_request, exact_logits = main_path(torch, model, cnn, pim,
                                                 counters)
@@ -1317,6 +1863,11 @@ def main() -> int:
     kernels.append(ssd_entry(hymba, ssd_err))
     entry = serve_entry_phase(torch, serve_mod, configs, counters)
     mamba2 = mamba2_path(torch, dev, mods, counters)
+    mods.update({"train": train, "flash_kern": fkern, "tree": tree})
+    training = train_path(torch, dev, mods, counters)
+    kernels += flash_entries(flash_rows, training["config"]["windows"],
+                             training["launches"], flash_err)
+    restart = restart_phase(train)
     log(f"command time after the card query: "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -1331,7 +1882,9 @@ def main() -> int:
              "analog_shapes": arows, "analog_noisy_checks": noisy,
              "studies": studies, "ssd_shapes": ssd_rows,
              "hymba": listed(hymba), "hymba_shapes": lm_rows,
-             "serve_entry": entry, "mamba2": mamba2, "kernels": kernels},
+             "serve_entry": entry, "mamba2": mamba2,
+             "flash_shapes": flash_rows, "train": training,
+             "restart": restart, "kernels": kernels},
             indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

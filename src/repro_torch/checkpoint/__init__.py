@@ -1,0 +1,2 @@
+"""Atomic step checkpoints in the JAX package's on-disk layout
+(counterpart of ``repro/checkpoint``)."""

@@ -1,8 +1,11 @@
 """Model configuration schema + registry for the assigned architectures.
 
 Copied from ``repro/configs/base.py`` (the port imports nothing of the
-JAX package). ``attn_backend`` keeps the JAX values; only ``"jnp"`` runs
-in the port so far. ``ssd_backend`` names the SSD scan route:
+JAX package). ``attn_backend`` names the training attention route:
+``"jnp"`` (plain PyTorch, the default, as in JAX) or ``"cuda"`` (the
+hand-written flash-attention kernel, forward and backward), with the JAX
+names ``"pallas"`` and ``"pallas_interp"`` accepted as aliases of
+``"cuda"``. ``ssd_backend`` names the SSD scan route:
 ``"chunked"`` and ``"sequential"`` (plain PyTorch) or ``"cuda"`` (the
 hand-written kernel), with the JAX names ``"pallas"`` and
 ``"pallas_interp"`` accepted as aliases of ``"cuda"``."""
@@ -59,7 +62,7 @@ class ModelConfig:
     # execution
     remat: bool = False
     unroll_layers: bool = False   # unroll scan-over-layers (cost analysis)
-    attn_backend: str = "jnp"        # jnp | pallas | pallas_interp
+    attn_backend: str = "jnp"        # jnp | cuda (pallas, pallas_interp)
     attn_block: int = 512            # blockwise-attention KV chunk
     blockwise_threshold: int = 2048  # switch to blockwise above this seq len
     ssd_chunk: int = 128

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import pim
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.optim.adamw import AdamWState
 
 # PimConfig fields of the reference that the port has no counterpart for:
 # the Pallas interpret flag and the deprecated boolean route aliases
@@ -25,12 +26,11 @@ _DROPPED_CFG_FIELDS = ("interpret", "analog", "use_pallas")
 
 def tensor_from_numpy(x: Any, device=None) -> torch.Tensor:
     """One array leaf -> a torch tensor on ``device`` (``None`` -> CUDA)."""
-    arr = np.asarray(x)
+    arr = np.array(x, order="C")     # a copy; keeps 0-d arrays 0-d
     if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.int16).copy()
-        t = torch.from_numpy(bits).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        t = torch.from_numpy(arr)
     return t.to(resolve_device(device))
 
 
@@ -126,3 +126,19 @@ def model_config_from_reference(cfg: Any) -> ModelConfig:
     """The reference's ``ModelConfig`` -> the port's (the same fields)."""
     return ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(ModelConfig)})
+
+
+def train_state_from_reference(state: Mapping[str, Any], device=None
+                               ) -> Dict[str, Any]:
+    """The reference's training state ``{"params", "opt": AdamWState,
+    "step"[, "grad_err"]}`` (arrays, or numpy) -> the port's, the same
+    structure with ``repro_torch.optim.adamw.AdamWState``."""
+    opt = state["opt"]
+    out = {"params": params_from_reference(state["params"], device),
+           "opt": AdamWState(step=tensor_from_numpy(opt.step, device),
+                             mu=params_from_reference(opt.mu, device),
+                             nu=params_from_reference(opt.nu, device)),
+           "step": tensor_from_numpy(state["step"], device)}
+    if state.get("grad_err") is not None:
+        out["grad_err"] = params_from_reference(state["grad_err"], device)
+    return out

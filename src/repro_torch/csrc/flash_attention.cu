@@ -1,0 +1,866 @@
+// Masked GQA flash attention for Hopper (sm_90a): forward and backward.
+//
+// Replaces the TPU kernel in src/repro/kernels/flash_attention/
+// flash_attention.py:
+//   flash_attention_pallas / _flash_kernel  -> flash_fwd()
+// and adds its gradient (the TPU kernel has none; the training step
+// differentiates through it): flash_bwd_dq(), flash_bwd_dkv() and, with
+// GQA, flash_bwd_sum().
+//
+// q is (B, S, H, D), k and v are (B, S, KV, D), contiguous; head h reads
+// kv head h / (H / KV). With q pre-scaled by 1/sqrt(D), the forward is an
+// online softmax over key tiles: a running max m, a running denominator l
+// and a float32 accumulator; masked logits are -1e30 (not -inf), the
+// denominator is clamped at 1e-37, and the mask is the JAX kernel's:
+//   ok = (causal ? qpos >= kpos : true) || kpos < prefix
+//   if window > 0: ok &&= (qpos - kpos < window) || kpos < prefix.
+// It also writes the log-sum-exp m + log(l) of every row, (B, H, S) float32,
+// which the backward uses to recompute P = exp(S - lse) tile by tile.
+//
+// The backward (float32) is up to three launches, each its own entry
+// point. The first, flash_bwd_dq, one block per (b, h, query tile), forms
+// Delta = rowsum(dO * O), writes it out, and accumulates dQ = dS K / sqrt(D)
+// over the key tiles, with dS = P * (dO V^T - Delta). The second,
+// flash_bwd_dkv, one block per (b, query head, key tile), walks the head's
+// query tiles and accumulates dV = P^T dO and dK = dS^T Q / sqrt(D) of that
+// query head; with GQA (rep = H / KV > 1) these are partials, and the third,
+// flash_bwd_sum, adds the rep heads of each kv head in
+// head order. No atomics: the result does not depend on the order blocks
+// run in. (Summing the rep heads inside one block per kv head would leave
+// 128 blocks at gemma3-1b's shapes, the first key tile of a causal layer
+// walking 256 query tiles: about 1.8x the time of a global layer's
+// backward.) Blocks are numbered so that the heaviest tiles of a causal
+// mask start first.
+//
+// Tiles: a key tile lies wholly outside the mask of a query tile when it
+// is past the causal frontier, or when every pair is at least `window`
+// apart, and holds no prefix key. Such a tile is skipped. That gives the
+// same result as processing it: every row of a causal or windowed mask has
+// a valid key in the diagonal tile, a masked logit adds exp(-1e30 - m) = 0
+// once the row has seen a valid key, and what it adds before is multiplied
+// by exp(-1e30 - m) = 0 when the first valid key arrives.
+//
+// What bounds it on an H100: at gemma3-1b's training shapes (B 2, S 2048,
+// H 4, KV 1, D 256, window 512 or global) it does 4 float32 multiply-adds
+// per unmasked (query, key, column) in the forward, and 10 in the backward
+// (S, dP, dQ in the first launch; S, dP, dV, dK in the second), against
+// 67 TFLOP/s of CUDA-core float32; the bytes (q, k, v, o and their
+// gradients, each once) are a few tens of MB, a few microseconds at
+// 3.35 TB/s. So it is bound by operations.
+//
+// What the design does (simple first, no tensor cores): every product is a
+// float32 FMA on the CUDA cores, because TF32 keeps 10 mantissa bits and
+// would miss the JAX kernel's rtol 2e-4. The Pallas blocks (512 x 512, rep
+// heads folded into a query tile) need megabytes of VMEM; here a block owns
+// 64 query rows of one head (8 warps x 8 rows) and streams key tiles of 32
+// rows through dynamic shared memory (up to 202 KB at D = 256, set with
+// cudaFuncSetAttribute). In the logit product lane j of a warp owns key j
+// of the tile, so the row max and row sum of the online softmax are warp
+// shuffles; in the value product lane l owns columns l, l + 32, ..., so
+// each shared-memory load of a value feeds 8 rows. Keys are stored
+// transposed with rows padded to 33 floats, so that lanes reading
+// consecutive keys, and lanes reading consecutive columns of one key, hit
+// different banks. Head dims are padded with zeros to 32 * CT (CT = 1, 2,
+// 4 or 8 columns per lane), so D may be anything up to 256. Rows past S
+// (a ragged last tile) are masked and never stored. bf16 inputs are
+// widened to float32 in shared memory and the output is rounded to bf16
+// once, as the JAX kernel casts its f32 accumulator. With one block per
+// SM nothing hides the latency of a tile's loads, so where D % 4 == 0 and
+// the rows are aligned they move in 16-byte loads (8-byte for bf16),
+// several issued before the first is stored; otherwise element by element
+// (one 4-byte load per element in a loop takes about 1.5x the time at
+// gemma3-1b's shapes).
+//
+// Later work (not done here): tensor cores (3xTF32, or bf16 with float32
+// accumulation where the tolerance allows), TMA with a ring of key tiles
+// overlapping the loads with the products, and more than one block per SM.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBq = 64;          // query rows of a forward / dQ block
+constexpr int kRows = kBq / kWarps;   // 8 query rows per warp
+constexpr int kBk = 32;          // key rows of a tile (one per lane)
+constexpr int kBq2 = 32;         // query rows of a dK/dV inner step
+constexpr int kRows2 = kBq2 / kWarps; // 4 rows per warp there
+constexpr int kKs = kBk + 1;     // padded row of the transposed key tile
+constexpr int kPs = kBq2 + 4;    // padded row of the transposed P tile
+constexpr float kNegInf = -1e30f;
+
+struct Geo {
+  int B, S, H, KV, D, rep;
+  int causal, window, prefix;
+  int vec;       // D % 4 == 0 and every row 16-byte (bf16: 8-byte) aligned
+  float scale;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The JAX kernel's mask, plus the ragged edge (positions past S).
+__device__ __forceinline__ bool pair_ok(int qp, int kp, const Geo& g) {
+  if (qp >= g.S || kp >= g.S) return false;
+  bool ok = g.causal ? (qp >= kp) : true;
+  ok = ok || (kp < g.prefix);
+  if (g.window > 0) ok = ok && ((qp - kp < g.window) || (kp < g.prefix));
+  return ok;
+}
+
+// False only when every pair of [q0, q0+nq) x [k0, k0+nk) is masked.
+__device__ __forceinline__ bool tile_live(int q0, int nq, int k0, int nk,
+                                          const Geo& g) {
+  if (k0 < g.prefix) return true;
+  const int qlast = min(q0 + nq, g.S) - 1;
+  const int klast = min(k0 + nk, g.S) - 1;
+  if (g.causal && k0 > qlast) return false;
+  if (g.window > 0 && q0 - klast >= g.window) return false;
+  return true;
+}
+
+__device__ __forceinline__ size_t q_index(const Geo& g, int b, int t, int h,
+                                          int c) {
+  return ((static_cast<size_t>(b) * g.S + t) * g.H + h) * g.D + c;
+}
+
+__device__ __forceinline__ size_t kv_index(const Geo& g, int b, int t, int h,
+                                           int c) {
+  return ((static_cast<size_t>(b) * g.S + t) * g.KV + h) * g.D + c;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Tile loads from device memory into shared memory, zero past S and past
+// D. With g.vec each thread moves 4 consecutive columns per load, and the
+// loads of a batch are all issued before their stores, so that several
+// are in flight at once (with one block per SM, nothing else hides their
+// latency); otherwise one column per load.
+constexpr int kBatch = 4;
+
+// ROWS x DV rows [t0, t0 + ROWS) of head h of a (B, S, nh, D) tensor,
+// row-major, times `mul`.
+template <int ROWS, int DV, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          const Geo& g, int b, int t0, int h,
+                                          int nh, float mul) {
+  if (g.vec) {
+    constexpr int kIters = ROWS * DV / 4 / kThreads;
+    constexpr int kStep = kIters < kBatch ? kIters : kBatch;
+    static_assert(ROWS * DV % (4 * kThreads) == 0 && kIters % kStep == 0,
+                  "tile does not split evenly over the block");
+#pragma unroll
+    for (int i0 = 0; i0 < kIters; i0 += kStep) {
+      float4 val[kStep];
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) {
+        const int idx = threadIdx.x + (i0 + i) * kThreads;
+        const int r = idx / (DV / 4), c = (idx % (DV / 4)) * 4, t = t0 + r;
+        val[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t < g.S && c < g.D)
+          val[i] = load4(src + ((static_cast<size_t>(b) * g.S + t) * nh + h) *
+                                   g.D + c);
+      }
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) {
+        const int idx = threadIdx.x + (i0 + i) * kThreads;
+        const int r = idx / (DV / 4), c = (idx % (DV / 4)) * 4;
+        *reinterpret_cast<float4*>(&dst[r * DV + c]) =
+            make_float4(val[i].x * mul, val[i].y * mul, val[i].z * mul,
+                        val[i].w * mul);
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < ROWS * DV; idx += kThreads) {
+    const int r = idx / DV, c = idx - r * DV, t = t0 + r;
+    float val = 0.f;
+    if (t < g.S && c < g.D)
+      val = to_f(src[((static_cast<size_t>(b) * g.S + t) * nh + h) * g.D +
+                     c]) * mul;
+    dst[idx] = val;
+  }
+}
+
+// kBk x DV key-side tile (keys [k0, k0 + kBk) of kv head h), stored
+// transposed: dst[c * kKs + j].
+template <int DV, typename T>
+__device__ __forceinline__ void load_keys_t(float* dst, const T* src,
+                                            const Geo& g, int b, int k0,
+                                            int h) {
+  if (g.vec) {
+    constexpr int kIters = kBk * DV / 4 / kThreads;
+    constexpr int kStep = kIters < kBatch ? kIters : kBatch;
+    static_assert(kBk * DV % (4 * kThreads) == 0 && kIters % kStep == 0,
+                  "tile does not split evenly over the block");
+#pragma unroll
+    for (int i0 = 0; i0 < kIters; i0 += kStep) {
+      float4 val[kStep];
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) {
+        const int idx = threadIdx.x + (i0 + i) * kThreads;
+        const int j = idx / (DV / 4), c = (idx % (DV / 4)) * 4, t = k0 + j;
+        val[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t < g.S && c < g.D) val[i] = load4(src + kv_index(g, b, t, h, c));
+      }
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) {
+        const int idx = threadIdx.x + (i0 + i) * kThreads;
+        const int j = idx / (DV / 4), c = (idx % (DV / 4)) * 4;
+        dst[c * kKs + j] = val[i].x;
+        dst[(c + 1) * kKs + j] = val[i].y;
+        dst[(c + 2) * kKs + j] = val[i].z;
+        dst[(c + 3) * kKs + j] = val[i].w;
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kBk * DV; idx += kThreads) {
+    const int j = idx / DV, c = idx - j * DV, t = k0 + j;
+    float val = 0.f;
+    if (t < g.S && c < g.D) val = to_f(src[kv_index(g, b, t, h, c)]);
+    dst[c * kKs + j] = val;
+  }
+}
+
+__host__ __device__ inline size_t fwd_smem_floats(int dv) {
+  return static_cast<size_t>(kBq) * dv + static_cast<size_t>(dv) * kKs +
+         static_cast<size_t>(kBk) * dv + kBq * kBk;
+}
+__host__ __device__ inline size_t dq_smem_floats(int dv) {
+  return 2 * static_cast<size_t>(kBq) * dv + 2 * static_cast<size_t>(dv) * kKs +
+         kBq * kBk;
+}
+__host__ __device__ inline size_t dkv_smem_floats(int dv) {
+  return 2 * static_cast<size_t>(dv) * kKs +
+         2 * static_cast<size_t>(kBq2) * dv + 2 * kBk * kPs + 2 * kBq2;
+}
+
+// ---------------------------------------------------------------------------
+// forward: grid (H, B, ceil(S / 64)), the last query tiles first
+// ---------------------------------------------------------------------------
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Geo g) {
+  constexpr int DV = 32 * CT;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // kBq x DV, pre-scaled
+  float* kt = qs + kBq * DV;      // DV x kKs, transposed keys
+  float* vs = kt + DV * kKs;      // kBk x DV
+  float* ps = vs + kBk * DV;      // kBq x kBk, this tile's probabilities
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBq, h = blockIdx.x,
+            b = blockIdx.y;
+  const int kvh = h / g.rep;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRows;
+
+  load_rows<kBq, DV>(qs, q, g, b, q0, h, g.H, g.scale);
+  float acc[kRows][CT], m[kRows], l[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) acc[r][t] = 0.f;
+  }
+
+  const int n_tiles = (g.S + kBk - 1) / kBk;
+  for (int kt_i = 0; kt_i < n_tiles; ++kt_i) {
+    const int k0 = kt_i * kBk;
+    if (!tile_live(q0, kBq, k0, kBk, g)) continue;
+    __syncthreads();   // the previous tile is consumed (and q is loaded)
+    load_keys_t<DV>(kt, k, g, b, k0, kvh);
+    load_rows<kBk, DV>(vs, v, g, b, k0, kvh, g.KV, 1.f);
+    __syncthreads();
+
+    float s[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+    for (int c = 0; c < DV; c += 4) {
+      const float k0v = kt[c * kKs + lane], k1v = kt[(c + 1) * kKs + lane];
+      const float k2v = kt[(c + 2) * kKs + lane];
+      const float k3v = kt[(c + 3) * kKs + lane];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&qs[(r0 + r) * DV + c]);
+        s[r] = fmaf(qv.x, k0v, s[r]);
+        s[r] = fmaf(qv.y, k1v, s[r]);
+        s[r] = fmaf(qv.z, k2v, s[r]);
+        s[r] = fmaf(qv.w, k3v, s[r]);
+      }
+    }
+    const int kp = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float sv = pair_ok(q0 + r0 + r, kp, g) ? s[r] : kNegInf;
+      const float m_new = fmaxf(m[r], warp_max(sv));
+      const float alpha = expf(m[r] - m_new);
+      const float p = expf(sv - m_new);
+      l[r] = l[r] * alpha + warp_sum(p);
+      m[r] = m_new;
+#pragma unroll
+      for (int t = 0; t < CT; ++t) acc[r][t] *= alpha;
+      ps[(r0 + r) * kBk + lane] = p;
+    }
+    __syncwarp();      // a warp reads back only its own rows of ps
+    for (int j = 0; j < kBk; j += 4) {
+      float4 pv[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        pv[r] = *reinterpret_cast<const float4*>(&ps[(r0 + r) * kBk + j]);
+#pragma unroll
+      for (int t = 0; t < CT; ++t) {
+        const float* vcol = vs + j * DV + lane + 32 * t;
+        const float v0 = vcol[0], v1 = vcol[DV], v2 = vcol[2 * DV],
+                    v3 = vcol[3 * DV];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float a = acc[r][t];
+          a = fmaf(pv[r].x, v0, a);
+          a = fmaf(pv[r].y, v1, a);
+          a = fmaf(pv[r].z, v2, a);
+          a = fmaf(pv[r].w, v3, a);
+          acc[r][t] = a;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= g.S) continue;
+    const float denom = fmaxf(l[r], 1e-37f);
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int c = lane + 32 * t;
+      if (c < g.D) o[q_index(g, b, qp, h, c)] = from_f<T>(acc[r][t] / denom);
+    }
+    if (lane == 0)
+      lse[(static_cast<size_t>(b) * g.H + h) * g.S + qp] = m[r] + logf(denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, launch 1: Delta and dQ; grid (H, B, ceil(S / 64)), the last
+// query tiles first
+// ---------------------------------------------------------------------------
+template <int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
+                    float* __restrict__ delta, Geo g) {
+  constexpr int DV = 32 * CT;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // kBq x DV, pre-scaled
+  float* dos = qs + kBq * DV;     // kBq x DV
+  float* kt = dos + kBq * DV;     // DV x kKs
+  float* vt = kt + DV * kKs;      // DV x kKs
+  float* dss = vt + DV * kKs;     // kBq x kBk
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBq, h = blockIdx.x,
+            b = blockIdx.y;
+  const int kvh = h / g.rep;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRows;
+
+  load_rows<kBq, DV>(qs, q, g, b, q0, h, g.H, g.scale);
+  load_rows<kBq, DV>(dos, dout, g, b, q0, h, g.H, 1.f);
+  __syncthreads();
+
+  float lse_r[kRows], del[kRows], acc[kRows][CT];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    float part = 0.f;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int c = lane + 32 * t;
+      if (qp < g.S && c < g.D)
+        part = fmaf(dos[(r0 + r) * DV + c], o[q_index(g, b, qp, h, c)], part);
+    }
+    del[r] = warp_sum(part);
+    const size_t row = (static_cast<size_t>(b) * g.H + h) * g.S + qp;
+    lse_r[r] = qp < g.S ? lse[row] : 0.f;
+    if (lane == 0 && qp < g.S) delta[row] = del[r];
+#pragma unroll
+    for (int t = 0; t < CT; ++t) acc[r][t] = 0.f;
+  }
+
+  const int n_tiles = (g.S + kBk - 1) / kBk;
+  for (int kt_i = 0; kt_i < n_tiles; ++kt_i) {
+    const int k0 = kt_i * kBk;
+    if (!tile_live(q0, kBq, k0, kBk, g)) continue;
+    __syncthreads();
+    load_keys_t<DV>(kt, k, g, b, k0, kvh);
+    load_keys_t<DV>(vt, v, g, b, k0, kvh);
+    __syncthreads();
+
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < DV; c += 4) {
+      float kc[4], vc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kc[i] = kt[(c + i) * kKs + lane];
+        vc[i] = vt[(c + i) * kKs + lane];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&qs[(r0 + r) * DV + c]);
+        const float4 dv4 =
+            *reinterpret_cast<const float4*>(&dos[(r0 + r) * DV + c]);
+        s[r] = fmaf(qv.x, kc[0], s[r]);
+        s[r] = fmaf(qv.y, kc[1], s[r]);
+        s[r] = fmaf(qv.z, kc[2], s[r]);
+        s[r] = fmaf(qv.w, kc[3], s[r]);
+        dp[r] = fmaf(dv4.x, vc[0], dp[r]);
+        dp[r] = fmaf(dv4.y, vc[1], dp[r]);
+        dp[r] = fmaf(dv4.z, vc[2], dp[r]);
+        dp[r] = fmaf(dv4.w, vc[3], dp[r]);
+      }
+    }
+    const int kp = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float p =
+          pair_ok(q0 + r0 + r, kp, g) ? expf(s[r] - lse_r[r]) : 0.f;
+      dss[(r0 + r) * kBk + lane] = p * (dp[r] - del[r]);
+    }
+    __syncwarp();
+    for (int j = 0; j < kBk; j += 4) {
+      float4 dsv[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        dsv[r] = *reinterpret_cast<const float4*>(&dss[(r0 + r) * kBk + j]);
+#pragma unroll
+      for (int t = 0; t < CT; ++t) {
+        const float* kcol = kt + (lane + 32 * t) * kKs + j;
+        const float k0v = kcol[0], k1v = kcol[1], k2v = kcol[2],
+                    k3v = kcol[3];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float a = acc[r][t];
+          a = fmaf(dsv[r].x, k0v, a);
+          a = fmaf(dsv[r].y, k1v, a);
+          a = fmaf(dsv[r].z, k2v, a);
+          a = fmaf(dsv[r].w, k3v, a);
+          acc[r][t] = a;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= g.S) continue;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int c = lane + 32 * t;
+      if (c < g.D) dq[q_index(g, b, qp, h, c)] = acc[r][t] * g.scale;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, launch 2: dK and dV of one query head; grid (H, B, ceil(S / 32)),
+// the first key tiles (the most query tiles under a causal mask) first.
+// With rep > 1 it writes the head's partial sums (B, S, H, D), and
+// flash_bwd_sum_heads adds the rep heads of each kv head in order.
+// ---------------------------------------------------------------------------
+template <int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Geo g) {
+  // dk, dv: (B, S, H, D) partials, or (B, S, KV, D) when rep == 1
+  constexpr int DV = 32 * CT;
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;               // DV x kKs, this block's keys
+  float* vt = kt + DV * kKs;      // DV x kKs, its values
+  float* qs = vt + DV * kKs;      // kBq2 x DV, pre-scaled
+  float* dos = qs + kBq2 * DV;    // kBq2 x DV
+  float* pt = dos + kBq2 * DV;    // kBk x kPs, P transposed
+  float* dst = pt + kBk * kPs;    // kBk x kPs, dS transposed
+  float* lses = dst + kBk * kPs;  // kBq2
+  float* dels = lses + kBq2;      // kBq2
+  const int k0 = blockIdx.z * kBk, h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / g.rep;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i0 = warp * kRows2;   // query rows of this warp (S, dP)
+  const int j0 = warp * kRows2;   // key rows of this warp (dK, dV)
+
+  load_keys_t<DV>(kt, k, g, b, k0, kvh);
+  load_keys_t<DV>(vt, v, g, b, k0, kvh);
+  float dk_acc[kRows2][CT], dv_acc[kRows2][CT];
+#pragma unroll
+  for (int r = 0; r < kRows2; ++r)
+#pragma unroll
+    for (int t = 0; t < CT; ++t) dk_acc[r][t] = dv_acc[r][t] = 0.f;
+
+  const int kp = k0 + lane;
+  const int n_qtiles = (g.S + kBq2 - 1) / kBq2;
+  for (int qt_i = 0; qt_i < n_qtiles; ++qt_i) {
+    const int q0 = qt_i * kBq2;
+    if (!tile_live(q0, kBq2, k0, kBk, g)) continue;
+    __syncthreads();   // the previous step's tiles are consumed
+    load_rows<kBq2, DV>(qs, q, g, b, q0, h, g.H, g.scale);
+    load_rows<kBq2, DV>(dos, dout, g, b, q0, h, g.H, 1.f);
+    for (int i = threadIdx.x; i < kBq2; i += kThreads) {
+      const int qp = q0 + i;
+      const size_t row = (static_cast<size_t>(b) * g.H + h) * g.S + qp;
+      lses[i] = qp < g.S ? lse[row] : 0.f;
+      dels[i] = qp < g.S ? delta[row] : 0.f;
+    }
+    __syncthreads();
+
+    float s[kRows2], dp[kRows2];
+#pragma unroll
+    for (int r = 0; r < kRows2; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < DV; c += 4) {
+      float kc[4], vc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kc[i] = kt[(c + i) * kKs + lane];
+        vc[i] = vt[(c + i) * kKs + lane];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows2; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&qs[(i0 + r) * DV + c]);
+        const float4 dv4 =
+            *reinterpret_cast<const float4*>(&dos[(i0 + r) * DV + c]);
+        s[r] = fmaf(qv.x, kc[0], s[r]);
+        s[r] = fmaf(qv.y, kc[1], s[r]);
+        s[r] = fmaf(qv.z, kc[2], s[r]);
+        s[r] = fmaf(qv.w, kc[3], s[r]);
+        dp[r] = fmaf(dv4.x, vc[0], dp[r]);
+        dp[r] = fmaf(dv4.y, vc[1], dp[r]);
+        dp[r] = fmaf(dv4.z, vc[2], dp[r]);
+        dp[r] = fmaf(dv4.w, vc[3], dp[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows2; ++r) {
+      const int i = i0 + r;
+      const float p =
+          pair_ok(q0 + i, kp, g) ? expf(s[r] - lses[i]) : 0.f;
+      pt[lane * kPs + i] = p;
+      dst[lane * kPs + i] = p * (dp[r] - dels[i]);
+    }
+    __syncthreads();   // other warps read these keys' columns
+
+    for (int i = 0; i < kBq2; i += 4) {
+      float4 pv[kRows2], dsv[kRows2];
+#pragma unroll
+      for (int r = 0; r < kRows2; ++r) {
+        pv[r] = *reinterpret_cast<const float4*>(&pt[(j0 + r) * kPs + i]);
+        dsv[r] = *reinterpret_cast<const float4*>(&dst[(j0 + r) * kPs + i]);
+      }
+#pragma unroll
+      for (int t = 0; t < CT; ++t) {
+        const int c = lane + 32 * t;
+        const float d0 = dos[i * DV + c], d1 = dos[(i + 1) * DV + c],
+                    d2 = dos[(i + 2) * DV + c], d3 = dos[(i + 3) * DV + c];
+        const float q0v = qs[i * DV + c], q1v = qs[(i + 1) * DV + c],
+                    q2v = qs[(i + 2) * DV + c], q3v = qs[(i + 3) * DV + c];
+#pragma unroll
+        for (int r = 0; r < kRows2; ++r) {
+          float a = dv_acc[r][t];
+          a = fmaf(pv[r].x, d0, a);
+          a = fmaf(pv[r].y, d1, a);
+          a = fmaf(pv[r].z, d2, a);
+          a = fmaf(pv[r].w, d3, a);
+          dv_acc[r][t] = a;
+          float e = dk_acc[r][t];
+          e = fmaf(dsv[r].x, q0v, e);
+          e = fmaf(dsv[r].y, q1v, e);
+          e = fmaf(dsv[r].z, q2v, e);
+          e = fmaf(dsv[r].w, q3v, e);
+          dk_acc[r][t] = e;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows2; ++r) {
+    const int t_row = k0 + j0 + r;
+    if (t_row >= g.S) continue;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int c = lane + 32 * t;
+      if (c < g.D) {
+        const size_t at = q_index(g, b, t_row, h, c);
+        dk[at] = dk_acc[r][t];
+        dv[at] = dv_acc[r][t];
+      }
+    }
+  }
+}
+
+// backward, launch 3 (rep > 1 only): dK and dV of each kv head, the sum of
+// its rep query heads' partials in head order; one thread per output.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_sum_heads(const float* __restrict__ dk_part,
+                    const float* __restrict__ dv_part, float* __restrict__ dk,
+                    float* __restrict__ dv, Geo g) {
+  const size_t n = static_cast<size_t>(g.B) * g.S * g.KV * g.D;
+  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * kThreads) {
+    // row = (b * S + t) * KV + kv head
+    const size_t c = i % g.D, row = i / g.D;
+    const size_t base = (row / g.KV * g.H + row % g.KV * g.rep) * g.D + c;
+    float sk = 0.f, sv = 0.f;
+    for (int r = 0; r < g.rep; ++r) {
+      sk += dk_part[base + static_cast<size_t>(r) * g.D];
+      sv += dv_part[base + static_cast<size_t>(r) * g.D];
+    }
+    dk[i] = sk;
+    dv[i] = sv;
+  }
+}
+
+int columns_per_lane(int d) {
+  if (d <= 32) return 1;
+  if (d <= 64) return 2;
+  if (d <= 128) return 4;
+  if (d <= 256) return 8;
+  return 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();  // keep the next check clean
+  return err;
+}
+
+template <typename T, int CT>
+int launch_fwd(const T* q, const T* k, const T* v, T* o, float* lse,
+               const Geo& g, cudaStream_t st) {
+  const size_t smem = fwd_smem_floats(32 * CT) * sizeof(float);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, CT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.H, g.B, (g.S + kBq - 1) / kBq);
+  flash_fwd_kernel<T, CT><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, g);
+  return cudaGetLastError();
+}
+
+template <int CT>
+int launch_bwd_dq(const float* q, const float* k, const float* v,
+                  const float* o, const float* dout, const float* lse,
+                  float* dq, float* delta, const Geo& g, cudaStream_t st) {
+  const size_t smem = dq_smem_floats(32 * CT) * sizeof(float);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<CT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.H, g.B, (g.S + kBq - 1) / kBq);
+  flash_bwd_dq_kernel<CT><<<grid, kThreads, smem, st>>>(q, k, v, o, dout,
+                                                        lse, dq, delta, g);
+  return cudaGetLastError();
+}
+
+template <int CT>
+int launch_bwd_dkv(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dk, float* dv, const Geo& g, cudaStream_t st) {
+  const size_t smem = dkv_smem_floats(32 * CT) * sizeof(float);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<CT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.H, g.B, (g.S + kBk - 1) / kBk);
+  flash_bwd_dkv_kernel<CT><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse,
+                                                         delta, dk, dv, g);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+Geo make_geo(int b, int s, int h, int kv, int d, int causal, int window,
+             int prefix, bool vec) {
+  Geo g;
+  g.B = b;
+  g.S = s;
+  g.H = h;
+  g.KV = kv;
+  g.D = d;
+  g.rep = h / kv;
+  g.causal = causal;
+  g.window = window;
+  g.prefix = prefix;
+  g.vec = vec && d % 4 == 0;
+  g.scale = 1.0f / sqrtf(static_cast<float>(d));
+  return g;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Bytes of dynamic shared memory one block needs at head dim d:
+// which = 0 forward, 1 backward dQ, 2 backward dK/dV.
+long long flash_smem_bytes(int which, int d) {
+  const int ct = columns_per_lane(d);
+  if (ct == 0) return -1;
+  const int dv = 32 * ct;
+  const size_t f = which == 0 ? fwd_smem_floats(dv)
+                   : which == 1 ? dq_smem_floats(dv) : dkv_smem_floats(dv);
+  return static_cast<long long>(f * sizeof(float));
+}
+
+// o (B, S, H, D) in q's dtype and lse (B, H, S) float32 from q (B, S, H, D)
+// and k, v (B, S, KV, D), all contiguous; bf16 = 0 for float32, 1 for
+// bfloat16 inputs and output; D <= 256, H % KV == 0. Returns cudaSuccess or
+// the error of the attribute call or the launch (cudaGetLastError()).
+int flash_fwd(const void* q, const void* k, const void* v, void* o,
+              void* lse, int bf16, int b, int s, int h, int kv, int d,
+              int causal, int window, int prefix, void* stream) {
+  const size_t row_align = bf16 ? 8 : 16;
+  const Geo g = make_geo(b, s, h, kv, d, causal, window, prefix,
+                         aligned(q, row_align) && aligned(k, row_align) &&
+                             aligned(v, row_align));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define REPRO_FWD(T, CT)                                                     \
+  return launch_fwd<T, CT>(static_cast<const T*>(q), static_cast<const T*>(k), \
+                           static_cast<const T*>(v), static_cast<T*>(o), l,  \
+                           g, st)
+  switch (columns_per_lane(d) * (bf16 ? -1 : 1)) {
+    case 1: REPRO_FWD(float, 1);
+    case 2: REPRO_FWD(float, 2);
+    case 4: REPRO_FWD(float, 4);
+    case 8: REPRO_FWD(float, 8);
+    case -1: REPRO_FWD(__nv_bfloat16, 1);
+    case -2: REPRO_FWD(__nv_bfloat16, 2);
+    case -4: REPRO_FWD(__nv_bfloat16, 4);
+    case -8: REPRO_FWD(__nv_bfloat16, 8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_FWD
+}
+
+// Backward, launch 1: dq (B, S, H, D) and delta (B, H, S) from q, k, v,
+// o, dout and the forward's lse; everything float32 and contiguous.
+int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const void* lse, void* dq, void* delta,
+                 int b, int s, int h, int kv, int d, int causal, int window,
+                 int prefix, void* stream) {
+  const Geo g = make_geo(b, s, h, kv, d, causal, window, prefix,
+                         aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+                             aligned(dout, 16));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_BWD_DQ(CT)                                                     \
+  return launch_bwd_dq<CT>(                                                  \
+      static_cast<const float*>(q), static_cast<const float*>(k),            \
+      static_cast<const float*>(v), static_cast<const float*>(o),            \
+      static_cast<const float*>(dout), static_cast<const float*>(lse),       \
+      static_cast<float*>(dq), static_cast<float*>(delta), g, st)
+  switch (columns_per_lane(d)) {
+    case 1: REPRO_BWD_DQ(1);
+    case 2: REPRO_BWD_DQ(2);
+    case 4: REPRO_BWD_DQ(4);
+    case 8: REPRO_BWD_DQ(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD_DQ
+}
+
+// Backward, launch 2: dk and dv of every query head, (B, S, H, D) (with
+// H == KV these are the gradients), from q, k, v, dout, the forward's lse
+// and launch 1's delta; everything float32 and contiguous.
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int b, int s, int h, int kv, int d,
+                  int causal, int window, int prefix, void* stream) {
+  const Geo g = make_geo(b, s, h, kv, d, causal, window, prefix,
+                         aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+                             aligned(dout, 16));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_BWD_DKV(CT)                                                    \
+  return launch_bwd_dkv<CT>(                                                 \
+      static_cast<const float*>(q), static_cast<const float*>(k),            \
+      static_cast<const float*>(v), static_cast<const float*>(dout),         \
+      static_cast<const float*>(lse), static_cast<const float*>(delta),      \
+      static_cast<float*>(dk), static_cast<float*>(dv), g, st)
+  switch (columns_per_lane(d)) {
+    case 1: REPRO_BWD_DKV(1);
+    case 2: REPRO_BWD_DKV(2);
+    case 4: REPRO_BWD_DKV(4);
+    case 8: REPRO_BWD_DKV(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD_DKV
+}
+
+// Backward, launch 3 (H > KV): dk and dv (B, S, KV, D), each kv head the
+// sum of its H / KV query heads' dk_part and dv_part (B, S, H, D) in head
+// order; float32, contiguous.
+int flash_bwd_sum(const void* dk_part, const void* dv_part, void* dk,
+                  void* dv, int b, int s, int h, int kv, int d,
+                  void* stream) {
+  if (b < 1 || s < 1 || kv < 1 || d < 1 || h % kv)
+    return cudaErrorInvalidValue;
+  const Geo g = make_geo(b, s, h, kv, d, 0, 0, 0, false);
+  const size_t n = static_cast<size_t>(b) * s * kv * d;
+  const size_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  flash_bwd_sum_heads<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
+      static_cast<float*>(dk), static_cast<float*>(dv), g);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

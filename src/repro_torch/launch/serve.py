@@ -73,7 +73,7 @@ def plan_params_for_pim(params, cfg: PimConfig):
     blocks becomes a list of L :class:`~repro_torch.core.pim.DensePlan`,
     one per layer, programmed from the original float weights on the
     substrate ``cfg`` names (quantize + nibble-decompose + kernel pre-pad,
-    once). ``lm.layer_params`` indexes the list per layer and
+    once). ``lm.layer_trees`` takes the list's entries per layer and
     ``layers.proj`` dispatches each plan onto the engine. Every other
     ``PIM_WEIGHT_SUFFIXES`` leaf of two or more dimensions (SSM
     projections, embedding tables) is fake-quantized per output column,

@@ -10,9 +10,16 @@ over layers in Python, where the JAX package threads a traced per-layer
 window array through ``lax.scan``. ``_mask`` computes the same thing for
 both.
 
-Only the ``"jnp"`` attention backend (plain tensor ops, the config
-default) is ported; the flash-attention kernel (ROADMAP B5) is not, and
-asking for it raises.
+``attention_block`` takes the JAX package's attention backends:
+``"jnp"`` (plain tensor ops, the config default) and ``"cuda"``, the
+hand-written flash-attention kernel (``kernels/flash_attention``,
+forward and backward), with the JAX names ``"pallas"`` and
+``"pallas_interp"`` as aliases. The kernel route takes every length
+(the kernel masks a ragged last tile), so it runs whenever the backend
+asks for it; on CPU tensors it is the kernel's plain version. JAX's route
+also needs ``s % block == 0`` and integer windows, which its scanned
+(traced) window never is, so JAX's ``lm.forward`` never reaches its
+kernel where the port's does.
 """
 from __future__ import annotations
 
@@ -21,11 +28,12 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (Params, apply_rope, dense_init, proj,
                                        rms_norm)
 
 NEG_INF = -1e30
-ATTN_BACKENDS = ("jnp",)
+ATTN_BACKENDS = flash_ops.BACKENDS + tuple(flash_ops.BACKEND_ALIASES)
 
 
 def attention_init(gen: torch.Generator, d_model: int, num_heads: int,
@@ -216,15 +224,15 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
                     norm_eps: float = 1e-6, block: int = 512,
                     blockwise_threshold: int = 2048, prefix_len: int = 0,
                     return_kv: bool = False, backend: str = "jnp"):
-    """Training/prefill attention; blockwise above the threshold."""
-    if backend not in ATTN_BACKENDS:
-        raise NotImplementedError(
-            f"attn_backend={backend!r}: the flash-attention kernel is not "
-            "ported yet (ROADMAP B5); the port runs attn_backend='jnp'")
+    """Training/prefill attention: the flash kernel route where the backend
+    asks for it, else blockwise above the threshold, else full attention."""
+    flash = flash_ops.resolve_backend(backend) == "cuda"
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_theta, norm_eps)
     s = x.shape[1]
-    if s > blockwise_threshold:
+    if flash:
+        out = flash_ops.flash_attention(q, k, v, causal, window, prefix_len)
+    elif s > blockwise_threshold:
         out = blockwise_attention(q, k, v, positions, window, causal, block,
                                   prefix_len)
     else:

@@ -5,9 +5,14 @@ One parameterized decoder covering dense GQA/MQA attention (qk-norm, QKV
 bias, sliding windows, RoPE), Mamba2 SSD layers and hymba-style parallel
 attention + SSM blocks. Layer parameters are stacked along a leading
 layer axis, as in the JAX package, and the layers run as a Python loop
-over it (layer ``i`` reads index ``i`` of every leaf; a leaf that is a
-list, such as the per-layer plans of ``plan_params_for_pim``, is indexed
-the same way). Per-layer sliding windows are Python ints.
+over it (:func:`layer_trees` splits every stacked leaf once per call with
+``torch.unbind``; a leaf that is a list, such as the per-layer plans of
+``plan_params_for_pim``, gives its entries). Per-layer sliding windows
+are Python ints, so ``forward`` with ``attn_backend="cuda"`` reaches the
+flash-attention kernel (forward and backward), which JAX's scan over a
+traced window array never does. ``prefill`` passes no backend, as in the
+JAX package. ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``), the counterpart of ``jax.checkpoint``.
 
 Not ported yet, and raising: MoE FFNs (ROADMAP A6, ``models/moe.py``),
 the encoder-decoder with cross-attention (whisper) and the VLM prefix
@@ -24,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
@@ -100,12 +106,18 @@ def init_lm(cfg: ModelConfig, gen: Union[int, torch.Generator],
     return params
 
 
-def layer_params(layers: Any, i: int) -> Any:
-    """Layer ``i`` of the stacked layer tree: index ``i`` of every tensor
-    leaf and of every per-layer list (plans)."""
+def layer_trees(layers: Any, n: int) -> List[Any]:
+    """The ``n`` per-layer trees of the stacked layer tree: each tensor
+    leaf split once with ``torch.unbind`` (under autograd its backward
+    stacks the layers' gradients once, where indexing each layer would
+    write a zero tensor the size of the whole leaf per layer), each
+    per-layer list (plans) taken as it is."""
     if isinstance(layers, dict):
-        return {k: layer_params(v, i) for k, v in layers.items()}
-    return layers[i]
+        parts = {k: layer_trees(v, n) for k, v in layers.items()}
+        return [{k: part[i] for k, part in parts.items()} for i in range(n)]
+    if isinstance(layers, list):
+        return layers
+    return list(torch.unbind(layers))
 
 
 def _vocab_mask(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -172,9 +184,13 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
     aux); aux holds the MoE losses of the JAX package, 0 here."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, batch)
-    for i, window in enumerate(_windows(cfg)):
-        x = _decoder_layer(cfg, layer_params(params["layers"], i), x,
-                           positions, window)
+    layers = layer_trees(params["layers"], cfg.num_layers)
+    for lp, window in zip(layers, _windows(cfg)):
+        if cfg.remat:
+            x = checkpoint(_decoder_layer, cfg, lp, x, positions, window,
+                           use_reentrant=False)
+        else:
+            x = _decoder_layer(cfg, lp, x, positions, window)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
     logits = _vocab_mask(cfg, unembed(_table(params, cfg), x))
     return logits, {"moe_lb_loss": 0.0, "moe_z_loss": 0.0}
@@ -221,8 +237,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     if max_len < s:
         raise ValueError(f"cache max_len={max_len} < prompt length {s}")
     cache = init_cache(cfg, b, max_len, dtype=cache_dtype, device=x.device)
-    for i, window in enumerate(_windows(cfg)):
-        lp = layer_params(params["layers"], i)
+    layers = layer_trees(params["layers"], cfg.num_layers)
+    for i, (lp, window) in enumerate(zip(layers, _windows(cfg))):
         h = rms_norm(x, lp["ln1_d"], cfg.norm_eps)
         outs = []
         if cfg.block_type in ("attn", "hybrid"):
@@ -279,8 +295,8 @@ def decode_step(params: Params, cfg: ModelConfig,
     Python int shared by the batch or a (B,) per-row tensor. The cache is
     updated in place and returned. Returns (logits (B, V), cache)."""
     x = embed(params["embed_vd"], token)
-    for i, window in enumerate(_windows(cfg)):
-        lp = layer_params(params["layers"], i)
+    layers = layer_trees(params["layers"], cfg.num_layers)
+    for i, (lp, window) in enumerate(zip(layers, _windows(cfg))):
         h = rms_norm(x, lp["ln1_d"], cfg.norm_eps)
         outs = []
         if cfg.block_type in ("attn", "hybrid"):

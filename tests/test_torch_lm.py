@@ -186,12 +186,21 @@ def test_decode_attention(per_row):
 
 
 def test_attention_backend_other_than_jnp_raises():
-    q = torch.zeros((1, 4, 32))
+    """A backend name the port does not know raises; the flash kernel's
+    names ("cuda" and its JAX aliases) take the flash route at any length
+    (here 4, which no block divides) and agree with "jnp" within MATMUL
+    (float32 sums in another order)."""
+    q = torch.from_numpy(_rand(np.random.default_rng(2), 1, 4, 32))
     p = convert.params_from_reference(
         j_attn.attention_init(jax.random.PRNGKey(0), 32, 4, 2, 8), "cpu")
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="B5"):
-        t_attn.attention_block(p, q, pos, 4, 2, 8, 1e4, backend="pallas")
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        t_attn.attention_block(p, q, pos, 4, 2, 8, 1e4, backend="sdpa")
+    want = t_attn.attention_block(p, q, pos, 4, 2, 8, 1e4, backend="jnp")
+    for backend in ("cuda", "pallas", "pallas_interp"):
+        torch.testing.assert_close(
+            t_attn.attention_block(p, q, pos, 4, 2, 8, 1e4,
+                                   backend=backend), want, **MATMUL)
 
 
 # ---------------------------------------------------------------------------
@@ -313,14 +322,21 @@ def test_unported_families_raise(arch):
 
 
 def test_forward_rejects_unported_attention_backend():
-    """The port's forward passes ``cfg.attn_backend`` on and raises for
-    the kernel backend; ``prefill`` never passes it (as in JAX)."""
+    """The port's forward passes ``cfg.attn_backend`` on: an unknown name
+    raises, the kernel backend runs (its flash route, here at a length its
+    block does not divide) and agrees with "jnp" within MATMUL; ``prefill``
+    never passes it (as in JAX), so it runs whatever the config says."""
     _, cfg, _, params = _model("qwen2.5-3b")
-    cfg = dataclasses.replace(cfg, attn_backend="pallas")
     toks = torch.from_numpy(_tokens(cfg.vocab_size, s=8)).long()
-    with pytest.raises(NotImplementedError, match="B5"):
-        t_lm.forward(params, cfg, {"tokens": toks})
-    logits, _ = t_lm.prefill(params, cfg, {"tokens": toks}, max_len=8)
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        t_lm.forward(params, dataclasses.replace(cfg, attn_backend="sdpa"),
+                     {"tokens": toks})
+    want, _ = t_lm.forward(params, cfg, {"tokens": toks})
+    kernel_cfg = dataclasses.replace(cfg, attn_backend="pallas")
+    got, _ = t_lm.forward(params, kernel_cfg, {"tokens": toks})
+    torch.testing.assert_close(got, want, **MATMUL)
+    logits, _ = t_lm.prefill(params, dataclasses.replace(
+        cfg, attn_backend="sdpa"), {"tokens": toks}, max_len=8)
     assert logits.shape == (B, cfg.padded_vocab)
 
 

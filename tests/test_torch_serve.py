@@ -142,12 +142,21 @@ for node in ast.walk(tree):
                 pass   # an attribute, not a module
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), "modules;", "forbidden:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+missing = sorted(set(NEW_MODULES) - set(names))
+print(len(names), "modules;", "forbidden:", bad, "missing:", missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
+# modules the walk must reach (the training slice's among them)
+NEW_MODULES = (
+    "repro_torch.kernels.flash_attention.flash_attention",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.optim.adamw", "repro_torch.optim.compression",
+    "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+    "repro_torch.data.pipeline", "repro_torch.tree")
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    res = _run(["-c", IMPORT_GUARD])
+    res = _run(["-c", f"NEW_MODULES = {NEW_MODULES!r}\n" + IMPORT_GUARD])
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "forbidden: []" in res.stdout
+    assert "forbidden: [] missing: []" in res.stdout

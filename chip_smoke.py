@@ -13,9 +13,11 @@ package. Phases, each of which raises on failure:
    from the sources in ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    all started together);
 2. kernels: every variant of the PIM matmul kernel (fused, fused + bias,
-   fused + row-sums, raw int32) at w4a4 and w8a8, on main-path shapes and
-   a ragged one, against its plain PyTorch version on the card, bit for
-   bit; then both passes of the analog readout kernel (full scale and
+   fused + row-sums, raw int32) at w4a4 and w8a8, on the CNN path's
+   shapes, hymba's four decode shapes at M = 1, 5, 8, 16 and 64 (the
+   small-M route, also through the tiled route's yardstick symbol) and
+   ragged ones, against its plain PyTorch version on the card, bit for
+   bit, and a w8a8 case at M = 8 that wraps mod 2^32; then both passes of the analog readout kernel (full scale and
    readout, with and without a bias) at w4a4 and w8a8 on main-path shapes
    and a ragged one, with the (chunk, ADC bits) sweep on the ragged one,
    bit for bit on the deterministic path, and with noise within the
@@ -54,10 +56,16 @@ package. Phases, each of which raises on failure:
    ``repro_torch.launch.serve`` (batch 8, prompt 512, 16 new tokens):
    32 SSD launches per prefill and none per decode step, 7 x 32 PIM
    launches per prefill and per decode step, no analog launch; prefill
-   logits bit-identical to ``exact-torch``; the PIM route's logit gap and
-   greedy agreement against the chunked SSD route, reported; prefill and
-   decode times, tokens/s, peak memory, a profile by stage, and the PIM
-   kernel at the path's shapes (bit for bit, then timed);
+   logits and all 16 decode steps' logits bit-identical to
+   ``exact-torch``; the PIM route's logit gap and greedy agreement
+   against the chunked SSD route, reported; prefill and decode times,
+   tokens/s, peak memory, a profile by stage; one decode step profiled
+   (224 small-M PIM kernels, no tiled one) and its 224 PIM launches
+   captured and replayed back to back on the device, the small-M route
+   against the tiled yardstick and the step's bytes bound, with nothing
+   but those kernels on the device; and the PIM kernel at the path's
+   shapes (bit for bit, then timed; the decode shapes as device time
+   with cold weights, beside the tiled yardstick);
 10. ``repro_torch.launch.serve.serve("hymba-1.5b", ..., pim=True)`` itself
     at full width (default ``ssd_backend="chunked"``);
 11. mamba2-370m at full width (48 layers) with ``ssd_backend="cuda"``: 48
@@ -110,11 +118,24 @@ INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 BATCH = 128
 REQUESTS = 4
-CHECK_SHAPES = {                 # (M, K, N) as the kernel sees them
+CNN_CHECK_SHAPES = {             # (M, K, N) as the kernel sees them
     "stage0": (131072, 1024, 64),
     "stage3": (2048, 4608, 512),
     "fc": (128, 512, 100),
     "ragged": (1000, 333, 77),
+}
+# hymba-1.5b's decode projections as the kernel sees them (planes padded
+# by the plan): q and o, k and v, gate and up, down
+HYMBA_DECODE_KN = {"qo": (2048, 1664), "kv": (2048, 384),
+                   "gate_up": (2048, 5504), "down": (5632, 1664)}
+# the small-M route: hymba's decode shapes at every batch up to its limit,
+# and a shape ragged in M, K (not a whole number of splits) and N (not a
+# whole number of strips)
+CHECK_SHAPES = {
+    **CNN_CHECK_SHAPES,
+    **{f"{lb}_m{m}": (m, k, n) for lb, (k, n) in HYMBA_DECODE_KN.items()
+       for m in (1, 5, 8, 16, 64)},
+    "ragged_small_m": (7, 333, 77),
 }
 KERNEL_SOURCE = "src/repro_torch/csrc/pim_matmul.cu"
 ANALOG_SOURCE = "src/repro_torch/csrc/analog_readout.cu"
@@ -140,7 +161,7 @@ REPLACES = {
         "src/repro/kernels/analog_readout/analog_readout.py:322",
 }
 # the analog kernels take K in whole WDM chunks (336 = 21 * 16)
-ANALOG_CHECK_SHAPES = {**CHECK_SHAPES, "ragged": (1000, 336, 77)}
+ANALOG_CHECK_SHAPES = {**CNN_CHECK_SHAPES, "ragged": (1000, 336, 77)}
 ANALOG_SWEEP = ((4, 3), (8, 5), (16, 8))   # (chunk, adc_bits) on "ragged"
 NOISE_SIGMA = 0.05
 NOISE_SEED = 1234
@@ -238,6 +259,31 @@ def time_ms(torch, fn, budget_ms=300.0):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps=200):
+    """Device milliseconds per call of ``fn(i)`` over ``reps`` calls: the
+    calls are queued behind a spin kernel, so the host's enqueue rate
+    (the ctypes wrappers take tens of microseconds a call) does not show;
+    raises if the enqueue outran the spin."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((4 * host_s + 5e-3) * 2e9))  # ~2 GHz cycles
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    if start.query():
+        raise AssertionError("the calls' enqueue outran the spin kernel")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(pa, pw, m, k, n, out_bytes, extra_bytes):
     """Least time (ms) for one call: each input read once, each output
     written once, against HBM bandwidth; int8 ops against the tensor-core
@@ -249,8 +295,8 @@ def bound(pa, pw, m, k, n, out_bytes, extra_bytes):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def planes(torch, gen, p, rows, cols, dev):
-    return torch.randint(-15, 16, (p, rows, cols), generator=gen,
+def planes(torch, gen, p, rows, cols, dev, lo=-15, hi=16):
+    return torch.randint(lo, hi, (p, rows, cols), generator=gen,
                          device=dev, dtype=torch.int8)
 
 
@@ -281,8 +327,31 @@ def read_counts(*kernel_modules):
     return counts
 
 
+def tiled_fused(torch, kern, a, w, a_s, w_s, bias=None):
+    """B1 on its tiled route at any M, through the C library's yardstick
+    symbol ``pim_matmul_fused_tiled`` (the port's wrappers never call
+    it): the small-M route's comparison at the same shapes."""
+    import ctypes
+    fn = kern._library().pim_matmul_fused_tiled
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = torch.empty((a.shape[1], w.shape[2]), dtype=torch.float32,
+                      device=a.device)
+    rc = fn(a.data_ptr(), w.data_ptr(), a_s.data_ptr(), w_s.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), None,
+            a.shape[0], w.shape[0], a.shape[1], a.shape[2], w.shape[2],
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"pim_matmul_fused_tiled: CUDA error {rc}")
+    return out
+
+
 def kernel_phase(torch, dev, kern, ref):
-    """Every variant against the plain version, bit for bit."""
+    """Every variant against the plain version, bit for bit, on both
+    routes (the small-M shapes also through the tiled yardstick), and an
+    extreme-value case at decode's M that wraps mod 2^32."""
     err = {"pim_matmul_fused": 0.0, "pim_matmul_int": 0.0}
     gen = torch.Generator(device=dev).manual_seed(1)
     for label, (m, k, n) in CHECK_SHAPES.items():
@@ -302,12 +371,39 @@ def kernel_phase(torch, dev, kern, ref):
             e += [max_err(torch, out, ref_out), max_err(torch, rs, ref_rs)]
             e_int = max_err(torch, kern.pim_matmul_cuda(a, w),
                             ref.pim_matmul_ref(a, w))
+            route = kern.small_m_grid(m, k, n)
+            if route[0] == "small_m":
+                e.append(max_err(
+                    torch, tiled_fused(torch, kern, a, w, a_s, w_s, bias),
+                    ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias)))
             err["pim_matmul_fused"] = max(err["pim_matmul_fused"], *e)
             err["pim_matmul_int"] = max(err["pim_matmul_int"], e_int)
             log(f"kernel check {label} M={m} K={k} N={n} w{4 * pw}a{4 * pa}"
-                ": fused, fused+bias, fused+rowsum, int32 all bit-exact")
+                f" {route}: fused, fused+bias, fused+rowsum, int32 all "
+                "bit-exact")
             del a, w, out, rs, ref_out, ref_rs
             torch.cuda.empty_cache()
+    # full-range same-signed planes (fault injection can write any int8)
+    # overflow int32 at w8a8: both routes wrap like the plain version
+    m, (k, n) = LM_BATCH, HYMBA_DECODE_KN["down"]
+    a = planes(torch, gen, 2, m, k, dev, 100, 128)
+    w = planes(torch, gen, 2, k, n, dev, 100, 128)
+    a_s, w_s, bias = scales(torch, gen, m, n, dev)
+    codes = [(p[0].double() + 16 * p[1].double()) for p in (a, w)]
+    if not bool(((codes[0] @ codes[1]).abs() > 2 ** 31).all()):
+        raise AssertionError("the wrap case does not overflow int32")
+    err["pim_matmul_int"] = max(err["pim_matmul_int"], max_err(
+        torch, kern.pim_matmul_cuda(a, w), ref.pim_matmul_ref(a, w)))
+    out, rs = kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias,
+                                         want_rowsum=True)
+    ref_out, ref_rs = ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias,
+                                               want_rowsum=True)
+    err["pim_matmul_fused"] = max(err["pim_matmul_fused"],
+                                  max_err(torch, out, ref_out),
+                                  max_err(torch, rs, ref_rs))
+    log(f"kernel wrap check M={m} K={k} N={n} w8a8, planes in [100, 128) "
+        f"{kern.small_m_grid(m, k, n)}: every accumulator beyond 2^31; "
+        "int32, fused+bias+rowsum bit-exact")
     return err
 
 
@@ -594,6 +690,9 @@ def shape_numbers(torch, dev, kern, ref, shapes, with_bias=True):
         row["fused_bound_ms"], row["fused_bound_by"] = bound(
             1, 1, m, k, n, 4, 4 * m + (8 if with_bias else 4) * n)
         row["int_bound_ms"], row["int_bound_by"] = bound(1, 1, m, k, n, 4, 0)
+        row["route"] = list(kern.small_m_grid(m, k, n))
+        if row["route"][0] == "small_m":
+            small_m_times(torch, dev, kern, gen, row, args)
         # torch._int_mm takes M > 16 and K, N multiples of 8
         if m > 16 and k % 8 == 0 and n % 8 == 0:
             lib_fused = (lambda: torch._int_mm(a[0], w[0]).float() * a_s
@@ -608,14 +707,47 @@ def shape_numbers(torch, dev, kern, ref, shapes, with_bias=True):
         else:
             row["fused_library_ms"] = row["int_library_ms"] = None
         rows.append(row)
-        log(f"shape M={m} K={k} N={n} x{count}/request: fused "
-            f"{row['fused_ms']:.4f} ms (bound {row['fused_bound_ms']:.4f} "
-            f"ms by {row['fused_bound_by']}, plain "
-            f"{row['fused_plain_ms']:.4f} ms, library "
-            f"{row['fused_library_ms']}), int32 {row['int_ms']:.4f} ms")
-        del a, w
+        log(f"shape M={m} K={k} N={n} x{count}/request {row['route']}: "
+            f"fused {row['fused_ms']:.4f} ms (bound "
+            f"{row['fused_bound_ms']:.4f} ms by {row['fused_bound_by']}, "
+            f"plain {row['fused_plain_ms']:.4f} ms, library "
+            f"{row['fused_library_ms']}"
+            + (f", tiled yardstick {row['fused_tiled_ms']:.4f} ms; warm in "
+               f"L2 {row['fused_warm_ms']:.4f} vs tiled "
+               f"{row['fused_tiled_warm_ms']:.4f} ms; host enqueue "
+               f"{row['fused_enqueue_ms']:.4f} ms a call"
+               if "fused_tiled_ms" in row else "")
+            + f"), int32 {row['int_ms']:.4f} ms")
+        del a, w, args
         torch.cuda.empty_cache()
     return rows
+
+
+def small_m_times(torch, dev, kern, gen, row, args):
+    """Device times of a small-M row (queued behind a spin kernel, so the
+    wrappers' enqueue does not show), the new route against the tiled
+    yardstick: warm, one weight resident in L2; and cold, rotating over
+    copies of the weight that exceed the 50 MB L2, as a decode step finds
+    its weights, in turns new, tiled, tiled, new. ``fused_ms`` becomes
+    the cold time; the wrapper's enqueue time per call stays beside it."""
+    a, w, a_s, w_s, bias = args
+    m, k, n = row["M"], row["K"], row["N"]
+    ws = [w] + [planes(torch, gen, 1, k, n, dev)
+                for _ in range(-(-100_000_000 // (k * n)))]
+    calls = {
+        "new": lambda i: kern.pim_matmul_fused_cuda(a, ws[i % len(ws)], a_s,
+                                                    w_s, bias),
+        "tiled": lambda i: tiled_fused(torch, kern, a, ws[i % len(ws)], a_s,
+                                       w_s, bias)}
+    row["fused_enqueue_ms"] = row["fused_ms"]
+    row["fused_warm_ms"] = device_ms(torch, lambda i: calls["new"](0))
+    row["fused_tiled_warm_ms"] = device_ms(torch, lambda i: calls["tiled"](0))
+    cold = [(name, device_ms(torch, calls[name]))
+            for name in ("new", "tiled", "tiled", "new")]
+    row["fused_cold_turns_ms"] = cold
+    row["fused_ms"] = statistics.mean(t for nm, t in cold if nm == "new")
+    row["fused_tiled_ms"] = statistics.mean(t for nm, t in cold
+                                            if nm == "tiled")
 
 
 def analog_bound(pa, pw, m, k, n, conversions, out_bytes, extra_bytes):
@@ -994,6 +1126,27 @@ def lm_plan_shapes(planned):
     return shapes
 
 
+def b1_by_phase(rows):
+    """B1's time per hymba request split into prefill (tiled route) and
+    decode (small-M route, with the tiled yardstick at the same shapes),
+    each the per-shape time times the launches."""
+    split = {"prefill_ms": 0.0, "decode_ms": 0.0, "decode_tiled_ms": 0.0,
+             "decode_bound_ms": 0.0}
+    for r in rows:
+        count = r["launches_per_request"]
+        if r["route"][0] == "small_m":
+            split["decode_ms"] += r["fused_ms"] * count
+            split["decode_tiled_ms"] += r["fused_tiled_ms"] * count
+            split["decode_bound_ms"] += r["fused_bound_ms"] * count
+        else:
+            split["prefill_ms"] += r["fused_ms"] * count
+    log(f"B1 per hymba request: decode {split['decode_ms']:.3f} ms on the "
+        f"small-M route (tiled yardstick {split['decode_tiled_ms']:.3f} ms, "
+        f"bound {split['decode_bound_ms']:.3f} ms), prefill "
+        f"{split['prefill_ms']:.3f} ms on the tiled route")
+    return split
+
+
 def lm_kernel_checks(torch, dev, kern, ref, shapes):
     """The PIM kernel at the LM path's shapes (w4a4, no bias, as serving
     drives it), bit for bit against its plain version."""
@@ -1064,8 +1217,118 @@ LM_PROFILED = (  # (module, attribute, range name) wrapped while profiling
     ("ssm", "ssm_step", "ssm glue"),
     ("ssm", "_project", "ssm in-projections (float32 GEMMs)"),
 )
-LM_KERNELS = {"pim_matmul kernel": ("pim_matmul_kernel",),
+LM_KERNELS = {"pim_matmul kernel, tiled route (prefill)":
+              ("pim_matmul_kernel",),
+              "pim_matmul kernel, small-M route (decode)":
+              ("pim_matmul_small_m_kernel",),
               "ssd_scan kernel": ("ssd_scan_kernel",)}
+# hymba's decode-step replay: 7 projections in each of 32 layers
+DECODE_STEP_LAUNCHES = 7 * 32
+
+
+def device_events(torch, prof):
+    """The profile's device activities (kernels, memsets, copies), without
+    the user annotations that also appear on the device timeline."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def capture_decode_step(torch, pops, lm, planned, cfg, tokens):
+    """The inputs of every pim_matmul_fused launch of one decode step of
+    the path (the first step after the prompt), and that step's device
+    profile, which must show one small-M kernel per launch and no tiled
+    one."""
+    from torch.profiler import ProfilerActivity, profile
+    logits, cache = lm.prefill(planned, cfg, {"tokens": tokens},
+                               LM_PROMPT + LM_GEN)
+    tok = logits.argmax(-1)[:, None]
+    seen = []
+    original = pops.pim_matmul_fused_cuda
+
+    def recording(a, w, a_s, w_s, bias=None, want_rowsum=False):
+        seen.append((a, w, a_s, w_s, bias, want_rowsum))
+        return original(a, w, a_s, w_s, bias, want_rowsum=want_rowsum)
+
+    torch.cuda.synchronize()
+    pops.pim_matmul_fused_cuda = recording
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lm.decode_step(planned, cfg, cache, tok, LM_PROMPT)
+            torch.cuda.synchronize()
+    finally:
+        pops.pim_matmul_fused_cuda = original
+    events = device_events(torch, prof)
+    small = [e for e in events if "pim_matmul_small_m_kernel" in e.name]
+    tiled = [e for e in events if "pim_matmul_kernel" in e.name]
+    if len(seen) != DECODE_STEP_LAUNCHES or any(c[5] for c in seen) or \
+            len(small) != DECODE_STEP_LAUNCHES or tiled:
+        raise AssertionError(
+            f"one decode step: {len(seen)} pim_matmul_fused calls, "
+            f"{len(small)} small-M and {len(tiled)} tiled device kernels; "
+            f"expected {DECODE_STEP_LAUNCHES} small-M kernels")
+    return seen, {"small_m_kernels": len(small),
+                  "small_m_device_ms": sum(e.time_range.elapsed_us()
+                                           for e in small) / 1e3,
+                  "device_events": len(events)}
+
+
+def decode_replay(torch, kern, ref, calls):
+    """One decode step's PIM launches replayed back to back on the device
+    (queued behind a spin kernel): the small-M route and the tiled
+    yardstick in turns new, tiled, tiled, new, against the step's bytes
+    bound; every launch of the two routes bit for bit equal to the plain
+    version; and the replay's profile, which must hold the launches'
+    kernels and nothing else (no memset, no second pass)."""
+    from torch.profiler import ProfilerActivity, profile
+    for a, w, a_s, w_s, bias, _ in calls:
+        want = ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias)
+        max_err(torch, kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias), want)
+        max_err(torch, tiled_fused(torch, kern, a, w, a_s, w_s, bias), want)
+    routes = {
+        "new": lambda i: [kern.pim_matmul_fused_cuda(*c[:5]) for c in calls],
+        "tiled": lambda i: [tiled_fused(torch, kern, *c[:5])
+                            for c in calls]}
+    turns = [(name, device_ms(torch, routes[name], reps=3))
+             for name in ("new", "tiled", "tiled", "new")]
+    torch.cuda.synchronize()
+    # the launches queue behind a spin kernel (left out below), so the
+    # tracer is running before the first of them reaches the device
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        routes["new"](0)
+        torch.cuda.synchronize()
+    # the tracer does not always record every one of the queued kernels
+    # (the decode step's own profile holds the exact count); what it
+    # records must all be the launches' own kernels
+    events = [e for e in device_events(torch, prof)
+              if "spin_kernel" not in e.name]
+    if not events or len(events) > len(calls) or any(
+            "pim_matmul_small_m_kernel" not in e.name for e in events):
+        raise AssertionError(
+            f"the replayed step's {len(calls)} launches ran "
+            f"{len(events)} device activities: "
+            f"{Counter(e.name[:60] for e in events).most_common(4)}")
+    bound_ms = sum(bound(a.shape[0], w.shape[0], a.shape[1], a.shape[2],
+                         w.shape[2], 4, 4 * a.shape[1]
+                         + (8 if bias is not None else 4) * w.shape[2])[0]
+                   for a, w, _, _, bias, _ in calls)
+    plane_bytes = sum(w.numel() for _, w, _, _, _, _ in calls)
+    out = {"launches": len(calls), "turns_ms": turns,
+           "ms": statistics.mean(t for n, t in turns if n == "new"),
+           "tiled_ms": statistics.mean(t for n, t in turns if n == "tiled"),
+           "bound_ms": bound_ms, "plane_bytes": plane_bytes,
+           "device_activities": len(events)}
+    log(f"hymba decode-step replay ({len(calls)} launches, "
+        f"{plane_bytes / 1e9:.3f} GB of weight planes): small-M route "
+        f"{out['ms']:.4f} ms, tiled yardstick {out['tiled_ms']:.4f} ms "
+        f"(turns " + ", ".join(f"{n} {t:.4f}" for n, t in turns)
+        + f"), bytes bound {bound_ms:.4f} ms; both routes bit-exact on "
+        f"every launch; the replay's profile recorded {len(events)} device "
+        "activities, all small-M kernels (no memset, no second pass)")
+    return out
 
 
 def hymba_path(torch, dev, mods, counters):
@@ -1128,14 +1391,35 @@ def hymba_path(torch, dev, mods, counters):
         f"pim_matmul_fused, per decode step {step['ssd_scan']} + "
         f"{step['pim_matmul_fused']}, no analog launch")
 
+    # exact-cuda against exact-torch, both ssd_backend="cuda": the prefill
+    # logits (tiled route) and every decode step's (small-M route), on
+    # the tokens the cuda route generates
     plain_pim = with_substrate(planned, "exact-torch")
-    ref_logits, _ = lm.prefill(plain_pim, cfg, {"tokens": tokens},
-                               LM_PROMPT + LM_GEN)
+    ref_logits, ref_cache = lm.prefill(plain_pim, cfg, {"tokens": tokens},
+                                       LM_PROMPT + LM_GEN)
     if not torch.equal(ref_logits, logits):
         raise AssertionError("hymba exact-cuda prefill logits differ from "
                              "exact-torch")
-    del plain_pim, ref_logits
-    log("hymba prefill logits on exact-cuda bit-identical to exact-torch")
+    step_logits, cache = lm.prefill(planned, cfg, {"tokens": tokens},
+                                    LM_PROMPT + LM_GEN)
+    tok, toks = step_logits.argmax(-1)[:, None], []
+    for g in range(LM_GEN):
+        toks.append(tok)
+        step_logits, cache = lm.decode_step(planned, cfg, cache, tok,
+                                            LM_PROMPT + g)
+        ref_logits, ref_cache = lm.decode_step(plain_pim, cfg, ref_cache,
+                                               tok, LM_PROMPT + g)
+        if not torch.equal(step_logits, ref_logits):
+            raise AssertionError(f"hymba decode step {g}: exact-cuda logits "
+                                 "differ from exact-torch")
+        tok = step_logits.argmax(-1)[:, None]
+    if not torch.equal(torch.cat(toks, dim=1), generated):
+        raise AssertionError("the step-by-step decode generated other "
+                             "tokens than the serving loop")
+    del plain_pim, ref_logits, ref_cache, step_logits, cache
+    log(f"hymba prefill logits and all {LM_GEN} decode steps' logits on "
+        "exact-cuda bit-identical to exact-torch; the tokens equal the "
+        "serving loop's")
     gen_plain, _, _, logits_plain = serve_mod.static_loop(
         planned, chunked, tokens, LM_GEN)
     out["pim_prefill_cuda_vs_chunked"] = logit_gap(
@@ -1170,8 +1454,17 @@ def hymba_path(torch, dev, mods, counters):
     out["ssd_row"]["max_abs_err"] = ssd_gap(
         torch, mods["ssd_kern"].ssd_scan_cuda(*ssd_args, chunk),
         ssd_plain(mods["ssd_ref"], *ssd_args, chunk))
+    calls, out["decode_step_profile"] = capture_decode_step(
+        torch, mods["pim_ops"], lm, planned, cfg, tokens)
+    log(f"profile of one hymba decode step: "
+        f"{out['decode_step_profile']['small_m_kernels']} small-M PIM "
+        "kernels and no tiled one, "
+        f"{out['decode_step_profile']['small_m_device_ms']:.4f} ms of "
+        "device time")
+    out["decode_replay"] = decode_replay(torch, mods["pim_kern"],
+                                         mods["pim_ref"], calls)
     out["shapes"] = lm_plan_shapes(planned)
-    del planned, ssd_args
+    del planned, ssd_args, calls
     torch.cuda.empty_cache()
     return out
 
@@ -1784,6 +2077,7 @@ def main() -> int:
     from repro_torch.kernels.analog_readout import ref as aref
     from repro_torch.kernels.flash_attention import flash_attention as fkern
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.pim_matmul import ops as pops
     from repro_torch.kernels.pim_matmul import pim_matmul as kern
     from repro_torch.kernels.pim_matmul import ref
     from repro_torch.kernels.ssd_scan import ops as sops
@@ -1847,17 +2141,22 @@ def main() -> int:
 
     mods = {"lm": lm, "serve": serve_mod, "pim": pim, "configs": configs,
             "attention": attention, "ssm": ssm, "ssd_kern": sops,
-            "ssd_ref": sref}
+            "ssd_ref": sref, "pim_ops": pops, "pim_kern": kern,
+            "pim_ref": ref}
     hymba = hymba_path(torch, dev, mods, counters)
     lm_err = lm_kernel_checks(torch, dev, kern, ref, hymba["shapes"])
     lm_rows = shape_numbers(torch, dev, kern, ref, hymba["shapes"],
                             with_bias=False)
+    hymba["b1_by_phase"] = b1_by_phase(lm_rows)
     kernels.append(kernel_entry(
         "pim_matmul_fused", "fused", lm_rows, hymba["launches"],
         {"pim_matmul_fused": lm_err}, path="hymba-1.5b pim",
         per=(f"one hymba-1.5b request (batch {LM_BATCH}, prompt "
              f"{LM_PROMPT}, {LM_GEN} new tokens, w4a4): sum over the "
-             "prefill's and the decode steps' launches of each shape; "
+             "prefill's launches (tiled route, timed as before) and the "
+             "decode steps' (small-M route, device time with cold weights; "
+             "the tiled yardstick at the same shapes takes "
+             f"{hymba['b1_by_phase']['decode_tiled_ms']:.4f} ms); "
              "library_ms covers the prefill shapes (torch._int_mm takes "
              "M > 16)")))
     kernels.append(ssd_entry(hymba, ssd_err))

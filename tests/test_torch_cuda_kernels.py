@@ -15,7 +15,8 @@ from repro_torch.core.workloads import mobilenet, resnet18
 from repro_torch.kernels.pim_matmul import ops
 from repro_torch.kernels.pim_matmul.pim_matmul import (LAUNCHES,
                                                        pim_matmul_cuda,
-                                                       pim_matmul_fused_cuda)
+                                                       pim_matmul_fused_cuda,
+                                                       small_m_grid)
 from repro_torch.kernels.pim_matmul.ref import (pim_matmul_fused_ref,
                                                 pim_matmul_ref)
 from repro_torch.models.cnn import cnn_forward, init_cnn, plan_cnn_weights
@@ -27,6 +28,14 @@ pytestmark = pytest.mark.cuda
 SHAPES = ((1, 1, 1), (37, 333, 77), (128, 64, 64), (300, 1024, 130),
           (128, 512, 100))
 PLANES = ((1, 1), (1, 2), (2, 1), (2, 2))
+# the small-M route (M <= 64): hymba-1.5b's four decode shapes (q/o, k/v,
+# gate/up, down) at M from 1 to 64, and split and strip boundaries: K not
+# a whole number of K splits, N not a whole number of strips
+HYMBA_DECODE_KN = ((2048, 1664), (2048, 384), (2048, 5504), (5632, 1664))
+SMALL_M_SHAPES = tuple((m, k, n) for m in (1, 2, 7, 8, 9, 16, 31, 33, 64)
+                       for k, n in HYMBA_DECODE_KN) + (
+    (5, 333, 77), (8, 1000, 250), (64, 129, 33), (12, 3000, 100),
+    (3, 127, 40))
 
 
 @pytest.fixture
@@ -55,6 +64,41 @@ def test_kernel_variants_bit_exact(cuda, pa, pw, m, k, n):
                        pim_matmul_fused_ref(a, w, a_s, w_s))
     assert torch.equal(pim_matmul_fused_cuda(a, w, a_s, w_s, bias),
                        pim_matmul_fused_ref(a, w, a_s, w_s, bias))
+    out, rs = pim_matmul_fused_cuda(a, w, a_s, w_s, bias, want_rowsum=True)
+    ref_out, ref_rs = pim_matmul_fused_ref(a, w, a_s, w_s, bias,
+                                           want_rowsum=True)
+    assert torch.equal(out, ref_out) and torch.equal(rs, ref_rs)
+
+
+@pytest.mark.parametrize("pa,pw", PLANES)
+@pytest.mark.parametrize("m,k,n", SMALL_M_SHAPES)
+def test_small_m_route_bit_exact(cuda, pa, pw, m, k, n):
+    """Every variant on the small-M route, full-range int8 planes."""
+    assert small_m_grid(m, k, n)[0] == "small_m"
+    a, w, a_s, w_s, bias = _inputs(pa, pw, m, k, n, cuda, seed=m + k + n,
+                                   lo=-128, hi=128)
+    assert torch.equal(pim_matmul_cuda(a, w), pim_matmul_ref(a, w))
+    assert torch.equal(pim_matmul_fused_cuda(a, w, a_s, w_s),
+                       pim_matmul_fused_ref(a, w, a_s, w_s))
+    assert torch.equal(pim_matmul_fused_cuda(a, w, a_s, w_s, bias),
+                       pim_matmul_fused_ref(a, w, a_s, w_s, bias))
+    out, rs = pim_matmul_fused_cuda(a, w, a_s, w_s, bias, want_rowsum=True)
+    ref_out, ref_rs = pim_matmul_fused_ref(a, w, a_s, w_s, bias,
+                                           want_rowsum=True)
+    assert torch.equal(out, ref_out) and torch.equal(rs, ref_rs)
+
+
+def test_small_m_route_wraps_mod_2_32(cuda):
+    """The wrap case at decode's M = 8: every accumulator and every K
+    split's partial overflows int32; the route wraps like the plain
+    version, row-sums included."""
+    m, k, n = 8, 5632, 1664
+    assert small_m_grid(m, k, n)[2] > 1
+    a, w, a_s, w_s, bias = _inputs(2, 2, m, k, n, cuda, seed=4, lo=100,
+                                   hi=128)
+    codes = [(p[0].double() + 16 * p[1].double()) for p in (a, w)]
+    assert bool(((codes[0] @ codes[1]).abs() > 2 ** 31).all())
+    assert torch.equal(pim_matmul_cuda(a, w), pim_matmul_ref(a, w))
     out, rs = pim_matmul_fused_cuda(a, w, a_s, w_s, bias, want_rowsum=True)
     ref_out, ref_rs = pim_matmul_fused_ref(a, w, a_s, w_s, bias,
                                            want_rowsum=True)

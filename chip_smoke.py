@@ -77,7 +77,12 @@ package. Phases, each of which raises on failure:
     three backward kernels (dQ, dK/dV per query head, the head sum) at
     gemma3-1b's training shapes (window 512 and global), each against its
     own plain version, timed with it and with its bound, and
-    ``scaled_dot_product_attention`` as a yardstick;
+    ``scaled_dot_product_attention`` as a yardstick; the dK/dV pass (3xTF32
+    on the tensor cores) also against the CUDA-core kernel it replaced
+    (the library's ``flash_bwd_dkv_simt``, which no wrapper calls): both
+    against the plain version, the three against a float64 evaluation of
+    the same inputs (reported), the two kernels timed in turns, with the
+    pass's 3xTF32 bound and its CUDA-core float32 bound;
 13. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
@@ -116,6 +121,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
 BATCH = 128
 REQUESTS = 4
 CNN_CHECK_SHAPES = {             # (M, K, N) as the kernel sees them
@@ -1602,17 +1608,18 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_sum")
 
 
-def flash_bound(b, s, h, kv, d, pairs, kernel):
+def flash_bound(b, s, h, kv, d, pairs, kernel, ops_per_s=FP32_OPS_PER_S):
     """Least time (ms) of one launch of ``kernel``: its float32 operations
-    at the CUDA cores' peak, and the bytes of its inputs read once and its
-    outputs written once at HBM bandwidth. Per unmasked pair and head the
-    forward needs 2 products of width d (the logit, P V), the dQ pass 3
-    (the logit, dP, dQ) and the dK/dV pass 4 (the logit, dP, dV, dK), at 2
-    operations per multiply-add; the head sum adds h / kv - 1 times per
-    output element. Bytes: forward q, k, v in, o and the log-sum-exp out;
-    dQ pass q, k, v, o, dO, lse in, dQ and delta out; dK/dV pass q, k, v,
-    dO, lse, delta in, per-query-head dK and dV out; head sum the two
-    partials in, dK and dV out. Returns (ms, "bytes" | "operations")."""
+    at ``ops_per_s`` (the CUDA cores' peak by default), and the bytes of
+    its inputs read once and its outputs written once at HBM bandwidth.
+    Per unmasked pair and head the forward needs 2 products of width d (the
+    logit, P V), the dQ pass 3 (the logit, dP, dQ) and the dK/dV pass 4
+    (the logit, dP, dV, dK), at 2 operations per multiply-add; the head sum
+    adds h / kv - 1 times per output element. Bytes: forward q, k, v in, o
+    and the log-sum-exp out; dQ pass q, k, v, o, dO, lse in, dQ and delta
+    out; dK/dV pass q, k, v, dO, lse, delta in, per-query-head dK and dV
+    out; head sum the two partials in, dK and dV out.
+    Returns (ms, "bytes" | "operations")."""
     qo, kvb, rows = b * s * h * d, b * s * kv * d, b * h * s
     flops, moved = {
         "flash_attention_fwd": (4 * d * pairs * b * h,
@@ -1623,9 +1630,70 @@ def flash_bound(b, s, h, kv, d, pairs, kernel):
                                     4 * (4 * qo + 2 * kvb + 2 * rows)),
         "flash_attention_bwd_sum": (2 * (qo - kvb), 4 * (2 * qo + 2 * kvb)),
     }[kernel]
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dkv_bounds(b, s, h, kv, d, pairs):
+    """The dK/dV pass's bounds: (the CUDA-core float32 bound, the bound of
+    what its kernel runs), each (ms, "bytes" | "operations"). The kernel
+    does every float32 product as three TF32 tensor-core products, so its
+    operations count at a third of the dense TF32 peak."""
+    args = (b, s, h, kv, d, pairs, "flash_attention_bwd_dkv")
+    return (flash_bound(*args),
+            flash_bound(*args, ops_per_s=TF32_OPS_PER_S / 3))
+
+
+def dkv_simt(torch, fkern, q, k, v, lse, delta, dout, causal, window,
+             prefix):
+    """dK and dV through the C library's yardstick symbol
+    ``flash_bwd_dkv_simt`` (the CUDA-core kernel that the tensor-core pass
+    replaced; the port's wrappers never call it), on the same inputs."""
+    import ctypes
+    lib = fkern._library()
+    fn = lib.flash_bwd_dkv_simt
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    b, s, h, d = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, k.shape[2], d, int(causal), window, prefix,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv_simt: CUDA error {rc}")
+    return dk, dv
+
+
+def dkv_float64(torch, q, k, v, lse, delta, dout, causal, window, prefix):
+    """dK and dV of every query head in float64 from the same float32
+    inputs (the plain version's math), the yardstick of the passes'
+    accuracy: ``float64_gap`` of the plain version, the CUDA-core kernel
+    and the tensor-core pass against it is reported, not held."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    f = lambda t: t.double()
+    qg = f(q).reshape(b, s, kv, h // kv, d)
+    dog = f(dout).reshape(b, s, kv, h // kv, d)
+    ok = flash_mask(torch, q.device, s, causal, window, prefix)
+    p = torch.exp(torch.einsum("bskrd,btkd->bkrst", qg, f(k)) / math.sqrt(d)
+                  - f(lse).reshape(b, kv, h // kv, s, 1))
+    p = torch.where(ok, p, torch.zeros((), dtype=p.dtype, device=p.device))
+    ds = p * (torch.einsum("bskrd,btkd->bkrst", dog, f(v))
+              - f(delta).reshape(b, kv, h // kv, s, 1))
+    return (torch.einsum("bkrst,bskrd->btkrd", ds, qg).reshape(b, s, h, d)
+            / math.sqrt(d),
+            torch.einsum("bkrst,bskrd->btkrd", p, dog).reshape(b, s, h, d))
+
+
+def float64_gap(got, truth):
+    """Largest |got - truth| of (dK, dV), each relative to that gradient's
+    largest magnitude."""
+    return max(((g.double() - t).abs().max() / t.abs().max()).item()
+               for g, t in zip(got, truth))
 
 
 def flash_gap(torch, got, want, rtol, atol, what):
@@ -1703,7 +1771,23 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     err["flash_attention_bwd_dkv"] = max(
         flash_grad_gap(torch, dk_p, want_dk, f"{label} dK pass"),
         flash_grad_gap(torch, dv_p, want_dv, f"{label} dV pass"))
-    del want_dq, want_delta, want_dk, want_dv
+    # the CUDA-core yardstick on the same inputs: against the plain version
+    # and against the tensor-core pass, each within FLASH_BWD_REL
+    yard = dkv_simt(torch, fkern, q, k, v, lse, delta, dout, *mask_args)
+    row["yardstick_err"] = max(
+        flash_grad_gap(torch, got, want, f"{label} yardstick {n}")
+        for got, want, n in zip(yard, (want_dk, want_dv), ("dK", "dV")))
+    row["dkv_vs_yardstick"] = max(
+        flash_grad_gap(torch, got, want, f"{label} dK/dV pass against the "
+                       f"yardstick ({n})")
+        for got, want, n in zip((dk_p, dv_p), yard, ("dK", "dV")))
+    # each against float64 on the same inputs (reported)
+    truth = dkv_float64(torch, q, k, v, lse, delta, dout, *mask_args)
+    row["dkv_float64_gap"] = {
+        "pass": float64_gap((dk_p, dv_p), truth),
+        "yardstick": float64_gap(yard, truth),
+        "plain": float64_gap((want_dk, want_dv), truth)}
+    del want_dq, want_delta, want_dk, want_dv, yard, truth
     sums = fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)
     err["flash_attention_bwd_sum"] = max(
         flash_gap(torch, got, want, FLASH_SUM_REL,
@@ -1747,6 +1831,22 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
         row["plain_ms"][name] = time_ms(torch, plain_call)
         row["bound_ms"][name], row["bound_by"][name] = flash_bound(
             b, s, h, kv, d, pairs, name)
+    # dK/dV: the tensor-core pass and the CUDA-core yardstick in turns
+    # (yardstick, pass, pass, yardstick), and both bounds; bound_ms is that
+    # of what the kernel runs (3xTF32)
+    dkv = "flash_attention_bwd_dkv"
+    turns = [time_ms(torch, fn) for fn in (
+        lambda: dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
+                         *mask_args),
+        calls[dkv][0], calls[dkv][0],
+        lambda: dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
+                         *mask_args))]
+    row["dkv_turns_ms"] = turns
+    row["ms"][dkv] = (turns[1] + turns[2]) / 2
+    row["yardstick_ms"] = (turns[0] + turns[3]) / 2
+    (row["bound_cuda_core_ms"], _), (row["bound_ms"][dkv],
+                                     row["bound_by"][dkv]) = dkv_bounds(
+        b, s, h, kv, d, pairs)
     row["plain_fwd_bwd_ms"] = time_ms(torch, plain_fwd_bwd)
     row["sdpa_fwd_ms"] = time_ms(torch, lambda: sdpa_call(torch, q, k, v,
                                                           mask))
@@ -1759,6 +1859,19 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
             f"{row['bound_ms'][name]:.4f} ms by {row['bound_by'][name]}, "
             f"plain {row['plain_ms'][name]:.4f} ms, max |diff| "
             f"{err[name]:.3g})" for name in FLASH_KERNELS)
+        + f"; dK/dV pass against the CUDA-core yardstick in turns "
+        f"(yardstick, pass, pass, yardstick): "
+        + ", ".join(f"{t:.4f}" for t in row["dkv_turns_ms"])
+        + f" ms, bounds {row['bound_ms'][dkv]:.4f} ms (3xTF32 at "
+        f"{TF32_OPS_PER_S / 3e12:.0f} TFLOP/s) and "
+        f"{row['bound_cuda_core_ms']:.4f} ms (CUDA-core float32), max |diff|"
+        f" to the yardstick {row['dkv_vs_yardstick']:.3g}, the yardstick's "
+        f"to the plain version {row['yardstick_err']:.3g}; against float64 "
+        f"on the same inputs, relative to each gradient's largest magnitude"
+        f" (reported): the pass "
+        f"{row['dkv_float64_gap']['pass']:.3g}, the yardstick "
+        f"{row['dkv_float64_gap']['yardstick']:.3g}, the plain version "
+        f"{row['dkv_float64_gap']['plain']:.3g}"
         + f"; SDPA forward {row['sdpa_fwd_ms']:.4f} ms, forward+backward "
         f"{row['sdpa_fwd_bwd_ms']:.4f} ms; the plain version's autograd "
         f"forward+backward {row['plain_fwd_bwd_ms']:.4f} ms; the backward "
@@ -2022,13 +2135,28 @@ def flash_entries(rows, windows, launches, err):
         if name != "flash_attention_fwd":
             note += (f"; for scale, SDPA's whole backward (forward+backward "
                      f"minus forward) takes {sdpa_bwd:.4f} ms per step")
-        entries.append({
+        entry = {
             "name": name, "path": "gemma3-1b training", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err[name],
             "ms": tot("ms", name), "plain_ms": tot("plain_ms", name),
             "bound_ms": tot("bound_ms", name), "bound_by": bound_by,
-            "library_ms": lib_ms, "per": note})
+            "library_ms": lib_ms, "per": note}
+        if name == "flash_attention_bwd_dkv":
+            # the pass runs 3xTF32 on the tensor cores: bound_ms is at a
+            # third of the dense TF32 peak; beside it the CUDA-core float32
+            # bound and the CUDA-core kernel it replaced (the yardstick
+            # symbol), timed in turns with the pass on the same inputs
+            entry["bound_cuda_core_ms"] = sum(
+                rows[lb]["bound_cuda_core_ms"] * n for lb, n in count.items())
+            entry["yardstick_ms"] = sum(rows[lb]["yardstick_ms"] * n
+                                        for lb, n in count.items())
+            entry["per"] += (
+                "; bound_ms counts 3 TF32 tensor-core products per float32 "
+                "product at the dense TF32 peak, bound_cuda_core_ms the "
+                "float32 products at the CUDA cores' peak; yardstick_ms is "
+                "the CUDA-core kernel it replaced (flash_bwd_dkv_simt)")
+        entries.append(entry)
     return entries
 
 

@@ -43,43 +43,93 @@
 // What bounds it on an H100: at gemma3-1b's training shapes (B 2, S 2048,
 // H 4, KV 1, D 256, window 512 or global) it does 4 float32 multiply-adds
 // per unmasked (query, key, column) in the forward, and 10 in the backward
-// (S, dP, dQ in the first launch; S, dP, dV, dK in the second), against
-// 67 TFLOP/s of CUDA-core float32; the bytes (q, k, v, o and their
-// gradients, each once) are a few tens of MB, a few microseconds at
-// 3.35 TB/s. So it is bound by operations.
+// (S, dP, dQ in the first launch; S, dP, dV, dK in the second); the bytes
+// (q, k, v, o and their gradients, each once) are a few tens of MB, a few
+// microseconds at 3.35 TB/s. So it is bound by operations: 67 TFLOP/s of
+// CUDA-core float32 for the forward and dQ, the tensor cores for dK/dV.
 //
-// What the design does (simple first, no tensor cores): every product is a
-// float32 FMA on the CUDA cores, because TF32 keeps 10 mantissa bits and
-// would miss the JAX kernel's rtol 2e-4. The Pallas blocks (512 x 512, rep
-// heads folded into a query tile) need megabytes of VMEM; here a block owns
-// 64 query rows of one head (8 warps x 8 rows) and streams key tiles of 32
-// rows through dynamic shared memory (up to 202 KB at D = 256, set with
-// cudaFuncSetAttribute). In the logit product lane j of a warp owns key j
-// of the tile, so the row max and row sum of the online softmax are warp
-// shuffles; in the value product lane l owns columns l, l + 32, ..., so
-// each shared-memory load of a value feeds 8 rows. Keys are stored
-// transposed with rows padded to 33 floats, so that lanes reading
-// consecutive keys, and lanes reading consecutive columns of one key, hit
-// different banks. Head dims are padded with zeros to 32 * CT (CT = 1, 2,
-// 4 or 8 columns per lane), so D may be anything up to 256. Rows past S
-// (a ragged last tile) are masked and never stored. bf16 inputs are
-// widened to float32 in shared memory and the output is rounded to bf16
-// once, as the JAX kernel casts its f32 accumulator. With one block per
-// SM nothing hides the latency of a tile's loads, so where D % 4 == 0 and
-// the rows are aligned they move in 16-byte loads (8-byte for bf16),
-// several issued before the first is stored; otherwise element by element
-// (one 4-byte load per element in a loop takes about 1.5x the time at
-// gemma3-1b's shapes).
+// Forward and dQ (float32 FMAs on the CUDA cores; TF32 keeps 10 mantissa
+// bits and would miss the JAX kernel's rtol 2e-4): the Pallas blocks
+// (512 x 512, rep heads folded into a query tile) need megabytes of VMEM;
+// here a block owns 64 query rows of one head (8 warps x 8 rows) and
+// streams key tiles of 32 rows through dynamic shared memory (up to 202 KB
+// at D = 256, set with cudaFuncSetAttribute). In the logit product lane j
+// of a warp owns key j of the tile, so the row max and row sum of the
+// online softmax are warp shuffles; in the value product lane l owns
+// columns l, l + 32, ..., so each shared-memory load of a value feeds 8
+// rows. Keys are stored transposed with rows padded to 33 floats, so that
+// lanes reading consecutive keys, and lanes reading consecutive columns of
+// one key, hit different banks. Head dims are padded with zeros to 32 * CT
+// (CT = 1, 2, 4 or 8 columns per lane), so D may be anything up to 256.
+// Rows past S (a ragged last tile) are masked and never stored. bf16
+// inputs are widened to float32 in shared memory and the output is rounded
+// to bf16 once, as the JAX kernel casts its f32 accumulator. With one block
+// per SM nothing hides the latency of a tile's loads, so where D % 4 == 0
+// and the rows are aligned they move in 16-byte loads (8-byte for bf16),
+// several issued before the first is stored; otherwise element by element.
 //
-// Later work (not done here): tensor cores (3xTF32, or bf16 with float32
-// accumulation where the tolerance allows), TMA with a ring of key tiles
-// overlapping the loads with the products, and more than one block per SM.
+// dK/dV (flash_bwd_dkv_kernel) runs on the tensor cores at float32
+// accuracy: every product is 3xTF32 (mma_tf32x3.cuh: x = hi + lo, each
+// rounded as cvt.rna.tf32.f32 does; lo hi + hi lo + hi hi into float32
+// accumulators, the small terms first). The tensor cores truncate when
+// they add into an accumulator, so an accumulator that takes every query
+// of a long sequence drifts by the same sign at each add (at the global
+// layer's 2,048 queries, about 2.7e-5 of the largest gradient); each query
+// tile therefore sums into fresh fragments, which join the running sums by
+// float32 adds that round to nearest. chip_smoke.py (phase 12) holds the
+// pass, the CUDA-core kernel it replaced and the plain version against a
+// float64 evaluation of the same inputs.
+// A block owns 32 keys of one query head (8 warps); per live tile of 32
+// queries:
+//   1. S^T = K Q^T and dP^T = V dO^T (mma.sync m16n8k8): warp (product,
+//      key half, column half) splits its 16-key K or V fragment once per
+//      8 columns and uses it against all four 8-query fragments;
+//   2. the two column halves meet in a 16 KB exchange in shared memory,
+//      where warp w forms P^T = mask ? exp(S^T - lse) : 0 and dS^T =
+//      P^T (dP^T - delta) for one 16 x 8 fragment, splits them once and
+//      writes them back in the A-fragment order of step 3 (the
+//      accumulator's (c0, c2, c1, c3): with the reduction pair k = t, t + 4
+//      of a step taken as queries 2t, 2t + 1, an accumulator fragment is
+//      lane for lane an A fragment), so that each lane loads its hi and lo
+//      fragments with two 16-byte loads and no shuffles;
+//   3. dV += P^T dO and dK += dS^T Q: warp w owns DV / 8 columns (at
+//      D = 256: 2 x 4 fragments of each, 64 accumulators a thread, and
+//      the tile's own fragments, in two column halves).
+// Q, dO, lse and delta move by cp.async into two stages, the next live
+// query tile while this one multiplies; K and V stay for the block. Rows
+// of K, V, Q and dO are padded to DV + 4 floats (4 mod 32 banks), so that
+// the fragment loads of steps 1 and 3 hit 32 distinct banks. Shared
+// memory at D = 256: K and V 66,560 bytes, the two stages 133,632, the
+// exchange 16,384: 216,576 of the 227 KB a block may have, so one block of
+// 8 warps per SM. ptxas (-O3, sm_90a): 232 registers at D = 256, no
+// spills. q is not pre-scaled here (cp.async copies bytes as they are):
+// S^T and dK are scaled by 1/sqrt(D) instead.
+//
+// What bounds dK/dV now: mma.sync's issue rate and what feeds it. mma.sync
+// does not reach the 495 TFLOP/s of dense TF32 that wgmma does, and every
+// float32 product costs three of them. Per warp and tile, step 1 issues
+// about 84 instructions per 12 mma (the split is 5 integer and float
+// operations per element), step 3 about 2.9 per mma (ptxas's SASS); with 2
+// warps per scheduler the barriers between the steps and the latency of
+// shared-memory loads leave the tensor pipe idle between bursts. At the
+// global layer's shape it runs at about 3.6x its 3xTF32 bound on an H100
+// (chip_smoke.py, phase 12). wgmma (which reads both operands K-major from
+// shared memory, so dO and Q would need transposed copies) is later work.
+//
+// The CUDA-core dK/dV kernel this replaced stays in the library as
+// flash_bwd_dkv_simt(), a yardstick for timing; no wrapper calls it.
+//
+// Later work (not done here): the dQ pass on the tensor cores with the
+// same split (mma_tf32x3.cuh), TMA with a ring of key tiles for the
+// forward, and wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "mma_tf32x3.cuh"
 
 namespace {
 
@@ -268,9 +318,24 @@ __host__ __device__ inline size_t dq_smem_floats(int dv) {
   return 2 * static_cast<size_t>(kBq) * dv + 2 * static_cast<size_t>(dv) * kKs +
          kBq * kBk;
 }
-__host__ __device__ inline size_t dkv_smem_floats(int dv) {
+__host__ __device__ inline size_t dkv_simt_smem_floats(int dv) {
   return 2 * static_cast<size_t>(dv) * kKs +
          2 * static_cast<size_t>(kBq2) * dv + 2 * kBk * kPs + 2 * kBq2;
+}
+
+// The tensor-core dK/dV pass (flash_bwd_dkv_kernel). The K, V, Q and dO
+// tiles keep rows of dv + 4 floats, a stride of 4 mod 32 banks, so that the
+// fragment loads (8 rows x 4 columns, or 4 row pairs x 8 columns) hit 32
+// distinct banks.
+__host__ __device__ constexpr int dkv_row(int dv) { return dv + 4; }
+// The exchange between the two products of a query tile: its 2 x 4
+// fragments (16 keys x 8 queries each) x 4 slots x 32 lanes, 16 bytes each
+constexpr int kXFloats = 4 * kBk * kBq2;
+// K and V; two stages of Q, dO and the rows' lse and delta; the exchange.
+__host__ __device__ inline size_t dkv_smem_floats(int dv) {
+  return 2 * static_cast<size_t>(kBk) * dkv_row(dv) +
+         2 * (2 * static_cast<size_t>(kBq2) * dkv_row(dv) + 2 * kBq2) +
+         kXFloats;
 }
 
 // ---------------------------------------------------------------------------
@@ -505,19 +570,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, launch 2: dK and dV of one query head; grid (H, B, ceil(S / 32)),
-// the first key tiles (the most query tiles under a causal mask) first.
-// With rep > 1 it writes the head's partial sums (B, S, H, D), and
-// flash_bwd_sum_heads adds the rep heads of each kv head in order.
+// backward, launch 2, the CUDA-core version (the first design): dK and dV of
+// one query head in float32 FMAs. Kept as a yardstick for the tensor-core
+// kernel below (C symbol flash_bwd_dkv_simt); the wrappers never call it.
+// Grid (H, B, ceil(S / 32)), the first key tiles first.
 // ---------------------------------------------------------------------------
 template <int CT>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, Geo g) {
+flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          Geo g) {
   // dk, dv: (B, S, H, D) partials, or (B, S, KV, D) when rep == 1
   constexpr int DV = 32 * CT;
   extern __shared__ __align__(16) float smem[];
@@ -644,6 +711,301 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward, launch 2: dK and dV of one query head on the tensor cores
+// (3xTF32 mma.sync, float32 accuracy); grid (H, B, ceil(S / 32)), the first
+// key tiles (the most query tiles under a causal mask) first. With rep > 1
+// it writes the head's partial sums (B, S, H, D), and flash_bwd_sum_heads
+// adds the rep heads of each kv head in order.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Start copying rows [t0, t0 + ROWS) of head h of a (B, S, nh, D) float32
+// tensor into dst (rows of dkv_row(DV) floats); zeros past S and past D.
+// 16-byte copies where g.vec, else one per element.
+template <int ROWS, int DV>
+__device__ __forceinline__ void async_rows(float* dst, const float* src,
+                                           const Geo& g, int b, int t0, int h,
+                                           int nh) {
+  constexpr int kRow = dkv_row(DV);
+  if (g.vec) {
+    static_assert(ROWS * DV % (4 * kThreads) == 0, "uneven tile");
+#pragma unroll
+    for (int i = 0; i < ROWS * DV / 4 / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / (DV / 4), c = (idx % (DV / 4)) * 4, t = t0 + r;
+      const bool ok = t < g.S && c < g.D;
+      cp_async16(dst + r * kRow + c,
+                 ok ? src + ((static_cast<size_t>(b) * g.S + t) * nh + h) *
+                                g.D + c
+                    : src,
+                 ok);
+    }
+    return;
+  }
+  static_assert(ROWS * DV % kThreads == 0, "uneven tile");
+#pragma unroll 4
+  for (int i = 0; i < ROWS * DV / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / DV, c = idx % DV, t = t0 + r;
+    const bool ok = t < g.S && c < g.D;
+    cp_async4(dst + r * kRow + c,
+              ok ? src + ((static_cast<size_t>(b) * g.S + t) * nh + h) * g.D +
+                       c
+                 : src,
+              ok);
+  }
+}
+
+// The first query tile at or after qt that is live for the key tile at k0
+// (n when none is); the same on every thread of the block.
+__device__ __forceinline__ int next_live(int qt, int n, int k0,
+                                         const Geo& g) {
+  while (qt < n && !tile_live(qt * kBq2, kBq2, k0, kBk, g)) ++qt;
+  return qt;
+}
+
+template <int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Geo g) {
+  // dk, dv: (B, S, H, D) partials, or (B, S, KV, D) when rep == 1
+  using tf32x3::FragA;
+  using tf32x3::FragB;
+  constexpr int DV = 32 * CT;
+  constexpr int kRow = dkv_row(DV);
+  // dV += P^T dO and dK += dS^T Q: the block's 2 x DV / 8 output tiles of
+  // 16 x 8 per matrix, kWN warps along the columns, kWM along the keys
+  constexpr int kWN = DV / 8 < kWarps ? DV / 8 : kWarps;
+  constexpr int kWM = kWarps / kWN;
+  constexpr int kMT = 2 / kWM;            // key m-tiles of a warp
+  constexpr int kNT = DV / 8 / kWN;       // column n-tiles of a warp
+  constexpr int kNH = kNT > 1 ? 2 : 1;    // column halves of a tile's sums
+  static_assert(kBk == 32 && kBq2 == 32 && kWarps == 8,
+                "the warp roles below assume 32 x 32 tiles and 8 warps");
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                       // kBk x kRow, this block's keys
+  float* vs = ks + kBk * kRow;            // kBk x kRow, its values
+  float* stages = vs + kBk * kRow;        // 2 x [Q | dO], kBq2 x kRow each
+  float* rows = stages + 4 * kBq2 * kRow; // 2 x [lse | delta], kBq2 each
+  // the exchange, fragment (m, n) at xs + (4 m + n) * 128 + slot * 32 +
+  // lane: first the products' partial sums, then P^T and dS^T, split
+  float4* xs = reinterpret_cast<float4*>(rows + 4 * kBq2);
+  const int k0 = blockIdx.z * kBk, h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / g.rep;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n_qtiles = (g.S + kBq2 - 1) / kBq2;
+
+  // one query tile's Q, dO, lse and delta into stage s
+  auto load_tile = [&](int s, int qt) {
+    float* qs = stages + s * 2 * kBq2 * kRow;
+    const int q0 = qt * kBq2;
+    async_rows<kBq2, DV>(qs, q, g, b, q0, h, g.H);
+    async_rows<kBq2, DV>(qs + kBq2 * kRow, dout, g, b, q0, h, g.H);
+    if (threadIdx.x < 2 * kBq2) {
+      const int i = threadIdx.x % kBq2, qp = q0 + i;
+      const float* src = threadIdx.x < kBq2 ? lse : delta;
+      const bool ok = qp < g.S;
+      cp_async4(rows + s * 2 * kBq2 + threadIdx.x,
+                ok ? src + (static_cast<size_t>(b) * g.H + h) * g.S + qp
+                   : src,
+                ok);
+    }
+  };
+
+  async_rows<kBk, DV>(ks, k, g, b, k0, kvh, g.KV);
+  async_rows<kBk, DV>(vs, v, g, b, k0, kvh, g.KV);
+  int qt = next_live(0, n_qtiles, k0, g);
+  if (qt < n_qtiles) load_tile(0, qt);
+  cp_async_commit();
+
+  float dk_acc[kMT][kNT][4], dv_acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[mi][ni][e] = dv_acc[mi][ni][e] = 0.f;
+
+  // S^T = K Q^T (pv = 0) or dP^T = V dO^T (pv = 1): warp (pv, pm, ph) sums
+  // keys 16 pm + [0, 16) against all 32 queries over the columns of half
+  // ph, so each split of its K or V fragment feeds four products
+  const int pv = warp >> 2, pm = (warp >> 1) & 1, ph = warp & 1;
+  // P^T and dS^T of fragment (warp / 4, warp % 4) form in warp `warp`
+  const int fm = warp >> 2, fn = warp & 3;
+  // dV, dK: warp (wm, wn) owns key m-tiles wm * kMT + [0, kMT) and column
+  // n-tiles wn * kNT + [0, kNT)
+  const int wm = warp / kWN, wn = warp % kWN;
+  int st = 0;
+  while (qt < n_qtiles) {
+    cp_async_wait_all();
+    __syncthreads();   // tile qt landed; the previous tile is consumed
+    const int nxt = next_live(qt + 1, n_qtiles, k0, g);
+    if (nxt < n_qtiles) load_tile(st ^ 1, nxt);
+    cp_async_commit();
+    const int q0 = qt * kBq2;
+    const float* qs = stages + st * 2 * kBq2 * kRow;
+    const float* dos = qs + kBq2 * kRow;
+    const float* lses = rows + st * 2 * kBq2;
+    const float* dels = lses + kBq2;
+
+    {
+      // the small terms of the split go to their own accumulators, so that
+      // no mma waits on the one before it
+      float big[4][4] = {}, small[4][4] = {};
+      const int c0 = ph * (DV / 2);
+      const float* a = (pv ? vs : ks) + (16 * pm + gq) * kRow + tq + c0;
+      const float* bq = (pv ? dos : qs) + gq * kRow + tq + c0;
+#pragma unroll
+      for (int c = 0; c < DV / 2; c += 8) {
+        const FragA af = tf32x3::frag_a(a[c], a[8 * kRow + c], a[c + 4],
+                                        a[8 * kRow + c + 4]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* bp = bq + 8 * n * kRow + c;
+          tf32x3::mma3(big[n], small[n], af, tf32x3::frag_b(bp[0], bp[4]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        xs[(4 * pm + n) * 128 + (2 * pv + ph) * 32 + lane] =
+            make_float4(big[n][0] + small[n][0], big[n][1] + small[n][1],
+                        big[n][2] + small[n][2], big[n][3] + small[n][3]);
+    }
+    __syncthreads();   // the four partial sums of every fragment are in
+
+    {
+      // P^T = mask ? exp(S^T - lse) : 0 and dS^T = P^T (dP^T - delta) on
+      // fragment (fm, fn): element e is key 16 fm + gq + 8 (e / 2), query
+      // 8 fn + 2 tq + e % 2
+      float4* x = xs + warp * 128 + lane;
+      const float4 s0 = x[0], s1 = x[32], d0 = x[64], d1 = x[96];
+      const float sv[4] = {s0.x + s1.x, s0.y + s1.y, s0.z + s1.z,
+                           s0.w + s1.w};
+      const float dpv[4] = {d0.x + d1.x, d0.y + d1.y, d0.z + d1.z,
+                            d0.w + d1.w};
+      tf32x3::Split ps[4], dss[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * fn + 2 * tq + (e & 1);
+        const int j = 16 * fm + gq + 8 * (e >> 1);
+        const float pe = pair_ok(q0 + i, k0 + j, g)
+                             ? expf(sv[e] * g.scale - lses[i])
+                             : 0.f;
+        ps[e] = tf32x3::split(pe);
+        dss[e] = tf32x3::split(pe * (dpv[e] - dels[i]));
+      }
+      // stored as the A fragment of the next products (rows keys, the
+      // reduction pair k = t, t + 4 of a step queries 2t, 2t + 1): the
+      // accumulator's (c0, c2, c1, c3), split; slots P hi, P lo, dS hi,
+      // dS lo. Each lane overwrites only what it read.
+      auto a_order = [](const tf32x3::Split* v, bool lo) {
+        return lo ? make_float4(__uint_as_float(v[0].lo),
+                                __uint_as_float(v[2].lo),
+                                __uint_as_float(v[1].lo),
+                                __uint_as_float(v[3].lo))
+                  : make_float4(__uint_as_float(v[0].hi),
+                                __uint_as_float(v[2].hi),
+                                __uint_as_float(v[1].hi),
+                                __uint_as_float(v[3].hi));
+      };
+      x[0] = a_order(ps, false);
+      x[32] = a_order(ps, true);
+      x[64] = a_order(dss, false);
+      x[96] = a_order(dss, true);
+    }
+    __syncthreads();   // every warp reads all of P^T and dS^T
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, 8 at a time.
+    // The tensor cores truncate when they add into an accumulator, so the
+    // error of a long chain grows with its length and one sign: each tile
+    // sums into fresh fragments, which join the running sums by float32
+    // adds (round to nearest); in column halves, to bound the registers.
+#pragma unroll
+    for (int nh = 0; nh < kNH; ++nh) {
+      float tk[kMT][kNT / kNH][4] = {}, tv[kMT][kNT / kNH][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kBq2 / 8; ++kk) {
+        FragA pa[kMT], da[kMT];
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+          const float4* x = xs + (4 * (wm * kMT + mi) + kk) * 128 + lane;
+          const float4 ph4 = x[0], pl4 = x[32], dh4 = x[64], dl4 = x[96];
+          pa[mi] = {{{__float_as_uint(ph4.x), __float_as_uint(pl4.x)},
+                     {__float_as_uint(ph4.y), __float_as_uint(pl4.y)},
+                     {__float_as_uint(ph4.z), __float_as_uint(pl4.z)},
+                     {__float_as_uint(ph4.w), __float_as_uint(pl4.w)}}};
+          da[mi] = {{{__float_as_uint(dh4.x), __float_as_uint(dl4.x)},
+                     {__float_as_uint(dh4.y), __float_as_uint(dl4.y)},
+                     {__float_as_uint(dh4.z), __float_as_uint(dl4.z)},
+                     {__float_as_uint(dh4.w), __float_as_uint(dl4.w)}}};
+        }
+#pragma unroll
+        for (int j = 0; j < kNT / kNH; ++j) {
+          const int ni = nh * (kNT / kNH) + j;
+          const int at = (8 * kk + 2 * tq) * kRow + 8 * (wn * kNT + ni) + gq;
+          const FragB df = tf32x3::frag_b(dos[at], dos[at + kRow]);
+          const FragB qf = tf32x3::frag_b(qs[at], qs[at + kRow]);
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi) {
+            tf32x3::mma3(tv[mi][j], pa[mi], df);
+            tf32x3::mma3(tk[mi][j], da[mi], qf);
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int j = 0; j < kNT / kNH; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv_acc[mi][nh * (kNT / kNH) + j][e] += tv[mi][j][e];
+            dk_acc[mi][nh * (kNT / kNH) + j][e] += tk[mi][j][e];
+          }
+    }
+    qt = nxt;
+    st ^= 1;
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t_row = k0 + 16 * (wm * kMT + mi) + gq + 8 * (e >> 1);
+        const int c = 8 * (wn * kNT + ni) + 2 * tq + (e & 1);
+        if (t_row < g.S && c < g.D) {
+          const size_t at = q_index(g, b, t_row, h, c);
+          dk[at] = dk_acc[mi][ni][e] * g.scale;
+          dv[at] = dv_acc[mi][ni][e];
+        }
+      }
+}
+
 // backward, launch 3 (rep > 1 only): dK and dV of each kv head, the sum of
 // its rep query heads' partials in head order; one thread per output.
 __global__ void __launch_bounds__(kThreads)
@@ -707,16 +1069,19 @@ int launch_bwd_dq(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-template <int CT>
+template <int CT, bool kSimt>
 int launch_bwd_dkv(const float* q, const float* k, const float* v,
                    const float* dout, const float* lse, const float* delta,
                    float* dk, float* dv, const Geo& g, cudaStream_t st) {
-  const size_t smem = dkv_smem_floats(32 * CT) * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<CT>, smem);
+  const int dv_cols = 32 * CT;
+  const size_t smem = (kSimt ? dkv_simt_smem_floats(dv_cols)
+                             : dkv_smem_floats(dv_cols)) * sizeof(float);
+  auto kernel = kSimt ? flash_bwd_dkv_simt_kernel<CT>
+                      : flash_bwd_dkv_kernel<CT>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(g.H, g.B, (g.S + kBk - 1) / kBk);
-  flash_bwd_dkv_kernel<CT><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse,
-                                                         delta, dk, dv, g);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dk, dv, g);
   return cudaGetLastError();
 }
 
@@ -819,21 +1184,26 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
 
 // Backward, launch 2: dk and dv of every query head, (B, S, H, D) (with
 // H == KV these are the gradients), from q, k, v, dout, the forward's lse
-// and launch 1's delta; everything float32 and contiguous.
-int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int b, int s, int h, int kv, int d,
-                  int causal, int window, int prefix, void* stream) {
+// and launch 1's delta; everything float32 and contiguous. simt = 0 runs
+// the tensor-core kernel (the one the wrappers call), 1 the CUDA-core
+// yardstick.
+static int bwd_dkv(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int b, int s, int h, int kv, int d,
+                   int causal, int window, int prefix, void* stream,
+                   bool simt) {
   const Geo g = make_geo(b, s, h, kv, d, causal, window, prefix,
                          aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
                              aligned(dout, 16));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_BWD_DKV(CT)                                                    \
-  return launch_bwd_dkv<CT>(                                                 \
-      static_cast<const float*>(q), static_cast<const float*>(k),            \
+  return simt ? launch_bwd_dkv<CT, true>(ARGS)                               \
+              : launch_bwd_dkv<CT, false>(ARGS)
+#define ARGS                                                                 \
+  static_cast<const float*>(q), static_cast<const float*>(k),                \
       static_cast<const float*>(v), static_cast<const float*>(dout),         \
       static_cast<const float*>(lse), static_cast<const float*>(delta),      \
-      static_cast<float*>(dk), static_cast<float*>(dv), g, st)
+      static_cast<float*>(dk), static_cast<float*>(dv), g, st
   switch (columns_per_lane(d)) {
     case 1: REPRO_BWD_DKV(1);
     case 2: REPRO_BWD_DKV(2);
@@ -841,7 +1211,27 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 8: REPRO_BWD_DKV(8);
     default: return cudaErrorInvalidValue;
   }
+#undef ARGS
 #undef REPRO_BWD_DKV
+}
+
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int b, int s, int h, int kv, int d,
+                  int causal, int window, int prefix, void* stream) {
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, b, s, h, kv, d, causal,
+                 window, prefix, stream, false);
+}
+
+// The same arguments and result through the CUDA-core kernel it replaced, for
+// timing the tensor-core kernel against it; no wrapper calls it.
+int flash_bwd_dkv_simt(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int b, int s, int h, int kv,
+                       int d, int causal, int window, int prefix,
+                       void* stream) {
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, b, s, h, kv, d, causal,
+                 window, prefix, stream, true);
 }
 
 // Backward, launch 3 (H > KV): dk and dv (B, S, KV, D), each kv head the

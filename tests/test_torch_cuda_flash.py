@@ -55,6 +55,7 @@ SHAPES = [
     (1, 96, 2, 2, 96, True, 0, 0),
     (1, 64, 2, 1, 30, True, 0, 0),       # d % 4 != 0: element loads
 ]
+GEMMA_SHAPES = {"local": SHAPES[6], "global": SHAPES[7]}
 
 
 @pytest.fixture
@@ -151,6 +152,89 @@ def test_backward_kernels_against_their_plain_versions(cuda, shape):
     for got, want in zip((dk, dv), ref.flash_attention_bwd_sum_ref(
             dk_p, dv_p, kv)):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# The dK/dV pass on the tensor cores (32 x 32 key and query tiles, columns
+# padded to 32, 64, 128 or 256): lengths ragged for both tiles, rep = 1
+# (the direct (b, s, kv, d) write), D = 8 and D = 256, a window and a
+# prefix
+DKV_SHAPES = [
+    (2, 77, 4, 2, 64, True, 0, 0),
+    (1, 100, 2, 2, 128, True, 30, 0),
+    (1, 70, 4, 1, 8, True, 0, 5),
+    (1, 160, 2, 1, 256, True, 48, 0),
+    (2, 50, 2, 2, 256, False, 0, 0),
+]
+
+
+def _dkv_inputs(shape, seed):
+    """Inputs of the dK/dV pass: q, k, v, dout and the kernel forward's
+    log-sum-exp and the dQ pass's delta."""
+    b, s, h, kv, d, causal, win, pre = shape
+    q, k, v = inputs(b, s, h, kv, d, torch.device("cuda"), seed=seed)
+    dout = inputs(b, s, h, h, d, torch.device("cuda"), seed=seed + 1)[0]
+    o, lse = kern.flash_attention_fwd_cuda(q, k, v, causal, win, pre)
+    _, delta = kern.flash_attention_bwd_dq_cuda(q, k, v, o, lse, dout,
+                                                causal, win, pre)
+    return q, k, v, lse, delta, dout
+
+
+def _dkv_simt(q, k, v, lse, delta, dout, causal, win, pre):
+    """The CUDA-core yardstick (C symbol flash_bwd_dkv_simt), which no
+    wrapper calls, on the same inputs."""
+    b, s, h, d = q.shape
+    lib = kern._library()
+    fn = lib.flash_bwd_dkv_simt
+    fn.argtypes = lib.flash_bwd_dkv.argtypes
+    fn.restype = lib.flash_bwd_dkv.restype
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, k.shape[2], d, int(causal), win, pre,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return dk, dv
+
+
+@pytest.mark.parametrize("shape", DKV_SHAPES, ids=_ids)
+def test_dkv_pass_against_its_plain_version(cuda, shape):
+    """The tensor-core dK/dV pass within BWD_REL of its plain version at
+    shapes its tiles do not divide, and one launch per call."""
+    causal, win, pre = shape[5:]
+    args = _dkv_inputs(shape, seed=8)
+    before = kern.LAUNCHES["flash_attention_bwd_dkv"]
+    dk, dv = kern.flash_attention_bwd_dkv_cuda(*args, causal, win, pre)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["flash_attention_bwd_dkv"] == before + 1
+    want_dk, want_dv = ref.flash_attention_bwd_dkv_ref(*args, causal, win,
+                                                       pre)
+    _rel_gap(dk, want_dk)
+    _rel_gap(dv, want_dv)
+
+
+def test_dkv_pass_repeats_bit_for_bit(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    shape = GEMMA_SHAPES["global"]
+    args = _dkv_inputs(shape, seed=9)
+    first = kern.flash_attention_bwd_dkv_cuda(*args, *shape[5:])
+    second = kern.flash_attention_bwd_dkv_cuda(*args, *shape[5:])
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("label", sorted(GEMMA_SHAPES))
+def test_dkv_pass_against_the_cuda_core_yardstick(cuda, label):
+    """The tensor-core pass and the CUDA-core kernel it replaced, kept in
+    the same library, within BWD_REL of each other at gemma3-1b's
+    shapes."""
+    shape = GEMMA_SHAPES[label]
+    args = _dkv_inputs(shape, seed=10)
+    got = kern.flash_attention_bwd_dkv_cuda(*args, *shape[5:])
+    want = _dkv_simt(*args, *shape[5:])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _rel_gap(g, w)
 
 
 def test_attention_block_ragged_length_launches_the_kernel(cuda):

@@ -1,0 +1,197 @@
+"""The 3xTF32 split that the flash dK/dV pass runs on Hopper's tensor cores
+(``src/repro_torch/csrc/mma_tf32x3.cuh``), emulated in PyTorch on the CPU.
+
+A float32 x is split into hi = cvt.rna.tf32.f32(x) and lo =
+cvt.rna.tf32.f32(x - hi); each product a b is lo(a) hi(b) + hi(a) lo(b) +
+hi(a) hi(b) into float32. A product of two TF32 values is exact in
+float32, so a float32 matmul of the split operands emulates the tensor
+cores up to the order of the float32 sums. The emulation lives here; the
+plain version (``kernels/flash_attention/ref.py``) stays full float32.
+
+Tolerances:
+- the rounding: exact, bit for bit, at ties, negatives and powers of two;
+- the split: |x - (hi + lo)| <= 2^-21 |x| (lo keeps 11 bits of a
+  remainder below half a TF32 ulp of x);
+- the dK/dV math on split operands against the float32 plain version:
+  within 1e-5 of each gradient's largest magnitude (float32 sums of up to
+  S * rep terms in another order, plus the split's 2^-21 per product; the
+  kernel's own bound against the plain version on the card is 1e-3), and
+  one-product TF32, the control, at least 10x farther;
+- against ``jax.grad`` of the JAX package's reference: rtol 1e-4, atol
+  1e-5, as ``tests/test_torch_flash.py`` holds the port's gradients.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
+from repro_torch.kernels.flash_attention import ref as t_ref
+
+# (b, s, h, kv, d, causal, window, prefix): GQA with a window
+SHAPE = (1, 128, 4, 1, 64, True, 40, 0)
+SPLIT_REL = 1e-5
+CONTROL_FACTOR = 10
+
+
+def to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: the magnitude rounded to 10 mantissa bits, ties
+    away from zero; the low 13 bits of the result are zero. A float32 is
+    sign and magnitude, so adding half a TF32 ulp to the bits and clearing
+    the low 13 rounds the magnitude, carrying into the exponent."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = to_tf32(x)
+    return hi, to_tf32(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel computes it: lo hi + hi lo first, then hi hi."""
+    a_hi, a_lo = split(a)
+    b_hi, b_lo = split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The control: one TF32 product."""
+    return to_tf32(a) @ to_tf32(b)
+
+
+def dkv_on_tensor_cores(q, k, v, lse, delta, dout, causal, window, prefix,
+                        mm):
+    """flash_attention_bwd_dkv_ref's math with its four products through
+    ``mm``, in the kernel's order: S^T = K Q^T and dP^T = V dO^T, then
+    P^T and dS^T, then dV = P^T dO and dK = dS^T Q / sqrt(d)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    pos = torch.arange(s)
+    qp, kp = pos[None, :], pos[:, None]          # (key, query) layout
+    ok = (qp >= kp) if causal else torch.ones((s, s), dtype=torch.bool)
+    ok = ok | (kp < prefix)
+    if window > 0:
+        ok = ok & (((qp - kp) < window) | (kp < prefix))
+    dk = torch.empty_like(q)
+    dv = torch.empty_like(q)
+    for bi in range(b):
+        for hd in range(h):
+            kh = k[bi, :, hd // rep]
+            vh = v[bi, :, hd // rep]
+            qh, doh = q[bi, :, hd], dout[bi, :, hd]
+            st = mm(kh, qh.T) * scale
+            dpt = mm(vh, doh.T)
+            pt = torch.where(ok, torch.exp(st - lse[bi, hd][None, :]),
+                             torch.zeros(()))
+            dst = pt * (dpt - delta[bi, hd][None, :])
+            dv[bi, :, hd] = mm(pt, doh)
+            dk[bi, :, hd] = mm(dst, qh) * scale
+    return dk, dv
+
+
+def _inputs(seed=0):
+    b, s, h, kv, d, causal, win, pre = SHAPE
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d),
+                            (b, s, h, d))]
+    q, k, v, dout = (torch.from_numpy(a) for a in arrays)
+    mask = (causal, win, pre)
+    lse = torch.logsumexp(t_ref._logits(q, k, *mask), -1).reshape(b, h, s)
+    o = t_ref.flash_attention_ref(q, k, v, *mask)
+    _, delta = t_ref.flash_attention_bwd_dq_ref(q, k, v, o, lse, dout, *mask)
+    return arrays, (q, k, v, lse, delta, dout), mask
+
+
+def _f32(x):
+    return np.array([x], dtype=np.float32)
+
+
+# (input, cvt.rna.tf32.f32 of it): a TF32 ulp at 1 is 2^-10
+ROUNDING = [
+    (1.0, 1.0),
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),            # tie: away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),      # negative tie
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),            # just below the tie
+    (1.0 + 2.0 ** -11 + 2.0 ** -23, 1.0 + 2.0 ** -10),
+    (1.0 + 2.0 ** -10 + 2.0 ** -11, 1.0 + 2.0 ** -9),
+    (2.0 - 2.0 ** -11, 2.0),                  # tie below a power of two
+    (2.0 - 2.0 ** -12, 2.0),                  # carries into the exponent
+    (-(2.0 - 2.0 ** -12), -2.0),
+    (2.0 - 2.0 ** -10, 2.0 - 2.0 ** -10),     # a TF32 value stays
+    (2.0 ** -100, 2.0 ** -100),               # powers of two stay
+    (-(2.0 ** 100), -(2.0 ** 100)),
+    (3.0 * 2.0 ** -60 + 2.0 ** -70, 3.0 * 2.0 ** -60 + 2.0 ** -69),
+    (0.0, 0.0),
+    (-0.0, -0.0),
+    (float(np.finfo(np.float32).max), math.inf),   # past the largest TF32
+    (math.inf, math.inf),
+    (-math.inf, -math.inf),
+]
+
+
+@pytest.mark.parametrize("x, want", ROUNDING,
+                         ids=[f"{x!r}" for x, _ in ROUNDING])
+def test_tf32_rounding_is_round_to_nearest_ties_away(x, want):
+    got = to_tf32(torch.from_numpy(_f32(x)))
+    want_t = torch.from_numpy(_f32(want))
+    assert got.view(torch.int32).item() == want_t.view(torch.int32).item(), \
+        (x, got.item(), want)
+    assert got.view(torch.int32).item() & 0x1FFF == 0
+
+
+def test_split_carries_all_but_2_to_the_minus_21():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096), rng.uniform(-1e-30, 1e-30, 512),
+        rng.uniform(-1e30, 1e30, 512)]).astype(np.float32))
+    hi, lo = split(x)
+    assert bool(((hi.view(torch.int32) | lo.view(torch.int32))
+                 & 0x1FFF == 0).all())
+    resid = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((resid <= 2.0 ** -21 * x.double().abs()).all())
+    # the split keeps what one TF32 value drops
+    assert bool(((x.double() - hi.double()).abs()
+                 <= 2.0 ** -11 * x.double().abs()).all())
+
+
+def _rel_gap(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def test_dkv_split_products_match_the_plain_version():
+    """The four products on split operands land within SPLIT_REL of the
+    float32 plain version; one-product TF32 lands at least CONTROL_FACTOR
+    times farther, so the test tells the split from its absence."""
+    _, args, mask = _inputs()
+    want = t_ref.flash_attention_bwd_dkv_ref(*args, *mask)
+    split_got = dkv_on_tensor_cores(*args, *mask, mm=mm_3xtf32)
+    tf32_got = dkv_on_tensor_cores(*args, *mask, mm=mm_tf32)
+    for name, s_g, t_g, w in zip(("dk", "dv"), split_got, tf32_got, want):
+        split_gap, tf32_gap = _rel_gap(s_g, w), _rel_gap(t_g, w)
+        assert split_gap <= SPLIT_REL, (name, split_gap)
+        assert tf32_gap >= CONTROL_FACTOR * split_gap, \
+            (name, split_gap, tf32_gap)
+        assert tf32_gap > SPLIT_REL, (name, tf32_gap)
+
+
+def test_dkv_split_products_match_jax_grad():
+    """Summed over each kv head's query heads, the split products' dK and
+    dV equal the gradient of JAX's reference within rtol 1e-4, atol
+    1e-5."""
+    arrays, args, mask = _inputs(seed=1)
+    q, k, v, dout = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda k_, v_: j_ref(q, k_, v_, *mask), k, v)
+    want_dk, want_dv = vjp(dout)
+    dk, dv = dkv_on_tensor_cores(*args, *mask, mm=mm_3xtf32)
+    b, s, h, kv, d = SHAPE[:5]
+    sums = t_ref.flash_attention_bwd_sum_ref(dk, dv, kv)
+    for got, want in zip(sums, (want_dk, want_dv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)

@@ -76,13 +76,18 @@ package. Phases, each of which raises on failure:
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
     three backward kernels (dQ, dK/dV per query head, the head sum) at
     gemma3-1b's training shapes (window 512 and global), each against its
-    own plain version, timed with it and with its bound, and
-    ``scaled_dot_product_attention`` as a yardstick; the dK/dV pass (3xTF32
-    on the tensor cores) also against the CUDA-core kernel it replaced
-    (the library's ``flash_bwd_dkv_simt``, which no wrapper calls): both
-    against the plain version, the three against a float64 evaluation of
-    the same inputs (reported), the two kernels timed in turns, with the
-    pass's 3xTF32 bound and its CUDA-core float32 bound;
+    own plain version (delta within ``FLASH_DELTA_RTOL``), timed with it
+    and with its bound, and ``scaled_dot_product_attention`` as a
+    yardstick; the dQ and the dK/dV pass (3xTF32 on the tensor cores)
+    each also against the CUDA-core kernel it replaced (the library's
+    ``flash_bwd_dq_simt`` and ``flash_bwd_dkv_simt``, which no wrapper
+    calls): both against the plain version, the dQ yardstick's delta
+    equal to the pass's bit for bit, the three against a float64
+    evaluation of the same inputs (``dq_float64``, ``dkv_float64``; the
+    pass held within ``FLASH_F64_REL``, the others reported), pass and
+    yardstick timed in turns, with the pass's 3xTF32 bound and its
+    CUDA-core float32 bound; and the backward's three passes summed
+    against SDPA's backward (its forward + backward minus its forward);
 13. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
@@ -210,7 +215,7 @@ LM_FLOAT_TOL = 1e-3
 # sums over thousands of keys or queries in another order, through exp
 # and the recomputed probabilities. The same holds for each backward
 # kernel against its own plain version; delta = rowsum(dO * O) is held to
-# the float32 forward's tolerance, and the head sum (four float32 adds)
+# FLASH_DELTA_RTOL, and the head sum (four float32 adds)
 # to FLASH_SUM_REL of its largest magnitude.
 FLASH_CASES = (
     (2, 128, 4, 2, 32, True, 0, 0),
@@ -223,6 +228,17 @@ FLASH_CASES = (
 FLASH_RTOL, FLASH_ATOL, FLASH_BF16_TOL = 2e-4, 2e-5, 3e-2
 FLASH_BWD_REL = 1e-3
 FLASH_SUM_REL = 1e-6
+# delta = rowsum(dO * O) of the dQ pass against its plain version: rtol
+# FLASH_DELTA_RTOL, atol FLASH_ATOL (float32 sums of D products in another
+# order; at D = 256 the terms cancel, and an element near 0 differs by a few
+# float32 ulps of the terms' magnitude, 5.2e-6 read on an H100)
+FLASH_DELTA_RTOL = 1e-6
+# The tensor-core passes (dQ, dK/dV) against a float64 evaluation of the
+# same inputs: each gradient within FLASH_F64_REL of its largest magnitude.
+# The float32 plain version reads 2.44e-6 at the global shape and the dK/dV
+# pass 1.24e-6; an accumulator that takes every key or query of the global
+# layer in the tensor cores (which truncate as they add) drifted to 2.7e-5.
+FLASH_F64_REL = 1e-5
 # The training path: gemma3-1b at full width (26 layers, d_model 1152,
 # vocab 262144), float32 parameters, AdamW, batch 2 x 2048 tokens.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -1635,63 +1651,97 @@ def flash_bound(b, s, h, kv, d, pairs, kernel, ops_per_s=FP32_OPS_PER_S):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dkv_bounds(b, s, h, kv, d, pairs):
-    """The dK/dV pass's bounds: (the CUDA-core float32 bound, the bound of
-    what its kernel runs), each (ms, "bytes" | "operations"). The kernel
+# the backward passes on the tensor cores (3xTF32 mma.sync), each with the
+# CUDA-core kernel it replaced kept in the library as a yardstick symbol
+TC_PASSES = {"flash_attention_bwd_dq": "flash_bwd_dq_simt",
+             "flash_attention_bwd_dkv": "flash_bwd_dkv_simt"}
+
+
+def tensor_core_bounds(kernel, b, s, h, kv, d, pairs):
+    """A tensor-core pass's bounds: (the CUDA-core float32 bound, the bound
+    of what its kernel runs), each (ms, "bytes" | "operations"). The kernel
     does every float32 product as three TF32 tensor-core products, so its
     operations count at a third of the dense TF32 peak."""
-    args = (b, s, h, kv, d, pairs, "flash_attention_bwd_dkv")
+    args = (b, s, h, kv, d, pairs, kernel)
     return (flash_bound(*args),
             flash_bound(*args, ops_per_s=TF32_OPS_PER_S / 3))
 
 
-def dkv_simt(torch, fkern, q, k, v, lse, delta, dout, causal, window,
-             prefix):
-    """dK and dV through the C library's yardstick symbol
-    ``flash_bwd_dkv_simt`` (the CUDA-core kernel that the tensor-core pass
-    replaced; the port's wrappers never call it), on the same inputs."""
+def run_simt(torch, fkern, symbol, tensors, causal, window, prefix):
+    """Call the C library's yardstick ``symbol`` (a CUDA-core kernel that a
+    tensor-core pass replaced; the port's wrappers never call it) on the
+    eight tensors of its pass's entry point (q, k, ..., then the
+    outputs)."""
     import ctypes
-    lib = fkern._library()
-    fn = lib.flash_bwd_dkv_simt
+    fn = getattr(fkern._library(), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    b, s, h, d = q.shape
-    dk, dv = torch.empty_like(q), torch.empty_like(q)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, h, k.shape[2], d, int(causal), window, prefix,
-            torch.cuda.current_stream().cuda_stream)
+    (b, s, h, d), kv = tensors[0].shape, tensors[1].shape[2]
+    rc = fn(*(t.data_ptr() for t in tensors), b, s, h, kv, d, int(causal),
+            window, prefix, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv_simt: CUDA error {rc}")
+        raise RuntimeError(f"{symbol}: CUDA error {rc}")
+
+
+def dq_simt(torch, fkern, q, k, v, o, lse, dout, *mask):
+    """dQ and delta through ``flash_bwd_dq_simt``, on the same inputs."""
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    run_simt(torch, fkern, TC_PASSES["flash_attention_bwd_dq"],
+             (q, k, v, o, dout, lse, dq, delta), *mask)
+    return dq, delta
+
+
+def dkv_simt(torch, fkern, q, k, v, lse, delta, dout, *mask):
+    """dK and dV through ``flash_bwd_dkv_simt``, on the same inputs."""
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    run_simt(torch, fkern, TC_PASSES["flash_attention_bwd_dkv"],
+             (q, k, v, dout, lse, delta, dk, dv), *mask)
     return dk, dv
 
 
-def dkv_float64(torch, q, k, v, lse, delta, dout, causal, window, prefix):
-    """dK and dV of every query head in float64 from the same float32
-    inputs (the plain version's math), the yardstick of the passes'
-    accuracy: ``float64_gap`` of the plain version, the CUDA-core kernel
-    and the tensor-core pass against it is reported, not held."""
+def probs_float64(torch, q, k, v, lse, delta, dout, causal, window,
+                  prefix):
+    """The plain version's P and dS (b, kv, rep, s, t) in float64 from
+    float32 q, k, v, lse and dout and a (b, h, s) delta, with q and dout
+    grouped by kv head (b, s, kv, rep, d) in float64."""
     b, s, h, d = q.shape
     kv = k.shape[2]
-    f = lambda t: t.double()
-    qg = f(q).reshape(b, s, kv, h // kv, d)
-    dog = f(dout).reshape(b, s, kv, h // kv, d)
+    qg = q.double().reshape(b, s, kv, h // kv, d)
+    dog = dout.double().reshape(b, s, kv, h // kv, d)
     ok = flash_mask(torch, q.device, s, causal, window, prefix)
-    p = torch.exp(torch.einsum("bskrd,btkd->bkrst", qg, f(k)) / math.sqrt(d)
-                  - f(lse).reshape(b, kv, h // kv, s, 1))
+    p = torch.exp(torch.einsum("bskrd,btkd->bkrst", qg, k.double())
+                  / math.sqrt(d) - lse.double().reshape(b, kv, h // kv, s, 1))
     p = torch.where(ok, p, torch.zeros((), dtype=p.dtype, device=p.device))
-    ds = p * (torch.einsum("bskrd,btkd->bkrst", dog, f(v))
-              - f(delta).reshape(b, kv, h // kv, s, 1))
+    ds = p * (torch.einsum("bskrd,btkd->bkrst", dog, v.double())
+              - delta.double().reshape(b, kv, h // kv, s, 1))
+    return p, ds, qg, dog
+
+
+def dq_float64(torch, q, k, v, o, lse, dout, *mask):
+    """dQ in float64 from the dQ pass's float32 inputs (delta = rowsum(dO
+    * O) formed in float64); a one-tuple, as ``float64_gap`` takes it."""
+    b, s, h, d = q.shape
+    delta = (dout.double() * o.double()).sum(-1).transpose(1, 2)
+    _, ds, _, _ = probs_float64(torch, q, k, v, lse, delta, dout, *mask)
+    return (torch.einsum("bkrst,btkd->bskrd", ds, k.double())
+            .reshape(b, s, h, d) / math.sqrt(d),)
+
+
+def dkv_float64(torch, q, k, v, lse, delta, dout, *mask):
+    """dK and dV of every query head in float64 from the dK/dV pass's
+    float32 inputs."""
+    b, s, h, d = q.shape
+    p, ds, qg, dog = probs_float64(torch, q, k, v, lse, delta, dout, *mask)
     return (torch.einsum("bkrst,bskrd->btkrd", ds, qg).reshape(b, s, h, d)
             / math.sqrt(d),
             torch.einsum("bkrst,bskrd->btkrd", p, dog).reshape(b, s, h, d))
 
 
 def float64_gap(got, truth):
-    """Largest |got - truth| of (dK, dV), each relative to that gradient's
-    largest magnitude."""
+    """Largest |got - truth| over a pass's gradients ((dQ,) or (dK, dV)),
+    each relative to that gradient's largest magnitude."""
     return max(((g.double() - t).abs().max() / t.abs().max()).item()
                for g, t in zip(got, truth))
 
@@ -1732,10 +1782,13 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     """The four kernels at one training shape: the forward against the
     plain version, the backward kernels' gradients against autograd of
     the plain version, and each backward kernel against its own plain
-    version on the same inputs; then each kernel's time, its plain
-    version's and its bound, SDPA with the same mask (forward, and
-    forward + backward) as a yardstick, and the pairs the kernels visit
-    against those counted."""
+    version on the same inputs; the two tensor-core passes also against
+    the CUDA-core kernels they replaced and a float64 evaluation; then each
+    kernel's time, its plain version's and its bound (the tensor-core
+    passes in turns with their yardsticks, with both bounds), SDPA with
+    the same mask (forward, and forward + backward) as a yardstick, the
+    backward's three passes against SDPA's backward, and the pairs the
+    kernels visit against those counted."""
     b, s, h, kv, d, causal, win, pre = shape
     mask_args = (causal, win, pre)
     q, k, v = flash_inputs(torch, dev, b, s, h, kv, d, 20)
@@ -1760,34 +1813,54 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     lib_o = sdpa_call(torch, q, k, v, mask)
     row["sdpa_max_abs_gap"] = (lib_o - ref_o.detach()).abs().max().item()
     del leaves, ref_o, lib_o
+    dq_name, dkv_name = TC_PASSES
     want_dq, want_delta = fref.flash_attention_bwd_dq_ref(q, k, v, o, lse,
                                                           dout, *mask_args)
-    err["flash_attention_bwd_dq"] = max(
+    err[dq_name] = max(
         flash_grad_gap(torch, dq, want_dq, f"{label} dQ pass"),
-        flash_gap(torch, delta, want_delta, FLASH_RTOL, FLASH_ATOL,
+        flash_gap(torch, delta, want_delta, FLASH_DELTA_RTOL, FLASH_ATOL,
                   f"{label} delta"))
     want_dk, want_dv = fref.flash_attention_bwd_dkv_ref(
         q, k, v, lse, delta, dout, *mask_args)
-    err["flash_attention_bwd_dkv"] = max(
+    err[dkv_name] = max(
         flash_grad_gap(torch, dk_p, want_dk, f"{label} dK pass"),
         flash_grad_gap(torch, dv_p, want_dv, f"{label} dV pass"))
-    # the CUDA-core yardstick on the same inputs: against the plain version
-    # and against the tensor-core pass, each within FLASH_BWD_REL
-    yard = dkv_simt(torch, fkern, q, k, v, lse, delta, dout, *mask_args)
-    row["yardstick_err"] = max(
-        flash_grad_gap(torch, got, want, f"{label} yardstick {n}")
-        for got, want, n in zip(yard, (want_dk, want_dv), ("dK", "dV")))
-    row["dkv_vs_yardstick"] = max(
-        flash_grad_gap(torch, got, want, f"{label} dK/dV pass against the "
-                       f"yardstick ({n})")
-        for got, want, n in zip((dk_p, dv_p), yard, ("dK", "dV")))
-    # each against float64 on the same inputs (reported)
-    truth = dkv_float64(torch, q, k, v, lse, delta, dout, *mask_args)
-    row["dkv_float64_gap"] = {
-        "pass": float64_gap((dk_p, dv_p), truth),
-        "yardstick": float64_gap(yard, truth),
-        "plain": float64_gap((want_dk, want_dv), truth)}
-    del want_dq, want_delta, want_dk, want_dv, yard, truth
+    # each tensor-core pass beside the CUDA-core yardstick on the same
+    # inputs (the yardstick against the plain version and the pass against
+    # the yardstick, each within FLASH_BWD_REL), and the three against
+    # float64: the pass held within FLASH_F64_REL, the others reported
+    yard_dq, yard_delta = dq_simt(torch, fkern, q, k, v, o, lse, dout,
+                                  *mask_args)
+    if not torch.equal(yard_delta, delta):
+        raise AssertionError(f"{label}: the dQ pass's delta differs from "
+                             "the CUDA-core kernel's")
+    passes = {
+        dq_name: ("dQ", (dq,), (want_dq,), (yard_dq,),
+                  dq_float64(torch, q, k, v, o, lse, dout, *mask_args)),
+        dkv_name: ("dK/dV", (dk_p, dv_p), (want_dk, want_dv),
+                   dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
+                            *mask_args),
+                   dkv_float64(torch, q, k, v, lse, delta, dout,
+                               *mask_args)),
+    }
+    row["yardstick_err"], row["vs_yardstick"], row["float64_gap"] = \
+        {}, {}, {}
+    for name, (what, got, plain, yard, truth) in passes.items():
+        row["yardstick_err"][name] = max(
+            flash_grad_gap(torch, y, w, f"{label} {what} yardstick")
+            for y, w in zip(yard, plain))
+        row["vs_yardstick"][name] = max(
+            flash_grad_gap(torch, g, y, f"{label} {what} pass against the "
+                           "yardstick") for g, y in zip(got, yard))
+        gaps = {"pass": float64_gap(got, truth),
+                "yardstick": float64_gap(yard, truth),
+                "plain": float64_gap(plain, truth)}
+        row["float64_gap"][name] = gaps
+        if gaps["pass"] > FLASH_F64_REL:
+            raise AssertionError(
+                f"{label}: the {what} pass lies {gaps['pass']:.3g} of its "
+                f"largest gradient from float64, above {FLASH_F64_REL}")
+    del want_dq, want_delta, want_dk, want_dv, yard_dq, yard_delta, passes
     sums = fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)
     err["flash_attention_bwd_sum"] = max(
         flash_gap(torch, got, want, FLASH_SUM_REL,
@@ -1808,12 +1881,12 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
         "flash_attention_fwd": (
             lambda: fkern.flash_attention_fwd_cuda(q, k, v, *mask_args),
             lambda: fref.flash_attention_ref(q, k, v, *mask_args)),
-        "flash_attention_bwd_dq": (
+        dq_name: (
             lambda: fkern.flash_attention_bwd_dq_cuda(q, k, v, o, lse, dout,
                                                       *mask_args),
             lambda: fref.flash_attention_bwd_dq_ref(q, k, v, o, lse, dout,
                                                     *mask_args)),
-        "flash_attention_bwd_dkv": (
+        dkv_name: (
             lambda: fkern.flash_attention_bwd_dkv_cuda(
                 q, k, v, lse, delta, dout, *mask_args),
             lambda: fref.flash_attention_bwd_dkv_ref(
@@ -1822,66 +1895,77 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
             lambda: fkern.flash_attention_bwd_sum_cuda(dk_p, dv_p, kv),
             lambda: fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)),
     }
+    yardsticks = {
+        dq_name: lambda: dq_simt(torch, fkern, q, k, v, o, lse, dout,
+                                 *mask_args),
+        dkv_name: lambda: dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
+                                   *mask_args)}
     pairs = int(mask.sum())
     row["pairs_per_head"] = pairs
-    row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"] = \
-        {}, {}, {}, {}
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "turns_ms",
+                "yardstick_ms", "bound_cuda_core_ms"):
+        row[key] = {}
     for name, (kernel_call, plain_call) in calls.items():
-        row["ms"][name] = time_ms(torch, kernel_call)
         row["plain_ms"][name] = time_ms(torch, plain_call)
-        row["bound_ms"][name], row["bound_by"][name] = flash_bound(
-            b, s, h, kv, d, pairs, name)
-    # dK/dV: the tensor-core pass and the CUDA-core yardstick in turns
-    # (yardstick, pass, pass, yardstick), and both bounds; bound_ms is that
-    # of what the kernel runs (3xTF32)
-    dkv = "flash_attention_bwd_dkv"
-    turns = [time_ms(torch, fn) for fn in (
-        lambda: dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
-                         *mask_args),
-        calls[dkv][0], calls[dkv][0],
-        lambda: dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
-                         *mask_args))]
-    row["dkv_turns_ms"] = turns
-    row["ms"][dkv] = (turns[1] + turns[2]) / 2
-    row["yardstick_ms"] = (turns[0] + turns[3]) / 2
-    (row["bound_cuda_core_ms"], _), (row["bound_ms"][dkv],
-                                     row["bound_by"][dkv]) = dkv_bounds(
-        b, s, h, kv, d, pairs)
+        if name not in TC_PASSES:
+            row["ms"][name] = time_ms(torch, kernel_call)
+            row["bound_ms"][name], row["bound_by"][name] = flash_bound(
+                b, s, h, kv, d, pairs, name)
+            continue
+        # a tensor-core pass and its CUDA-core yardstick in turns
+        # (yardstick, pass, pass, yardstick), and both bounds; bound_ms is
+        # that of what the kernel runs (3xTF32)
+        turns = [time_ms(torch, fn) for fn in (
+            yardsticks[name], kernel_call, kernel_call, yardsticks[name])]
+        row["turns_ms"][name] = turns
+        row["ms"][name] = (turns[1] + turns[2]) / 2
+        row["yardstick_ms"][name] = (turns[0] + turns[3]) / 2
+        (row["bound_cuda_core_ms"][name], _), (row["bound_ms"][name],
+                                               row["bound_by"][name]) = \
+            tensor_core_bounds(name, b, s, h, kv, d, pairs)
     row["plain_fwd_bwd_ms"] = time_ms(torch, plain_fwd_bwd)
     row["sdpa_fwd_ms"] = time_ms(torch, lambda: sdpa_call(torch, q, k, v,
                                                           mask))
     row["sdpa_fwd_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd)
+    # the backward's three passes against SDPA's backward (its forward +
+    # backward minus its forward)
+    row["bwd_ms"] = sum(row["ms"][name] for name in FLASH_KERNELS[1:])
+    row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
     row["visited_fwd"] = flash_visited(s, causal, win, pre, 64, 32)
-    row["visited_dkv"] = flash_visited(s, causal, win, pre, 32, 32)
+    row["visited_bwd"] = flash_visited(s, causal, win, pre, 32, 32)
     log(f"flash {label} b={b} s={s} h={h} kv={kv} d={d} window={win}: "
         + "; ".join(
             f"{name} {row['ms'][name]:.4f} ms (bound "
             f"{row['bound_ms'][name]:.4f} ms by {row['bound_by'][name]}, "
             f"plain {row['plain_ms'][name]:.4f} ms, max |diff| "
-            f"{err[name]:.3g})" for name in FLASH_KERNELS)
-        + f"; dK/dV pass against the CUDA-core yardstick in turns "
-        f"(yardstick, pass, pass, yardstick): "
-        + ", ".join(f"{t:.4f}" for t in row["dkv_turns_ms"])
-        + f" ms, bounds {row['bound_ms'][dkv]:.4f} ms (3xTF32 at "
-        f"{TF32_OPS_PER_S / 3e12:.0f} TFLOP/s) and "
-        f"{row['bound_cuda_core_ms']:.4f} ms (CUDA-core float32), max |diff|"
-        f" to the yardstick {row['dkv_vs_yardstick']:.3g}, the yardstick's "
-        f"to the plain version {row['yardstick_err']:.3g}; against float64 "
-        f"on the same inputs, relative to each gradient's largest magnitude"
-        f" (reported): the pass "
-        f"{row['dkv_float64_gap']['pass']:.3g}, the yardstick "
-        f"{row['dkv_float64_gap']['yardstick']:.3g}, the plain version "
-        f"{row['dkv_float64_gap']['plain']:.3g}"
-        + f"; SDPA forward {row['sdpa_fwd_ms']:.4f} ms, forward+backward "
-        f"{row['sdpa_fwd_bwd_ms']:.4f} ms; the plain version's autograd "
+            f"{err[name]:.3g})" for name in FLASH_KERNELS))
+    for name, symbol in TC_PASSES.items():
+        gaps = row["float64_gap"][name]
+        log(f"flash {label} {name} against the CUDA-core yardstick "
+            f"{symbol} in turns (yardstick, pass, pass, yardstick): "
+            + ", ".join(f"{t:.4f}" for t in row["turns_ms"][name])
+            + f" ms, bounds {row['bound_ms'][name]:.4f} ms (3xTF32 at "
+            f"{TF32_OPS_PER_S / 3e12:.0f} TFLOP/s) and "
+            f"{row['bound_cuda_core_ms'][name]:.4f} ms (CUDA-core float32),"
+            f" max |diff| to the yardstick {row['vs_yardstick'][name]:.3g},"
+            f" the yardstick's to the plain version "
+            f"{row['yardstick_err'][name]:.3g}; against float64 on the same"
+            f" inputs, relative to each gradient's largest magnitude: the "
+            f"pass {gaps['pass']:.3g} (held within {FLASH_F64_REL}), the "
+            f"yardstick {gaps['yardstick']:.3g}, the plain version "
+            f"{gaps['plain']:.3g}")
+    log(f"flash {label}: the backward's three passes {row['bwd_ms']:.4f} ms"
+        f" against SDPA's backward {row['sdpa_bwd_ms']:.4f} ms (SDPA "
+        f"forward {row['sdpa_fwd_ms']:.4f} ms, forward+backward "
+        f"{row['sdpa_fwd_bwd_ms']:.4f} ms); the plain version's autograd "
         f"forward+backward {row['plain_fwd_bwd_ms']:.4f} ms; the backward "
         f"kernels' gradients against that autograd: max |diff| "
         f"{row['grad_err']:.3g}; unmasked pairs per head {pairs}, visited "
         f"by the forward's 64x32 tiles {row['visited_fwd']} "
-        f"({row['visited_fwd'] / pairs:.3f}x), by the dK/dV pass's 32x32 "
-        f"tiles {row['visited_dkv']} ({row['visited_dkv'] / pairs:.3f}x);"
-        f" SDPA's gap to the plain version {row['sdpa_max_abs_gap']:.3g} "
-        "(reported)")
+        f"({row['visited_fwd'] / pairs:.3f}x), by the backward passes' "
+        f"32x32 tiles {row['visited_bwd']} "
+        f"({row['visited_bwd'] / pairs:.3f}x); SDPA's gap to the plain "
+        f"version {row['sdpa_max_abs_gap']:.3g} (reported)")
     del q, k, v, dout, o, lse, dq, delta, dk_p, dv_p, dk, dv
     torch.cuda.empty_cache()
     return row
@@ -2142,20 +2226,18 @@ def flash_entries(rows, windows, launches, err):
             "ms": tot("ms", name), "plain_ms": tot("plain_ms", name),
             "bound_ms": tot("bound_ms", name), "bound_by": bound_by,
             "library_ms": lib_ms, "per": note}
-        if name == "flash_attention_bwd_dkv":
+        if name in TC_PASSES:
             # the pass runs 3xTF32 on the tensor cores: bound_ms is at a
             # third of the dense TF32 peak; beside it the CUDA-core float32
             # bound and the CUDA-core kernel it replaced (the yardstick
             # symbol), timed in turns with the pass on the same inputs
-            entry["bound_cuda_core_ms"] = sum(
-                rows[lb]["bound_cuda_core_ms"] * n for lb, n in count.items())
-            entry["yardstick_ms"] = sum(rows[lb]["yardstick_ms"] * n
-                                        for lb, n in count.items())
+            entry["bound_cuda_core_ms"] = tot("bound_cuda_core_ms", name)
+            entry["yardstick_ms"] = tot("yardstick_ms", name)
             entry["per"] += (
                 "; bound_ms counts 3 TF32 tensor-core products per float32 "
                 "product at the dense TF32 peak, bound_cuda_core_ms the "
                 "float32 products at the CUDA cores' peak; yardstick_ms is "
-                "the CUDA-core kernel it replaced (flash_bwd_dkv_simt)")
+                f"the CUDA-core kernel it replaced ({TC_PASSES[name]})")
         entries.append(entry)
     return entries
 

@@ -18,17 +18,17 @@
 // which the backward uses to recompute P = exp(S - lse) tile by tile.
 //
 // The backward (float32) is up to three launches, each its own entry
-// point. The first, flash_bwd_dq, one block per (b, h, query tile), forms
-// Delta = rowsum(dO * O), writes it out, and accumulates dQ = dS K / sqrt(D)
-// over the key tiles, with dS = P * (dO V^T - Delta). The second,
-// flash_bwd_dkv, one block per (b, query head, key tile), walks the head's
-// query tiles and accumulates dV = P^T dO and dK = dS^T Q / sqrt(D) of that
-// query head; with GQA (rep = H / KV > 1) these are partials, and the third,
-// flash_bwd_sum, adds the rep heads of each kv head in
-// head order. No atomics: the result does not depend on the order blocks
-// run in. (Summing the rep heads inside one block per kv head would leave
-// 128 blocks at gemma3-1b's shapes, the first key tile of a causal layer
-// walking 256 query tiles: about 1.8x the time of a global layer's
+// point. The first, flash_bwd_dq, one block per (b, h, tile of 32
+// queries), forms Delta = rowsum(dO * O), writes it out, and accumulates
+// dQ = dS K / sqrt(D) over the key tiles, with dS = P * (dO V^T - Delta).
+// The second, flash_bwd_dkv, one block per (b, query head, key tile),
+// walks the head's query tiles and accumulates dV = P^T dO and dK = dS^T Q
+// / sqrt(D) of that query head; with GQA (rep = H / KV > 1) these are
+// partials, and the third, flash_bwd_sum, adds the rep heads of each kv
+// head in head order. No atomics: the result does not depend on the order
+// blocks run in. (Summing the rep heads inside one block per kv head would
+// leave 128 blocks at gemma3-1b's shapes, the first key tile of a causal
+// layer walking 256 query tiles: about 1.8x the time of a global layer's
 // backward.) Blocks are numbered so that the heaviest tiles of a causal
 // mask start first.
 //
@@ -46,41 +46,47 @@
 // (S, dP, dQ in the first launch; S, dP, dV, dK in the second); the bytes
 // (q, k, v, o and their gradients, each once) are a few tens of MB, a few
 // microseconds at 3.35 TB/s. So it is bound by operations: 67 TFLOP/s of
-// CUDA-core float32 for the forward and dQ, the tensor cores for dK/dV.
+// CUDA-core float32 for the forward, the tensor cores for the backward.
 //
-// Forward and dQ (float32 FMAs on the CUDA cores; TF32 keeps 10 mantissa
-// bits and would miss the JAX kernel's rtol 2e-4): the Pallas blocks
-// (512 x 512, rep heads folded into a query tile) need megabytes of VMEM;
-// here a block owns 64 query rows of one head (8 warps x 8 rows) and
-// streams key tiles of 32 rows through dynamic shared memory (up to 202 KB
-// at D = 256, set with cudaFuncSetAttribute). In the logit product lane j
-// of a warp owns key j of the tile, so the row max and row sum of the
-// online softmax are warp shuffles; in the value product lane l owns
-// columns l, l + 32, ..., so each shared-memory load of a value feeds 8
-// rows. Keys are stored transposed with rows padded to 33 floats, so that
-// lanes reading consecutive keys, and lanes reading consecutive columns of
-// one key, hit different banks. Head dims are padded with zeros to 32 * CT
-// (CT = 1, 2, 4 or 8 columns per lane), so D may be anything up to 256.
-// Rows past S (a ragged last tile) are masked and never stored. bf16
-// inputs are widened to float32 in shared memory and the output is rounded
-// to bf16 once, as the JAX kernel casts its f32 accumulator. With one block
-// per SM nothing hides the latency of a tile's loads, so where D % 4 == 0
-// and the rows are aligned they move in 16-byte loads (8-byte for bf16),
-// several issued before the first is stored; otherwise element by element.
+// Forward (float32 FMAs on the CUDA cores; TF32 keeps 10 mantissa bits
+// and would miss the JAX kernel's rtol 2e-4): the Pallas blocks (512 x
+// 512, rep heads folded into a query tile) need megabytes of VMEM; here a
+// block owns 64 query rows of one head (8 warps x 8 rows) and streams key
+// tiles of 32 rows through dynamic shared memory (up to 137 KB at D = 256,
+// set with cudaFuncSetAttribute). In the logit product lane j of a warp
+// owns key j of the tile, so the row max and row sum of the online softmax
+// are warp shuffles; in the value product lane l owns columns l, l + 32,
+// ..., so each shared-memory load of a value feeds 8 rows. Keys are stored
+// transposed with rows padded to 33 floats, so that lanes reading
+// consecutive keys, and lanes reading consecutive columns of one key, hit
+// different banks. Head dims are padded with zeros to 32 * CT (CT = 1, 2,
+// 4 or 8 columns per lane), so D may be anything up to 256. Rows past S (a
+// ragged last tile) are masked and never stored. bf16 inputs are widened to
+// float32 in shared memory and the output is rounded to bf16 once, as the
+// JAX kernel casts its f32 accumulator. With one block per SM nothing hides
+// the latency of a tile's loads, so where D % 4 == 0 and the rows are
+// aligned they move in 16-byte loads (8-byte for bf16), several issued
+// before the first is stored; otherwise element by element.
 //
-// dK/dV (flash_bwd_dkv_kernel) runs on the tensor cores at float32
-// accuracy: every product is 3xTF32 (mma_tf32x3.cuh: x = hi + lo, each
-// rounded as cvt.rna.tf32.f32 does; lo hi + hi lo + hi hi into float32
-// accumulators, the small terms first). The tensor cores truncate when
-// they add into an accumulator, so an accumulator that takes every query
-// of a long sequence drifts by the same sign at each add (at the global
-// layer's 2,048 queries, about 2.7e-5 of the largest gradient); each query
-// tile therefore sums into fresh fragments, which join the running sums by
-// float32 adds that round to nearest. chip_smoke.py (phase 12) holds the
+// The two backward passes run on the tensor cores at float32 accuracy:
+// every product is 3xTF32 (mma_tf32x3.cuh: x = hi + lo, each rounded as
+// cvt.rna.tf32.f32 does; lo hi + hi lo + hi hi into float32 accumulators,
+// the small terms first). The tensor cores truncate when they add into an
+// accumulator, so an accumulator that takes every query or key of a long
+// sequence drifts by the same sign at each add (at the global layer's
+// 2,048 queries, about 2.7e-5 of the largest gradient); each tile
+// therefore sums into fresh fragments, which join the running sums by
+// float32 adds that round to nearest. chip_smoke.py (phase 12) holds each
 // pass, the CUDA-core kernel it replaced and the plain version against a
-// float64 evaluation of the same inputs.
-// A block owns 32 keys of one query head (8 warps); per live tile of 32
-// queries:
+// float64 evaluation of the same inputs, the pass within 1e-5 of each
+// gradient's largest magnitude. Rows of the tiles are padded to DV + 4
+// floats (4 mod 32 banks), so that the fragment loads (8 rows x 4 columns,
+// or 4 row pairs x 8 columns) hit 32 distinct banks. Q is not pre-scaled
+// (cp.async copies bytes as they are): the logits and the gradient that
+// takes them are scaled by 1/sqrt(D) instead.
+//
+// dK/dV (flash_bwd_dkv_kernel): a block owns 32 keys of one query head (8
+// warps); per live tile of 32 queries:
 //   1. S^T = K Q^T and dP^T = V dO^T (mma.sync m16n8k8): warp (product,
 //      key half, column half) splits its 16-key K or V fragment once per
 //      8 columns and uses it against all four 8-query fragments;
@@ -96,32 +102,56 @@
 //      D = 256: 2 x 4 fragments of each, 64 accumulators a thread, and
 //      the tile's own fragments, in two column halves).
 // Q, dO, lse and delta move by cp.async into two stages, the next live
-// query tile while this one multiplies; K and V stay for the block. Rows
-// of K, V, Q and dO are padded to DV + 4 floats (4 mod 32 banks), so that
-// the fragment loads of steps 1 and 3 hit 32 distinct banks. Shared
+// query tile while this one multiplies; K and V stay for the block. Shared
 // memory at D = 256: K and V 66,560 bytes, the two stages 133,632, the
 // exchange 16,384: 216,576 of the 227 KB a block may have, so one block of
 // 8 warps per SM. ptxas (-O3, sm_90a): 232 registers at D = 256, no
-// spills. q is not pre-scaled here (cp.async copies bytes as they are):
-// S^T and dK are scaled by 1/sqrt(D) instead.
+// spills.
 //
-// What bounds dK/dV now: mma.sync's issue rate and what feeds it. mma.sync
-// does not reach the 495 TFLOP/s of dense TF32 that wgmma does, and every
-// float32 product costs three of them. Per warp and tile, step 1 issues
-// about 84 instructions per 12 mma (the split is 5 integer and float
-// operations per element), step 3 about 2.9 per mma (ptxas's SASS); with 2
-// warps per scheduler the barriers between the steps and the latency of
-// shared-memory loads leave the tensor pipe idle between bursts. At the
-// global layer's shape it runs at about 3.6x its 3xTF32 bound on an H100
-// (chip_smoke.py, phase 12). wgmma (which reads both operands K-major from
-// shared memory, so dO and Q would need transposed copies) is later work.
+// dQ (flash_bwd_dq_kernel) is the same design with the roles of queries
+// and keys swapped: a block owns 32 queries of one head (8 warps), whose
+// Q, dO, lse and delta stay; per live tile of 32 keys:
+//   1. S = Q K^T and dP = dO V^T: warp (product, query half, column half)
+//      splits its 16-query Q or dO fragment once per 8 columns and uses it
+//      against all four 8-key fragments. K and V need no transposed copy:
+//      the B fragment (t, g) of K^T is K[g][t], read from the row-major
+//      tile;
+//   2. the halves meet in the exchange, where warp w forms P and dS =
+//      P (dP - delta) for one 16 x 8 fragment, splits dS once and writes it
+//      back in A-fragment order (the reduction pair k = t, t + 4 of a step
+//      taken as keys 2t, 2t + 1);
+//   3. dQ += dS K: warp w owns DV / 8 columns (at D = 256: 2 x 4
+//      fragments, 32 accumulators a thread, and the tile's own fragments);
+//      K's B fragment (keys 2t, 2t + 1 at column g) is row-major again.
+// K and V move by cp.async into two stages, the next live key tile while
+// this one multiplies. Delta is the CUDA-core kernel's computation, bit for
+// bit (a lane's float32 FMAs over its columns, then a warp sum), formed
+// while the first key tile lands. Shared memory at D = 256: Q and dO
+// 66,560 bytes, lse and delta 256, the two stages 133,120, the exchange
+// 16,384: 216,320, one block of 8 warps per SM. ptxas (-O3, sm_90a): 159
+// registers at D = 256, no spills. 32-query blocks also visit fewer masked
+// pairs than the 64-query blocks of the CUDA-core kernel.
 //
-// The CUDA-core dK/dV kernel this replaced stays in the library as
-// flash_bwd_dkv_simt(), a yardstick for timing; no wrapper calls it.
+// What bounds the backward passes now: mma.sync and what feeds it.
+// mma.sync does not reach the 495 TFLOP/s of dense TF32 that wgmma does,
+// and every float32 product costs three of them. The work that feeds them
+// (the split, 5 integer and float operations per element; shared-memory
+// loads; exp) issues from the same warps, and with 2 warps per scheduler
+// and three barriers per tile it overlaps the tensor pipe little; in the
+// dQ pass step 1 splits the block's resident Q and dO fragments again for
+// every key tile (kept split, they would not fit in registers or shared
+// memory). At the global layer's shape dK/dV runs at about 3.7x its 3xTF32
+// bound on an H100, dQ at about 4.3x (chip_smoke.py, phase 12). wgmma
+// (which reads both operands from shared memory, so the split operands
+// would have to be stored there, and dO and Q K-major for dK/dV) is later
+// work.
 //
-// Later work (not done here): the dQ pass on the tensor cores with the
-// same split (mma_tf32x3.cuh), TMA with a ring of key tiles for the
-// forward, and wgmma.
+// The CUDA-core dQ and dK/dV kernels these replaced stay in the library as
+// flash_bwd_dq_simt() and flash_bwd_dkv_simt(), yardsticks for timing; no
+// wrapper calls them.
+//
+// Later work (not done here): wgmma for the backward passes, and TMA with
+// a ring of key tiles for the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,10 +165,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBq = 64;          // query rows of a forward / dQ block
+constexpr int kBq = 64;          // query rows of a forward block (and
+                                 // of the CUDA-core dQ yardstick's)
 constexpr int kRows = kBq / kWarps;   // 8 query rows per warp
 constexpr int kBk = 32;          // key rows of a tile (one per lane)
-constexpr int kBq2 = 32;         // query rows of a dK/dV inner step
+constexpr int kBq2 = 32;         // query rows of a dK/dV step, a dQ block
 constexpr int kRows2 = kBq2 / kWarps; // 4 rows per warp there
 constexpr int kKs = kBk + 1;     // padded row of the transposed key tile
 constexpr int kPs = kBq2 + 4;    // padded row of the transposed P tile
@@ -314,19 +345,19 @@ __host__ __device__ inline size_t fwd_smem_floats(int dv) {
   return static_cast<size_t>(kBq) * dv + static_cast<size_t>(dv) * kKs +
          static_cast<size_t>(kBk) * dv + kBq * kBk;
 }
-__host__ __device__ inline size_t dq_smem_floats(int dv) {
-  return 2 * static_cast<size_t>(kBq) * dv + 2 * static_cast<size_t>(dv) * kKs +
-         kBq * kBk;
+__host__ __device__ inline size_t dq_simt_smem_floats(int dv) {
+  return 2 * static_cast<size_t>(kBq) * dv +
+         2 * static_cast<size_t>(dv) * kKs + kBq * kBk;
 }
 __host__ __device__ inline size_t dkv_simt_smem_floats(int dv) {
   return 2 * static_cast<size_t>(dv) * kKs +
          2 * static_cast<size_t>(kBq2) * dv + 2 * kBk * kPs + 2 * kBq2;
 }
 
-// The tensor-core dK/dV pass (flash_bwd_dkv_kernel). The K, V, Q and dO
-// tiles keep rows of dv + 4 floats, a stride of 4 mod 32 banks, so that the
-// fragment loads (8 rows x 4 columns, or 4 row pairs x 8 columns) hit 32
-// distinct banks.
+// The tensor-core passes (flash_bwd_dkv_kernel, flash_bwd_dq_kernel). The
+// K, V, Q and dO tiles keep rows of dv + 4 floats, a stride of 4 mod 32
+// banks, so that the fragment loads (8 rows x 4 columns, or 4 row pairs x 8
+// columns) hit 32 distinct banks.
 __host__ __device__ constexpr int dkv_row(int dv) { return dv + 4; }
 // The exchange between the two products of a query tile: its 2 x 4
 // fragments (16 keys x 8 queries each) x 4 slots x 32 lanes, 16 bytes each
@@ -336,6 +367,12 @@ __host__ __device__ inline size_t dkv_smem_floats(int dv) {
   return 2 * static_cast<size_t>(kBk) * dkv_row(dv) +
          2 * (2 * static_cast<size_t>(kBq2) * dkv_row(dv) + 2 * kBq2) +
          kXFloats;
+}
+// The tensor-core dQ pass: Q and dO and the rows' lse and delta; two
+// stages of K and V; the exchange.
+__host__ __device__ inline size_t dq_smem_floats(int dv) {
+  return 2 * static_cast<size_t>(kBq2) * dkv_row(dv) + 2 * kBq2 +
+         2 * (2 * static_cast<size_t>(kBk) * dkv_row(dv)) + kXFloats;
 }
 
 // ---------------------------------------------------------------------------
@@ -446,16 +483,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, launch 1: Delta and dQ; grid (H, B, ceil(S / 64)), the last
-// query tiles first
+// backward, launch 1, the CUDA-core version (the first design): Delta and dQ
+// in float32 FMAs. Kept as a yardstick for the tensor-core kernel below (C
+// symbol flash_bwd_dq_simt); the wrappers never call it. Grid (H, B,
+// ceil(S / 64)), the last query tiles first.
 // ---------------------------------------------------------------------------
 template <int CT>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ dq,
-                    float* __restrict__ delta, Geo g) {
+flash_bwd_dq_simt_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ delta,
+                         Geo g) {
   constexpr int DV = 32 * CT;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;               // kBq x DV, pre-scaled
@@ -736,6 +778,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
+// every group but the one committed last has landed
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
 
 // Start copying rows [t0, t0 + ROWS) of head h of a (B, S, nh, D) float32
 // tensor into dst (rows of dkv_row(DV) floats); zeros past S and past D.
@@ -780,6 +826,52 @@ __device__ __forceinline__ int next_live(int qt, int n, int k0,
                                          const Geo& g) {
   while (qt < n && !tile_live(qt * kBq2, kBq2, k0, kBk, g)) ++qt;
   return qt;
+}
+
+// Step 1 of both tensor-core passes: C = A B^T for 32 rows of A (the block's
+// own tile) against 32 rows of B (the streamed tile), both row-major with
+// rows of kRow floats; the B fragment (t, g) of B^T is B[g][t]. Warp
+// (pv, pm, ph) passes its product's A and B (pv = 0 or 1) and sums rows
+// 16 pm + [0, 16) of A against all of B over the columns of half ph, so
+// that each split of its A fragment feeds four products; the partial sums
+// of fragment (pm, n) go to slot (pv, ph) of the exchange.
+template <int DV, int kRow>
+__device__ __forceinline__ void tile_products(float4* xs, const float* a,
+                                              const float* b, int pv, int pm,
+                                              int ph, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  // the small terms of the split go to their own accumulators, so that no
+  // mma waits on the one before it
+  float big[4][4] = {}, small[4][4] = {};
+  const int c0 = ph * (DV / 2);
+  a += (16 * pm + gq) * kRow + tq + c0;
+  b += gq * kRow + tq + c0;
+#pragma unroll
+  for (int c = 0; c < DV / 2; c += 8) {
+    const tf32x3::FragA af = tf32x3::frag_a(a[c], a[8 * kRow + c], a[c + 4],
+                                            a[8 * kRow + c + 4]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float* bp = b + 8 * n * kRow + c;
+      tf32x3::mma3(big[n], small[n], af, tf32x3::frag_b(bp[0], bp[4]));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    xs[(4 * pm + n) * 128 + (2 * pv + ph) * 32 + lane] =
+        make_float4(big[n][0] + small[n][0], big[n][1] + small[n][1],
+                    big[n][2] + small[n][2], big[n][3] + small[n][3]);
+}
+
+// hi (lo = false) or lo parts of an accumulator fragment's split elements
+// in the A-fragment order (c0, c2, c1, c3): with the reduction pair k = t,
+// t + 4 of a step taken as columns 2t, 2t + 1, an accumulator fragment is
+// lane for lane an A fragment.
+__device__ __forceinline__ float4 a_order(const tf32x3::Split* v, bool lo) {
+  return lo ? make_float4(__uint_as_float(v[0].lo), __uint_as_float(v[2].lo),
+                          __uint_as_float(v[1].lo), __uint_as_float(v[3].lo))
+            : make_float4(__uint_as_float(v[0].hi), __uint_as_float(v[2].hi),
+                          __uint_as_float(v[1].hi), __uint_as_float(v[3].hi));
 }
 
 template <int CT>
@@ -871,29 +963,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* lses = rows + st * 2 * kBq2;
     const float* dels = lses + kBq2;
 
-    {
-      // the small terms of the split go to their own accumulators, so that
-      // no mma waits on the one before it
-      float big[4][4] = {}, small[4][4] = {};
-      const int c0 = ph * (DV / 2);
-      const float* a = (pv ? vs : ks) + (16 * pm + gq) * kRow + tq + c0;
-      const float* bq = (pv ? dos : qs) + gq * kRow + tq + c0;
-#pragma unroll
-      for (int c = 0; c < DV / 2; c += 8) {
-        const FragA af = tf32x3::frag_a(a[c], a[8 * kRow + c], a[c + 4],
-                                        a[8 * kRow + c + 4]);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const float* bp = bq + 8 * n * kRow + c;
-          tf32x3::mma3(big[n], small[n], af, tf32x3::frag_b(bp[0], bp[4]));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        xs[(4 * pm + n) * 128 + (2 * pv + ph) * 32 + lane] =
-            make_float4(big[n][0] + small[n][0], big[n][1] + small[n][1],
-                        big[n][2] + small[n][2], big[n][3] + small[n][3]);
-    }
+    tile_products<DV, kRow>(xs, pv ? vs : ks, pv ? dos : qs, pv, pm, ph,
+                            lane);
     __syncthreads();   // the four partial sums of every fragment are in
 
     {
@@ -918,19 +989,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dss[e] = tf32x3::split(pe * (dpv[e] - dels[i]));
       }
       // stored as the A fragment of the next products (rows keys, the
-      // reduction pair k = t, t + 4 of a step queries 2t, 2t + 1): the
-      // accumulator's (c0, c2, c1, c3), split; slots P hi, P lo, dS hi,
-      // dS lo. Each lane overwrites only what it read.
-      auto a_order = [](const tf32x3::Split* v, bool lo) {
-        return lo ? make_float4(__uint_as_float(v[0].lo),
-                                __uint_as_float(v[2].lo),
-                                __uint_as_float(v[1].lo),
-                                __uint_as_float(v[3].lo))
-                  : make_float4(__uint_as_float(v[0].hi),
-                                __uint_as_float(v[2].hi),
-                                __uint_as_float(v[1].hi),
-                                __uint_as_float(v[3].hi));
-      };
+      // reduction pair of a step queries 2t, 2t + 1), split; slots P hi,
+      // P lo, dS hi, dS lo. Each lane overwrites only what it read.
       x[0] = a_order(ps, false);
       x[32] = a_order(ps, true);
       x[64] = a_order(dss, false);
@@ -1006,6 +1066,212 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 }
 
+// ---------------------------------------------------------------------------
+// backward, launch 1: Delta and dQ of one head on the tensor cores (3xTF32
+// mma.sync, float32 accuracy), the dK/dV kernel above with the roles of
+// queries and keys swapped; grid (H, B, ceil(S / 32)), the last query tiles
+// (the most key tiles under a causal mask) first.
+// ---------------------------------------------------------------------------
+// The first key tile at or after kt that is live for the query tile at q0
+// (n when none is); the same on every thread of the block.
+__device__ __forceinline__ int next_live_key(int kt, int n, int q0,
+                                             const Geo& g) {
+  while (kt < n && !tile_live(q0, kBq2, kt * kBk, kBk, g)) ++kt;
+  return kt;
+}
+
+template <int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
+                    float* __restrict__ delta, Geo g) {
+  using tf32x3::FragA;
+  constexpr int DV = 32 * CT;
+  constexpr int kRow = dkv_row(DV);
+  // dQ += dS K: the block's 2 x DV / 8 output tiles of 16 x 8, kWN warps
+  // along the columns, kWM along the queries
+  constexpr int kWN = DV / 8 < kWarps ? DV / 8 : kWarps;
+  constexpr int kWM = kWarps / kWN;
+  constexpr int kMT = 2 / kWM;            // query m-tiles of a warp
+  constexpr int kNT = DV / 8 / kWN;       // column n-tiles of a warp
+  constexpr int kRowsW = kBq2 / kWarps;   // rows of a warp's delta
+  static_assert(kBk == 32 && kBq2 == 32 && kWarps == 8,
+                "the warp roles below assume 32 x 32 tiles and 8 warps");
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                       // kBq2 x kRow, this block's queries
+  float* dos = qs + kBq2 * kRow;          // kBq2 x kRow, their dO
+  float* lses = dos + kBq2 * kRow;        // kBq2
+  float* dels = lses + kBq2;              // kBq2
+  float* stages = dels + kBq2;            // 2 x [K | V], kBk x kRow each
+  // the exchange, fragment (m, n) at xs + (4 m + n) * 128 + slot * 32 +
+  // lane: first the products' partial sums, then dS, split
+  float4* xs = reinterpret_cast<float4*>(stages + 4 * kBk * kRow);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBq2, h = blockIdx.x,
+            b = blockIdx.y;
+  const int kvh = h / g.rep;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n_ktiles = (g.S + kBk - 1) / kBk;
+
+  // one key tile's K and V into stage s
+  auto load_tile = [&](int s, int kt) {
+    float* ks = stages + s * 2 * kBk * kRow;
+    async_rows<kBk, DV>(ks, k, g, b, kt * kBk, kvh, g.KV);
+    async_rows<kBk, DV>(ks + kBk * kRow, v, g, b, kt * kBk, kvh, g.KV);
+  };
+
+  async_rows<kBq2, DV>(qs, q, g, b, q0, h, g.H);
+  async_rows<kBq2, DV>(dos, dout, g, b, q0, h, g.H);
+  if (threadIdx.x < kBq2) {
+    const int qp = q0 + threadIdx.x;
+    const bool ok = qp < g.S;
+    cp_async4(lses + threadIdx.x,
+              ok ? lse + (static_cast<size_t>(b) * g.H + h) * g.S + qp : lse,
+              ok);
+  }
+  cp_async_commit();
+  int kt = next_live_key(0, n_ktiles, q0, g);
+  if (kt < n_ktiles) load_tile(0, kt);
+  cp_async_commit();
+  cp_async_wait_prior();
+  __syncthreads();   // Q, dO and lse landed; the first key tile may not
+
+  // Delta = rowsum(dO * O) as the CUDA-core kernel forms it (lane l sums
+  // columns l, l + 32, ... in float32 FMAs, then the warp sums its lanes),
+  // so that it is the same bits; warp w owns rows kRowsW w + [0, kRowsW)
+#pragma unroll
+  for (int r = 0; r < kRowsW; ++r) {
+    const int i = warp * kRowsW + r, qp = q0 + i;
+    float part = 0.f;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int c = lane + 32 * t;
+      if (qp < g.S && c < g.D)
+        part = fmaf(dos[i * kRow + c], o[q_index(g, b, qp, h, c)], part);
+    }
+    const float del = warp_sum(part);
+    if (lane == 0) {
+      dels[i] = del;
+      if (qp < g.S) delta[(static_cast<size_t>(b) * g.H + h) * g.S + qp] = del;
+    }
+  }
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // S = Q K^T (pv = 0) or dP = dO V^T (pv = 1): warp (pv, pm, ph) sums
+  // queries 16 pm + [0, 16) against all 32 keys over the columns of half
+  // ph, so each split of its Q or dO fragment feeds four products. K and V
+  // are row-major: the B fragment (t, g) of K^T is K[g][t].
+  const int pv = warp >> 2, pm = (warp >> 1) & 1, ph = warp & 1;
+  // dS of fragment (warp / 4, warp % 4) forms in warp `warp`
+  const int fm = warp >> 2, fn = warp & 3;
+  // dQ: warp (wm, wn) owns query m-tiles wm * kMT + [0, kMT) and column
+  // n-tiles wn * kNT + [0, kNT)
+  const int wm = warp / kWN, wn = warp % kWN;
+  int st = 0;
+  while (kt < n_ktiles) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; the previous tile is consumed
+    const int nxt = next_live_key(kt + 1, n_ktiles, q0, g);
+    if (nxt < n_ktiles) load_tile(st ^ 1, nxt);
+    cp_async_commit();
+    const int k0 = kt * kBk;
+    const float* ks = stages + st * 2 * kBk * kRow;
+    const float* vs = ks + kBk * kRow;
+
+    tile_products<DV, kRow>(xs, pv ? dos : qs, pv ? vs : ks, pv, pm, ph,
+                            lane);
+    __syncthreads();   // the four partial sums of every fragment are in
+
+    {
+      // P = mask ? exp(S / sqrt(D) - lse) : 0 and dS = P (dP - delta) on
+      // fragment (fm, fn): element e is query 16 fm + gq + 8 (e / 2), key
+      // 8 fn + 2 tq + e % 2
+      float4* x = xs + warp * 128 + lane;
+      const float4 s0 = x[0], s1 = x[32], d0 = x[64], d1 = x[96];
+      const float sv[4] = {s0.x + s1.x, s0.y + s1.y, s0.z + s1.z,
+                           s0.w + s1.w};
+      const float dpv[4] = {d0.x + d1.x, d0.y + d1.y, d0.z + d1.z,
+                            d0.w + d1.w};
+      tf32x3::Split dss[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * fm + gq + 8 * (e >> 1);
+        const int j = 8 * fn + 2 * tq + (e & 1);
+        const float pe = pair_ok(q0 + i, k0 + j, g)
+                             ? expf(sv[e] * g.scale - lses[i])
+                             : 0.f;
+        dss[e] = tf32x3::split(pe * (dpv[e] - dels[i]));
+      }
+      // stored as the A fragment of dQ += dS K (rows queries, the
+      // reduction pair of a step keys 2t, 2t + 1), split; slots dS hi, dS
+      // lo. Each lane overwrites only what it read.
+      x[0] = a_order(dss, false);
+      x[32] = a_order(dss, true);
+    }
+    __syncthreads();   // every warp reads all of dS
+
+    {
+      // dQ += dS K over the tile's keys, 8 at a time. The tensor cores
+      // truncate when they add into an accumulator, so the error of a long
+      // chain grows with its length and one sign: each tile sums into
+      // fresh fragments, which join the running sums by float32 adds
+      // (round to nearest).
+      float td[kMT][kNT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kBk / 8; ++kk) {
+        FragA da[kMT];
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+          const float4* x = xs + (4 * (wm * kMT + mi) + kk) * 128 + lane;
+          const float4 h4 = x[0], l4 = x[32];
+          da[mi] = {{{__float_as_uint(h4.x), __float_as_uint(l4.x)},
+                     {__float_as_uint(h4.y), __float_as_uint(l4.y)},
+                     {__float_as_uint(h4.z), __float_as_uint(l4.z)},
+                     {__float_as_uint(h4.w), __float_as_uint(l4.w)}}};
+        }
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni) {
+          const int at = (8 * kk + 2 * tq) * kRow + 8 * (wn * kNT + ni) + gq;
+          const tf32x3::FragB kf = tf32x3::frag_b(ks[at], ks[at + kRow]);
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi)
+            tf32x3::mma3(td[mi][ni], da[mi], kf);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += td[mi][ni][e];
+    }
+    kt = nxt;
+    st ^= 1;
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = q0 + 16 * (wm * kMT + mi) + gq + 8 * (e >> 1);
+        const int c = 8 * (wn * kNT + ni) + 2 * tq + (e & 1);
+        if (qp < g.S && c < g.D)
+          dq[q_index(g, b, qp, h, c)] = acc[mi][ni][e] * g.scale;
+      }
+}
+
 // backward, launch 3 (rep > 1 only): dK and dV of each kv head, the sum of
 // its rep query heads' partials in head order; one thread per output.
 __global__ void __launch_bounds__(kThreads)
@@ -1056,16 +1322,20 @@ int launch_fwd(const T* q, const T* k, const T* v, T* o, float* lse,
   return cudaGetLastError();
 }
 
-template <int CT>
+template <int CT, bool kSimt>
 int launch_bwd_dq(const float* q, const float* k, const float* v,
                   const float* o, const float* dout, const float* lse,
                   float* dq, float* delta, const Geo& g, cudaStream_t st) {
-  const size_t smem = dq_smem_floats(32 * CT) * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<CT>, smem);
+  const int dv_cols = 32 * CT;
+  const size_t smem = (kSimt ? dq_simt_smem_floats(dv_cols)
+                             : dq_smem_floats(dv_cols)) * sizeof(float);
+  auto kernel = kSimt ? flash_bwd_dq_simt_kernel<CT>
+                      : flash_bwd_dq_kernel<CT>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(g.H, g.B, (g.S + kBq - 1) / kBq);
-  flash_bwd_dq_kernel<CT><<<grid, kThreads, smem, st>>>(q, k, v, o, dout,
-                                                        lse, dq, delta, g);
+  const int rows = kSimt ? kBq : kBq2;
+  const dim3 grid(g.H, g.B, (g.S + rows - 1) / rows);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, o, dout, lse, dq, delta, g);
   return cudaGetLastError();
 }
 
@@ -1115,14 +1385,16 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // Bytes of dynamic shared memory one block needs at head dim d:
-// which = 0 forward, 1 backward dQ, 2 backward dK/dV.
+// which = 0 forward, 1 backward dQ, 2 backward dK/dV, 3 and 4 the CUDA-core
+// yardsticks of dQ and dK/dV.
 long long flash_smem_bytes(int which, int d) {
   const int ct = columns_per_lane(d);
-  if (ct == 0) return -1;
+  if (ct == 0 || which < 0 || which > 4) return -1;
   const int dv = 32 * ct;
-  const size_t f = which == 0 ? fwd_smem_floats(dv)
-                   : which == 1 ? dq_smem_floats(dv) : dkv_smem_floats(dv);
-  return static_cast<long long>(f * sizeof(float));
+  const size_t f[5] = {fwd_smem_floats(dv), dq_smem_floats(dv),
+                       dkv_smem_floats(dv), dq_simt_smem_floats(dv),
+                       dkv_simt_smem_floats(dv)};
+  return static_cast<long long>(f[which] * sizeof(float));
 }
 
 // o (B, S, H, D) in q's dtype and lse (B, H, S) float32 from q (B, S, H, D)
@@ -1157,21 +1429,24 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // Backward, launch 1: dq (B, S, H, D) and delta (B, H, S) from q, k, v,
-// o, dout and the forward's lse; everything float32 and contiguous.
-int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const void* lse, void* dq, void* delta,
-                 int b, int s, int h, int kv, int d, int causal, int window,
-                 int prefix, void* stream) {
+// o, dout and the forward's lse; everything float32 and contiguous. simt =
+// 0 runs the tensor-core kernel (the one the wrappers call), 1 the
+// CUDA-core yardstick.
+static int bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* lse, void* dq, void* delta,
+                  int b, int s, int h, int kv, int d, int causal, int window,
+                  int prefix, void* stream, bool simt) {
   const Geo g = make_geo(b, s, h, kv, d, causal, window, prefix,
                          aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
                              aligned(dout, 16));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_BWD_DQ(CT)                                                     \
-  return launch_bwd_dq<CT>(                                                  \
-      static_cast<const float*>(q), static_cast<const float*>(k),            \
+  return simt ? launch_bwd_dq<CT, true>(ARGS) : launch_bwd_dq<CT, false>(ARGS)
+#define ARGS                                                                 \
+  static_cast<const float*>(q), static_cast<const float*>(k),                \
       static_cast<const float*>(v), static_cast<const float*>(o),            \
       static_cast<const float*>(dout), static_cast<const float*>(lse),       \
-      static_cast<float*>(dq), static_cast<float*>(delta), g, st)
+      static_cast<float*>(dq), static_cast<float*>(delta), g, st
   switch (columns_per_lane(d)) {
     case 1: REPRO_BWD_DQ(1);
     case 2: REPRO_BWD_DQ(2);
@@ -1179,7 +1454,27 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
     case 8: REPRO_BWD_DQ(8);
     default: return cudaErrorInvalidValue;
   }
+#undef ARGS
 #undef REPRO_BWD_DQ
+}
+
+int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const void* lse, void* dq, void* delta,
+                 int b, int s, int h, int kv, int d, int causal, int window,
+                 int prefix, void* stream) {
+  return bwd_dq(q, k, v, o, dout, lse, dq, delta, b, s, h, kv, d, causal,
+                window, prefix, stream, false);
+}
+
+// The same arguments and result through the CUDA-core kernel it replaced, for
+// timing the tensor-core kernel against it; no wrapper calls it.
+int flash_bwd_dq_simt(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const void* lse,
+                      void* dq, void* delta, int b, int s, int h, int kv,
+                      int d, int causal, int window, int prefix,
+                      void* stream) {
+  return bwd_dq(q, k, v, o, dout, lse, dq, delta, b, s, h, kv, d, causal,
+                window, prefix, stream, true);
 }
 
 // Backward, launch 2: dk and dv of every query head, (B, S, H, D) (with

@@ -22,8 +22,7 @@
 // The reduction index k of one step may be permuted at will, as long as A
 // and B agree: a caller can load the pair k = t, t + 4 from any two rows.
 //
-// Used by the dK/dV pass of flash_attention.cu; written so that the dQ
-// pass can take it over.
+// Used by the dQ and dK/dV passes of flash_attention.cu.
 #pragma once
 
 #include <stdint.h>

@@ -237,6 +237,88 @@ def test_dkv_pass_against_the_cuda_core_yardstick(cuda, label):
         _rel_gap(g, w)
 
 
+# The dQ pass on the tensor cores (32-query blocks streaming 32-key tiles,
+# columns padded to 32, 64, 128 or 256): lengths ragged for 32-row tiles,
+# rep = 1, D = 8, 40, 200 and 256, a window and a prefix
+DQ_SHAPES = [
+    (2, 77, 4, 2, 64, True, 0, 0),
+    (1, 100, 2, 2, 40, True, 30, 0),
+    (1, 70, 4, 1, 8, True, 0, 5),
+    (1, 160, 2, 1, 256, True, 48, 0),
+    (2, 50, 2, 2, 256, False, 0, 0),
+    (2, 77, 6, 2, 200, False, 20, 0),
+]
+
+
+def _dq_inputs(shape, seed):
+    """Inputs of the dQ pass: q, k, v, the kernel forward's output and
+    log-sum-exp, and dout."""
+    b, s, h, kv, d, causal, win, pre = shape
+    q, k, v = inputs(b, s, h, kv, d, torch.device("cuda"), seed=seed)
+    dout = inputs(b, s, h, h, d, torch.device("cuda"), seed=seed + 1)[0]
+    o, lse = kern.flash_attention_fwd_cuda(q, k, v, causal, win, pre)
+    return q, k, v, o, lse, dout
+
+
+def _dq_simt(q, k, v, o, lse, dout, causal, win, pre):
+    """The CUDA-core yardstick (C symbol flash_bwd_dq_simt), which no
+    wrapper calls, on the same inputs."""
+    b, s, h, d = q.shape
+    lib = kern._library()
+    fn = lib.flash_bwd_dq_simt
+    fn.argtypes = lib.flash_bwd_dq.argtypes
+    fn.restype = lib.flash_bwd_dq.restype
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+            b, s, h, k.shape[2], d, int(causal), win, pre,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return dq, delta
+
+
+@pytest.mark.parametrize("shape", DQ_SHAPES, ids=_ids)
+def test_dq_pass_against_its_plain_version(cuda, shape):
+    """The tensor-core dQ pass within BWD_REL of its plain version, and
+    delta within rtol 1e-6, at shapes its tiles do not divide; one launch
+    per call."""
+    causal, win, pre = shape[5:]
+    args = _dq_inputs(shape, seed=11)
+    before = kern.LAUNCHES["flash_attention_bwd_dq"]
+    dq, delta = kern.flash_attention_bwd_dq_cuda(*args, causal, win, pre)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["flash_attention_bwd_dq"] == before + 1
+    want_dq, want_delta = ref.flash_attention_bwd_dq_ref(*args, causal, win,
+                                                         pre)
+    torch.testing.assert_close(delta, want_delta, rtol=1e-6, atol=1e-6)
+    _rel_gap(dq, want_dq)
+
+
+def test_dq_pass_repeats_bit_for_bit(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    shape = GEMMA_SHAPES["global"]
+    args = _dq_inputs(shape, seed=12)
+    first = kern.flash_attention_bwd_dq_cuda(*args, *shape[5:])
+    second = kern.flash_attention_bwd_dq_cuda(*args, *shape[5:])
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("label", sorted(GEMMA_SHAPES))
+def test_dq_pass_against_the_cuda_core_yardstick(cuda, label):
+    """The tensor-core dQ pass and the CUDA-core kernel it replaced, kept
+    in the same library, within BWD_REL of each other at gemma3-1b's
+    shapes; delta is the same computation in both, bit for bit."""
+    shape = GEMMA_SHAPES[label]
+    args = _dq_inputs(shape, seed=13)
+    dq, delta = kern.flash_attention_bwd_dq_cuda(*args, *shape[5:])
+    want_dq, want_delta = _dq_simt(*args, *shape[5:])
+    torch.cuda.synchronize()
+    _rel_gap(dq, want_dq)
+    assert torch.equal(delta, want_delta)
+
+
 def test_attention_block_ragged_length_launches_the_kernel(cuda):
     """The attention block on the "cuda" route launches the kernel at a
     length its block does not divide (100 rows, block 64), forward and

@@ -1,5 +1,6 @@
-"""The 3xTF32 split that the flash dK/dV pass runs on Hopper's tensor cores
-(``src/repro_torch/csrc/mma_tf32x3.cuh``), emulated in PyTorch on the CPU.
+"""The 3xTF32 split that the flash backward passes (dQ and dK/dV) run on
+Hopper's tensor cores (``src/repro_torch/csrc/mma_tf32x3.cuh``), emulated
+in PyTorch on the CPU.
 
 A float32 x is split into hi = cvt.rna.tf32.f32(x) and lo =
 cvt.rna.tf32.f32(x - hi); each product a b is lo(a) hi(b) + hi(a) lo(b) +
@@ -12,11 +13,11 @@ Tolerances:
 - the rounding: exact, bit for bit, at ties, negatives and powers of two;
 - the split: |x - (hi + lo)| <= 2^-21 |x| (lo keeps 11 bits of a
   remainder below half a TF32 ulp of x);
-- the dK/dV math on split operands against the float32 plain version:
-  within 1e-5 of each gradient's largest magnitude (float32 sums of up to
-  S * rep terms in another order, plus the split's 2^-21 per product; the
-  kernel's own bound against the plain version on the card is 1e-3), and
-  one-product TF32, the control, at least 10x farther;
+- the dK/dV and the dQ math on split operands against the float32 plain
+  version: within 1e-5 of each gradient's largest magnitude (float32 sums
+  of up to S * rep terms in another order, plus the split's 2^-21 per
+  product; the kernels' own bound against the plain version on the card is
+  1e-3), and one-product TF32, the control, at least 10x farther;
 - against ``jax.grad`` of the JAX package's reference: rtol 1e-4, atol
   1e-5, as ``tests/test_torch_flash.py`` holds the port's gradients.
 """
@@ -95,6 +96,37 @@ def dkv_on_tensor_cores(q, k, v, lse, delta, dout, causal, window, prefix,
     return dk, dv
 
 
+def dq_on_tensor_cores(q, k, v, o, lse, dout, causal, window, prefix, mm):
+    """flash_attention_bwd_dq_ref's math with its three products through
+    ``mm``, in the kernel's order: S = Q K^T and dP = dO V^T, then P and
+    dS, then dQ = dS K; S and dQ scaled by 1/sqrt(d) after the product, as
+    the kernel does (it copies Q unscaled)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    pos = torch.arange(s)
+    qp, kp = pos[:, None], pos[None, :]          # (query, key) layout
+    ok = (qp >= kp) if causal else torch.ones((s, s), dtype=torch.bool)
+    ok = ok | (kp < prefix)
+    if window > 0:
+        ok = ok & (((qp - kp) < window) | (kp < prefix))
+    delta = (dout * o).sum(-1).transpose(1, 2)
+    dq = torch.empty_like(q)
+    for bi in range(b):
+        for hd in range(h):
+            kh = k[bi, :, hd // rep]
+            vh = v[bi, :, hd // rep]
+            qh, doh = q[bi, :, hd], dout[bi, :, hd]
+            sc = mm(qh, kh.T) * scale
+            dp = mm(doh, vh.T)
+            p = torch.where(ok, torch.exp(sc - lse[bi, hd][:, None]),
+                            torch.zeros(()))
+            ds = p * (dp - delta[bi, hd][:, None])
+            dq[bi, :, hd] = mm(ds, kh) * scale
+    return dq
+
+
 def _inputs(seed=0):
     b, s, h, kv, d, causal, win, pre = SHAPE
     rng = np.random.default_rng(seed)
@@ -107,6 +139,14 @@ def _inputs(seed=0):
     o = t_ref.flash_attention_ref(q, k, v, *mask)
     _, delta = t_ref.flash_attention_bwd_dq_ref(q, k, v, o, lse, dout, *mask)
     return arrays, (q, k, v, lse, delta, dout), mask
+
+
+def _dq_inputs(seed=0):
+    """The dQ pass's inputs: q, k, v, the forward's output and
+    log-sum-exp, and dout."""
+    arrays, (q, k, v, lse, _, dout), mask = _inputs(seed)
+    return arrays, (q, k, v, t_ref.flash_attention_ref(q, k, v, *mask), lse,
+                    dout), mask
 
 
 def _f32(x):
@@ -195,3 +235,29 @@ def test_dkv_split_products_match_jax_grad():
     for got, want in zip(sums, (want_dk, want_dv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_dq_split_products_match_the_plain_version():
+    """The dQ pass's three products on split operands land within
+    SPLIT_REL of the float32 plain version; one-product TF32 lands at least
+    CONTROL_FACTOR times farther."""
+    _, args, mask = _dq_inputs(seed=2)
+    want, _ = t_ref.flash_attention_bwd_dq_ref(*args, *mask)
+    split_gap = _rel_gap(dq_on_tensor_cores(*args, *mask, mm=mm_3xtf32),
+                         want)
+    tf32_gap = _rel_gap(dq_on_tensor_cores(*args, *mask, mm=mm_tf32), want)
+    assert split_gap <= SPLIT_REL, split_gap
+    assert tf32_gap >= CONTROL_FACTOR * split_gap, (split_gap, tf32_gap)
+    assert tf32_gap > SPLIT_REL, tf32_gap
+
+
+def test_dq_split_products_match_jax_grad():
+    """The split products' dQ equals the query gradient of JAX's reference
+    within rtol 1e-4, atol 1e-5."""
+    arrays, args, mask = _dq_inputs(seed=3)
+    q, k, v, dout = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda q_: j_ref(q_, k, v, *mask), q)
+    (want_dq,) = vjp(dout)
+    dq = dq_on_tensor_cores(*args, *mask, mm=mm_3xtf32)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), rtol=1e-4,
+                               atol=1e-5)

@@ -11,13 +11,20 @@ package. Phases, each of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build,
    from the sources in ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-   all started together);
+   all started together); ``cuobjdump -sass`` of the PIM matmul library
+   must show int8 wgmma (IGMMA) in every instantiation of the wgmma
+   route's kernel;
 2. kernels: every variant of the PIM matmul kernel (fused, fused + bias,
-   fused + row-sums, raw int32) at w4a4 and w8a8, on the CNN path's
+   fused + row-sums, raw int32) at w4a4 and w8a8, on its three routes
+   (``kernels/pim_matmul/pim_matmul.py small_m_grid``): the CNN path's
    shapes, hymba's four decode shapes at M = 1, 5, 8, 16 and 64 (the
-   small-M route, also through the tiled route's yardstick symbol) and
-   ragged ones, against its plain PyTorch version on the card, bit for
-   bit, and a w8a8 case at M = 8 that wraps mod 2^32; then both passes of the analog readout kernel (full scale and
+   small-M route, also through the tiled yardstick symbol), its four
+   prefill shapes and M = 65 (the wgmma route, also through the mma.sync
+   kernel's yardstick symbol and, at w4a4, the wgmma route on K-major
+   weight planes) and ragged ones, against its plain PyTorch version on
+   the card, bit for bit; w8a8 cases at M = 8 and M = 256 that wrap mod
+   2^32, and the wgmma route's level-overflow case (every plane 127, K =
+   139,264: each shift level's own sum overflows int32); then both passes of the analog readout kernel (full scale and
    readout, with and without a bias) at w4a4 and w8a8 on main-path shapes
    and a ragged one, with the (chunk, ADC bits) sweep on the ragged one,
    bit for bit on the deterministic path, and with noise within the
@@ -30,8 +37,10 @@ package. Phases, each of which raises on failure:
 4. numbers of the exact path: request latency and images/s, a
    torch.profiler breakdown of one request's device time by stage with
    the device's idle share, and per main-path kernel shape the kernel's
-   time, launches, bound, plain-version time and a library yardstick
-   (``torch._int_mm`` on one plane pair + the epilogue);
+   device time in turns with the mma.sync yardstick, launches, both
+   bounds, plain-version time and two library yardsticks
+   (``torch._int_mm`` on one plane pair as the port keeps it, N-major,
+   and on a K-major copy, each + the epilogue);
 5. the analog path: the same network and requests programmed at w4a4
    with a 5-bit ADC on ``analog-cuda``; 21 launches of each analog pass
    per request and none of the PIM matmul kernel, logits bit-identical
@@ -63,9 +72,13 @@ package. Phases, each of which raises on failure:
    (224 small-M PIM kernels, no tiled one) and its 224 PIM launches
    captured and replayed back to back on the device, the small-M route
    against the tiled yardstick and the step's bytes bound, with nothing
-   but those kernels on the device; and the PIM kernel at the path's
-   shapes (bit for bit, then timed; the decode shapes as device time
-   with cold weights, beside the tiled yardstick);
+   but those kernels on the device; the PIM kernel at the path's shapes
+   (bit for bit, then timed: the prefill shapes as device time in turns
+   with the mma.sync yardstick, beside the wgmma route on K-major planes
+   and both library yardsticks; the decode shapes as device time with
+   cold weights, beside the tiled yardstick); and the small-M and tiled
+   routes at M = 64 and 128 on the decode shapes (reported, to re-read
+   the small-M threshold);
 10. ``repro_torch.launch.serve.serve("hymba-1.5b", ..., pim=True)`` itself
     at full width (default ``ssd_backend="chunked"``);
 11. mamba2-370m at full width (48 layers) with ``ssd_backend="cuda"``: 48
@@ -76,7 +89,9 @@ package. Phases, each of which raises on failure:
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
     three backward kernels (dQ, dK/dV per query head, the head sum) at
     gemma3-1b's training shapes (window 512 and global), each against its
-    own plain version (delta within ``FLASH_DELTA_RTOL``), timed with it
+    own plain version (delta within ``FLASH_DELTA_RTOL``; the head sum
+    also equal to head-order float32 adds bit for bit, and timed as device
+    time beside ``torch.sum``), timed with it
     and with its bound, and ``scaled_dot_product_attention`` as a
     yardstick; the dQ and the dK/dV pass (3xTF32 on the tensor cores)
     each also against the CUDA-core kernel it replaced (the library's
@@ -102,8 +117,9 @@ package. Phases, each of which raises on failure:
     resumed from a step-6 checkpoint against the unbroken run.
 
 Each path's launch counts are set to 0 just before its requests and read
-just after. It prints a ``{"kernels": [...]}`` line (one entry per kernel
-and path), then the device line
+just after (B1's also by route, held to what the route chooser gives the
+path's shapes). It prints a ``{"kernels": [...]}`` line (one entry per
+kernel and path), then the device line
 ``{"ok": true, "device": {...}}`` last. ``--json PATH`` also writes every
 number of the run (per-shape timings, the profiles, the study rows) to
 ``PATH``.
@@ -139,15 +155,27 @@ CNN_CHECK_SHAPES = {             # (M, K, N) as the kernel sees them
 # by the plan): q and o, k and v, gate and up, down
 HYMBA_DECODE_KN = {"qo": (2048, 1664), "kv": (2048, 384),
                    "gate_up": (2048, 5504), "down": (5632, 1664)}
+# hymba-1.5b's prefill projections: batch 8 x prompt 512 rows
+HYMBA_PREFILL_M = 8 * 512
 # the small-M route: hymba's decode shapes at every batch up to its limit,
 # and a shape ragged in M, K (not a whole number of splits) and N (not a
-# whole number of strips)
+# whole number of strips); the wgmma route: hymba's prefill shapes, the
+# first M above the small-M limit, and a shape ragged in M and N on
+# 256-row tiles
 CHECK_SHAPES = {
     **CNN_CHECK_SHAPES,
     **{f"{lb}_m{m}": (m, k, n) for lb, (k, n) in HYMBA_DECODE_KN.items()
        for m in (1, 5, 8, 16, 64)},
+    **{f"{lb}_prefill": (HYMBA_PREFILL_M, k, n)
+       for lb, (k, n) in HYMBA_DECODE_KN.items()},
+    "down_m65": (65, *HYMBA_DECODE_KN["down"]),
     "ragged_small_m": (7, 333, 77),
+    "ragged_wgmma": (4100, 1040, 2064),
 }
+# The wgmma route's level-overflow check: every plane 127 and K = 139,264,
+# so that each shift level's own int32 sum (127 * 127 * K per plane pair)
+# overflows inside the tensor cores' s32 accumulation
+LEVEL_OVERFLOW_SHAPE = (128, 139264, 64)
 KERNEL_SOURCE = "src/repro_torch/csrc/pim_matmul.cu"
 ANALOG_SOURCE = "src/repro_torch/csrc/analog_readout.cu"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
@@ -349,83 +377,174 @@ def read_counts(*kernel_modules):
     return counts
 
 
+def route_counts(kern, name):
+    """B1's launches of one entry point by route since the last reset."""
+    return {r: n for r, n in kern.ROUTE_LAUNCHES[name].items() if n}
+
+
+def expected_routes(kern, shapes, repeats):
+    """The launches by route that (M, K, N) -> launches per request
+    give over ``repeats`` requests, by the wrappers' route chooser."""
+    want = Counter()
+    for (m, k, n), count in shapes.items():
+        want[kern.small_m_grid(m, k, n)[0]] += count * repeats
+    return dict(want)
+
+
 def tiled_fused(torch, kern, a, w, a_s, w_s, bias=None):
-    """B1 on its tiled route at any M, through the C library's yardstick
-    symbol ``pim_matmul_fused_tiled`` (the port's wrappers never call
-    it): the small-M route's comparison at the same shapes."""
-    import ctypes
-    fn = kern._library().pim_matmul_fused_tiled
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    out = torch.empty((a.shape[1], w.shape[2]), dtype=torch.float32,
-                      device=a.device)
-    rc = fn(a.data_ptr(), w.data_ptr(), a_s.data_ptr(), w_s.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), None,
-            a.shape[0], w.shape[0], a.shape[1], a.shape[2], w.shape[2],
-            torch.cuda.current_stream(a.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"pim_matmul_fused_tiled: CUDA error {rc}")
-    return out
+    """B1 on the route it takes above the small-M limit, at any M: the
+    C library's yardstick symbol ``pim_matmul_fused_tiled`` (the wgmma
+    route) where TMA can describe the planes, else
+    ``pim_matmul_fused_mma_sync``; the port's wrappers never call them.
+    The small-M route's comparison at the same shapes."""
+    route = kern.tiled_route(a.shape[2], w.shape[2])
+    return kern.yardstick_fused(
+        "pim_matmul_fused_tiled" if route == "wgmma"
+        else "pim_matmul_fused_mma_sync", a, w, a_s, w_s, bias)
+
+
+def fused_variants(torch, kern, ref, a, w, a_s, w_s, bias):
+    """Every variant through the wrappers (fused, + bias, + row-sums,
+    int32) against the plain version, bit for bit; the largest error of
+    the fused variants and of int32, and the plain (out, rowsum) with
+    bias."""
+    want, want_rs = ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias,
+                                             want_rowsum=True)
+    out, rs = kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias,
+                                         want_rowsum=True)
+    e = [max_err(torch, kern.pim_matmul_fused_cuda(a, w, a_s, w_s),
+                 ref.pim_matmul_fused_ref(a, w, a_s, w_s)),
+         max_err(torch, kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias),
+                 want),
+         max_err(torch, out, want), max_err(torch, rs, want_rs)]
+    e_int = max_err(torch, kern.pim_matmul_cuda(a, w),
+                    ref.pim_matmul_ref(a, w))
+    return max(e), e_int, want, want_rs
+
+
+def yardstick_errors(torch, kern, a, w, a_s, w_s, bias, want, want_rs):
+    """The mma.sync kernel the wgmma route replaced, and at w4a4 with N >
+    64 the wgmma route on K-major weight planes, bit for bit against the
+    plain version (with bias and row-sums)."""
+    symbols = [("pim_matmul_fused_mma_sync", w)]
+    if a.shape[0] == w.shape[0] == 1 and w.shape[2] > 64:
+        symbols.append(("pim_matmul_fused_kmajor",
+                        w.transpose(1, 2).contiguous()))
+    e = []
+    for symbol, planes in symbols:
+        out, rs = kern.yardstick_fused(symbol, a, planes, a_s, w_s, bias,
+                                       want_rowsum=True)
+        e += [max_err(torch, out, want), max_err(torch, rs, want_rs)]
+    return max(e), [s for s, _ in symbols]
+
+
+def sass_check(runtime):
+    """The wgmma route's kernels hold int8 warpgroup MMAs: ``cuobjdump
+    -sass`` of the built library, the IGMMA instructions of each
+    instantiation of ``pim_matmul_wgmma_kernel``; raises if one has
+    none."""
+    tool = Path(runtime._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(runtime.library_path("pim_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            current = name if "pim_matmul_wgmma_kernel" in name else None
+            if current:
+                counts[current] = 0
+        elif current and "IGMMA" in line:
+            counts[current] += 1
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"wgmma kernels without IGMMA: {counts}")
+    log(f"cuobjdump -sass: {len(counts)} instantiations of "
+        f"pim_matmul_wgmma_kernel, {sum(counts.values())} IGMMA "
+        f"instructions ({min(counts.values())}-{max(counts.values())} "
+        f"each), e.g. {sass_line(sass)}")
+    return {"kernels": len(counts), "igmma": sum(counts.values())}
+
+
+def sass_line(sass):
+    """The first IGMMA instruction of a listing, without its address
+    and encoding."""
+    for line in sass.splitlines():
+        if "IGMMA" in line:
+            return line.split("*/", 1)[-1].split("/*")[0].strip()
+    return ""
 
 
 def kernel_phase(torch, dev, kern, ref):
-    """Every variant against the plain version, bit for bit, on both
-    routes (the small-M shapes also through the tiled yardstick), and an
-    extreme-value case at decode's M that wraps mod 2^32."""
+    """Every variant against the plain version, bit for bit, on all three
+    routes (the small-M shapes also through the tiled yardstick, the wgmma
+    shapes also through the mma.sync yardstick and, at w4a4, the K-major
+    one); an extreme-value case at decode's M and one on the wgmma route
+    that wrap mod 2^32; and the wgmma route's level-overflow case."""
     err = {"pim_matmul_fused": 0.0, "pim_matmul_int": 0.0}
     gen = torch.Generator(device=dev).manual_seed(1)
+
+    def record(e_fused, e_int):
+        err["pim_matmul_fused"] = max(err["pim_matmul_fused"], e_fused)
+        err["pim_matmul_int"] = max(err["pim_matmul_int"], e_int)
+
     for label, (m, k, n) in CHECK_SHAPES.items():
         for pa, pw in ((1, 1), (2, 2)):
             a = planes(torch, gen, pa, m, k, dev)
             w = planes(torch, gen, pw, k, n, dev)
             a_s, w_s, bias = scales(torch, gen, m, n, dev)
-            e = [max_err(torch, kern.pim_matmul_fused_cuda(a, w, a_s, w_s),
-                         ref.pim_matmul_fused_ref(a, w, a_s, w_s)),
-                 max_err(torch,
-                         kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias),
-                         ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias))]
-            out, rs = kern.pim_matmul_fused_cuda(a, w, a_s, w_s,
-                                                 want_rowsum=True)
-            ref_out, ref_rs = ref.pim_matmul_fused_ref(a, w, a_s, w_s,
-                                                       want_rowsum=True)
-            e += [max_err(torch, out, ref_out), max_err(torch, rs, ref_rs)]
-            e_int = max_err(torch, kern.pim_matmul_cuda(a, w),
-                            ref.pim_matmul_ref(a, w))
+            e, e_int, want, want_rs = fused_variants(torch, kern, ref, a, w,
+                                                     a_s, w_s, bias)
             route = kern.small_m_grid(m, k, n)
+            also = ""
             if route[0] == "small_m":
-                e.append(max_err(
+                e = max(e, max_err(
                     torch, tiled_fused(torch, kern, a, w, a_s, w_s, bias),
-                    ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias)))
-            err["pim_matmul_fused"] = max(err["pim_matmul_fused"], *e)
-            err["pim_matmul_int"] = max(err["pim_matmul_int"], e_int)
+                    want))
+                also = "; the tiled yardstick bit-exact"
+            elif route[0] == "wgmma":
+                e_y, symbols = yardstick_errors(torch, kern, a, w, a_s, w_s,
+                                                bias, want, want_rs)
+                e = max(e, e_y)
+                also = f"; {', '.join(symbols)} bit-exact"
+            record(e, e_int)
             log(f"kernel check {label} M={m} K={k} N={n} w{4 * pw}a{4 * pa}"
                 f" {route}: fused, fused+bias, fused+rowsum, int32 all "
-                "bit-exact")
-            del a, w, out, rs, ref_out, ref_rs
+                f"bit-exact{also}")
+            del a, w, want, want_rs
             torch.cuda.empty_cache()
     # full-range same-signed planes (fault injection can write any int8)
-    # overflow int32 at w8a8: both routes wrap like the plain version
-    m, (k, n) = LM_BATCH, HYMBA_DECODE_KN["down"]
-    a = planes(torch, gen, 2, m, k, dev, 100, 128)
-    w = planes(torch, gen, 2, k, n, dev, 100, 128)
-    a_s, w_s, bias = scales(torch, gen, m, n, dev)
-    codes = [(p[0].double() + 16 * p[1].double()) for p in (a, w)]
-    if not bool(((codes[0] @ codes[1]).abs() > 2 ** 31).all()):
-        raise AssertionError("the wrap case does not overflow int32")
-    err["pim_matmul_int"] = max(err["pim_matmul_int"], max_err(
-        torch, kern.pim_matmul_cuda(a, w), ref.pim_matmul_ref(a, w)))
-    out, rs = kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias,
-                                         want_rowsum=True)
-    ref_out, ref_rs = ref.pim_matmul_fused_ref(a, w, a_s, w_s, bias,
-                                               want_rowsum=True)
-    err["pim_matmul_fused"] = max(err["pim_matmul_fused"],
-                                  max_err(torch, out, ref_out),
-                                  max_err(torch, rs, ref_rs))
-    log(f"kernel wrap check M={m} K={k} N={n} w8a8, planes in [100, 128) "
-        f"{kern.small_m_grid(m, k, n)}: every accumulator beyond 2^31; "
-        "int32, fused+bias+rowsum bit-exact")
+    # overflow int32 at w8a8: the small-M and the wgmma route wrap like
+    # the plain version
+    for m in (LM_BATCH, 256):
+        k, n = HYMBA_DECODE_KN["down"]
+        a = planes(torch, gen, 2, m, k, dev, 100, 128)
+        w = planes(torch, gen, 2, k, n, dev, 100, 128)
+        a_s, w_s, bias = scales(torch, gen, m, n, dev)
+        codes = [(p[0].double() + 16 * p[1].double()) for p in (a, w)]
+        if not bool(((codes[0] @ codes[1]).abs() > 2 ** 31).all()):
+            raise AssertionError("the wrap case does not overflow int32")
+        record(*fused_variants(torch, kern, ref, a, w, a_s, w_s, bias)[:2])
+        log(f"kernel wrap check M={m} K={k} N={n} w8a8, planes in [100, "
+            f"128) {kern.small_m_grid(m, k, n)}: every accumulator beyond "
+            "2^31; int32, fused, fused+bias, fused+rowsum bit-exact")
+        del a, w, codes
+    # each shift level's own sum overflows int32 inside the tensor cores:
+    # integer wgmma without .satfinite wraps like the plain version
+    m, k, n = LEVEL_OVERFLOW_SHAPE
+    if 127 * 127 * k <= 2 ** 31 or kern.small_m_grid(m, k, n)[0] != "wgmma":
+        raise AssertionError("the level-overflow case does not overflow a "
+                             "level on the wgmma route")
+    for p in (1, 2):
+        a = torch.full((p, m, k), 127, dtype=torch.int8, device=dev)
+        w = torch.full((p, k, n), 127, dtype=torch.int8, device=dev)
+        a_s, w_s, bias = scales(torch, gen, m, n, dev)
+        record(*fused_variants(torch, kern, ref, a, w, a_s, w_s, bias)[:2])
+        log(f"kernel level-overflow check M={m} K={k} N={n} w{4 * p}a{4 * p}"
+            f", every plane 127 {kern.small_m_grid(m, k, n)}: each level's "
+            f"sum {127 * 127 * k * p} beyond 2^31 wraps; int32, fused, "
+            "fused+bias, fused+rowsum bit-exact")
+        del a, w
+    torch.cuda.empty_cache()
     return err
 
 
@@ -558,19 +677,26 @@ def main_path(torch, model, cnn, pim, counters):
 
     logits, lat_ms, launches, peak = serve(
         torch, lambda x: fwd(x, cfg4, plans), requests, counters)
+    routes = route_counts(counters[0], "pim_matmul_fused")
     per_request = len(plans)
     if launches["pim_matmul_fused"] != per_request * REQUESTS or \
             launches["analog_fullscale"] or launches["analog_readout"]:
         raise AssertionError(f"exact path launches {launches}, expected "
                              f"{per_request} fused launches per request "
                              "and no analog launch")
+    want_routes = expected_routes(counters[0], plan_shapes(layers, plans),
+                                  REQUESTS)
+    if routes != want_routes:
+        raise AssertionError(f"exact path routes {routes}, expected "
+                             f"{want_routes}")
     ref = fwd(requests[0], pim.PimConfig(weight_bits=4, act_bits=4,
                                          substrate="exact-torch"), plans)
     if not torch.equal(ref, logits[0]):
         raise AssertionError("exact-cuda logits differ from exact-torch")
     log(f"exact path: {REQUESTS} requests x {BATCH} images, logits "
-        f"({BATCH}, 100) finite, {per_request} fused launches per request, "
-        "w4a4 logits bit-identical to exact-torch")
+        f"({BATCH}, 100) finite, {per_request} fused launches per request "
+        f"(by route over the {REQUESTS} requests: {routes}), w4a4 logits "
+        "bit-identical to exact-torch")
 
     cfg8 = pim.PimConfig(weight_bits=8, act_bits=8, substrate="exact-cuda")
     plans8 = cnn.plan_cnn_weights(params, layers, cfg8)
@@ -589,7 +715,7 @@ def main_path(torch, model, cnn, pim, counters):
         "latency_ms": lat_ms, "latency_ms_median": med,
         "images_per_s": BATCH / (med / 1e3), "program_s": program_s,
         "peak_bytes": peak, "launches": launches,
-        "launches_per_request": per_request,
+        "launches_by_route": routes, "launches_per_request": per_request,
         "shapes": plan_shapes(layers, plans),
         "argmax_agreement_with_float": agree,
     }
@@ -691,7 +817,12 @@ def capture_analog_inputs(aops, run):
 def shape_numbers(torch, dev, kern, ref, shapes, with_bias=True):
     """Per main-path shape: kernel, plain and library times beside the
     bound, at w4a4 (one plane pair), with the main path's bias (the CNN
-    path has one, the LM path none)."""
+    path has one, the LM path none). Rows above the small-M limit are
+    device times (queued behind a spin kernel, so the wrappers' enqueue
+    does not show), the route in turns with the mma.sync yardstick, with
+    both bounds; two library yardsticks: torch._int_mm on the planes as
+    the port keeps them (N-major) and on a K-major copy, the layout
+    cuBLASLt's int8 path takes, each with the epilogue."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
     for (m, k, n), count in sorted(shapes.items(), key=lambda s: -s[0][0]):
@@ -702,47 +833,91 @@ def shape_numbers(torch, dev, kern, ref, shapes, with_bias=True):
             bias = None
         row = {"M": m, "K": k, "N": n, "launches_per_request": count}
         args = (a, w, a_s, w_s, bias)
-        row["fused_ms"] = time_ms(
-            torch, lambda: kern.pim_matmul_fused_cuda(*args))
         row["fused_plain_ms"] = time_ms(
             torch, lambda: ref.pim_matmul_fused_ref(*args))
-        row["int_ms"] = time_ms(torch, lambda: kern.pim_matmul_cuda(a, w))
         row["int_plain_ms"] = time_ms(
             torch, lambda: ref.pim_matmul_ref(a, w))
+        extra = 4 * m + (8 if with_bias else 4) * n
         row["fused_bound_ms"], row["fused_bound_by"] = bound(
-            1, 1, m, k, n, 4, 4 * m + (8 if with_bias else 4) * n)
+            1, 1, m, k, n, 4, extra)
+        row["fused_bound_bytes_ms"] = (m * k + k * n + 4 * m * n + extra) \
+            / HBM_BYTES_PER_S * 1e3
+        row["fused_bound_ops_ms"] = 2.0 * m * k * n / INT8_OPS_PER_S * 1e3
         row["int_bound_ms"], row["int_bound_by"] = bound(1, 1, m, k, n, 4, 0)
         row["route"] = list(kern.small_m_grid(m, k, n))
+        w_k = w.transpose(1, 2).contiguous()   # (1, N, K): K-major
         if row["route"][0] == "small_m":
+            row["fused_ms"] = time_ms(
+                torch, lambda: kern.pim_matmul_fused_cuda(*args))
+            row["int_ms"] = time_ms(torch, lambda: kern.pim_matmul_cuda(a, w))
             small_m_times(torch, dev, kern, gen, row, args)
+            timer = lambda fn: time_ms(torch, fn)
+        else:
+            tiled_times(torch, kern, row, args, w_k)
+            timer = lambda fn: device_ms(torch, lambda i: fn())
         # torch._int_mm takes M > 16 and K, N multiples of 8
         if m > 16 and k % 8 == 0 and n % 8 == 0:
-            lib_fused = (lambda: torch._int_mm(a[0], w[0]).float() * a_s
-                         * w_s) if bias is None else \
-                (lambda: torch._int_mm(a[0], w[0]).float() * a_s * w_s
-                 + bias)
-            max_err(torch, lib_fused(),
-                    kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias))
-            row["fused_library_ms"] = time_ms(torch, lib_fused)
-            row["int_library_ms"] = time_ms(
-                torch, lambda: torch._int_mm(a[0], w[0]))
+            for tag, mat in (("", w[0]), ("_kmajor", w_k[0].t())):
+                lib_int = lambda mat=mat: torch._int_mm(a[0], mat)
+                lib_fused = (lambda f=lib_int: f().float() * a_s * w_s) \
+                    if bias is None else \
+                    (lambda f=lib_int: f().float() * a_s * w_s + bias)
+                max_err(torch, lib_fused(),
+                        kern.pim_matmul_fused_cuda(a, w, a_s, w_s, bias))
+                row[f"fused_library{tag}_ms"] = timer(lib_fused)
+                row[f"int_library{tag}_ms"] = timer(lib_int)
         else:
-            row["fused_library_ms"] = row["int_library_ms"] = None
+            for key in ("fused_library_ms", "int_library_ms",
+                        "fused_library_kmajor_ms", "int_library_kmajor_ms"):
+                row[key] = None
         rows.append(row)
         log(f"shape M={m} K={k} N={n} x{count}/request {row['route']}: "
             f"fused {row['fused_ms']:.4f} ms (bound "
-            f"{row['fused_bound_ms']:.4f} ms by {row['fused_bound_by']}, "
-            f"plain {row['fused_plain_ms']:.4f} ms, library "
-            f"{row['fused_library_ms']}"
-            + (f", tiled yardstick {row['fused_tiled_ms']:.4f} ms; warm in "
+            f"{row['fused_bound_ms']:.4f} ms by {row['fused_bound_by']}: "
+            f"bytes {row['fused_bound_bytes_ms']:.4f}, operations "
+            f"{row['fused_bound_ops_ms']:.4f}; plain "
+            f"{row['fused_plain_ms']:.4f} ms; torch._int_mm + epilogue "
+            f"{row['fused_library_ms']}, on a K-major copy "
+            f"{row['fused_library_kmajor_ms']}"
+            + (f"; tiled yardstick {row['fused_tiled_ms']:.4f} ms; warm in "
                f"L2 {row['fused_warm_ms']:.4f} vs tiled "
                f"{row['fused_tiled_warm_ms']:.4f} ms; host enqueue "
                f"{row['fused_enqueue_ms']:.4f} ms a call"
                if "fused_tiled_ms" in row else "")
+            + (f"; mma.sync yardstick {row['fused_mma_sync_ms']:.4f} ms "
+               "(device time, turns yardstick, route, route, yardstick: "
+               + ", ".join(f"{t:.4f}" for _, t in row["fused_turns_ms"])
+               + ")" if "fused_mma_sync_ms" in row else "")
+            + (f"; on K-major planes (no transposition) "
+               f"{row['fused_kmajor_ms']:.4f} ms"
+               if "fused_kmajor_ms" in row else "")
             + f"), int32 {row['int_ms']:.4f} ms")
-        del a, w, args
+        del a, w, w_k, args
         torch.cuda.empty_cache()
     return rows
+
+
+def tiled_times(torch, kern, row, args, w_k):
+    """Device times of a row above the small-M limit: the route against
+    the mma.sync kernel it replaced in turns (yardstick, route, route,
+    yardstick), int32, and at w4a4 with N > 64 the wgmma route on K-major
+    weight planes (what a second, K-major copy of the planes would save:
+    the transposition)."""
+    a, w = args[0], args[1]
+    calls = {"route": lambda i: kern.pim_matmul_fused_cuda(*args),
+             "mma_sync": lambda i: kern.yardstick_fused(
+                 "pim_matmul_fused_mma_sync", *args)}
+    turns = [(name, device_ms(torch, calls[name]))
+             for name in ("mma_sync", "route", "route", "mma_sync")]
+    row["fused_turns_ms"] = turns
+    row["fused_ms"] = statistics.mean(t for nm, t in turns if nm == "route")
+    row["fused_mma_sync_ms"] = statistics.mean(t for nm, t in turns
+                                               if nm == "mma_sync")
+    row["int_ms"] = device_ms(torch, lambda i: kern.pim_matmul_cuda(a, w))
+    if row["route"][0] == "wgmma" and row["N"] > 64:
+        row["fused_kmajor_ms"] = device_ms(torch, lambda i: (
+            kern.yardstick_fused("pim_matmul_fused_kmajor", args[0], w_k,
+                                 *args[2:])))
 
 
 def small_m_times(torch, dev, kern, gen, row, args):
@@ -845,7 +1020,10 @@ PROFILED = (  # (module, attribute, range name) wrapped while profiling
 )
 
 
-PIM_KERNELS = {"pim_matmul kernel": ("pim_matmul_kernel",)}
+# B1's routes above the small-M limit: the wgmma kernel, and the mma.sync
+# one for ResNet18's fc (N = 100)
+PIM_KERNELS = {"pim_matmul kernel": ("pim_matmul_wgmma_kernel",
+                                     "pim_matmul_kernel")}
 ANALOG_KERNELS = {  # demangled and mangled template names of each pass
     "analog_fullscale kernel": ("analog_kernel<false", "analog_kernelILb0"),
     "analog_readout kernel": ("analog_kernel<true", "analog_kernelILb1"),
@@ -948,10 +1126,23 @@ def profile_request(torch, modules, run, kernels, what, profiled=PROFILED,
 
 
 def kernel_entry(name, prefix, rows, launches, err, source=KERNEL_SOURCE,
-                 per=None, path="resnet18 exact"):
-    """Per-request totals over the path's launches of each shape."""
+                 per=None, path="resnet18 exact", routes=None):
+    """Per-request totals over the path's launches of each shape; for
+    B1 also the mma.sync yardstick's, the K-major library call's and the
+    launches by route."""
     tot = lambda key: sum(r[key] * r["launches_per_request"] for r in rows)
     lib_rows = [r for r in rows if r[f"{prefix}_library_ms"] is not None]
+    extra = {}
+    if any(f"{prefix}_mma_sync_ms" in r for r in rows):
+        extra["yardstick_ms"] = sum(
+            r[f"{prefix}_mma_sync_ms"] * r["launches_per_request"]
+            for r in rows if f"{prefix}_mma_sync_ms" in r)
+    if lib_rows and f"{prefix}_library_kmajor_ms" in lib_rows[0]:
+        extra["library_kmajor_ms"] = sum(
+            r[f"{prefix}_library_kmajor_ms"] * r["launches_per_request"]
+            for r in lib_rows)
+    if routes is not None:
+        extra["launches_by_route"] = routes
     bound_by = Counter()
     for r in rows:
         bound_by[r[f"{prefix}_bound_by"]] += \
@@ -968,8 +1159,12 @@ def kernel_entry(name, prefix, rows, launches, err, source=KERNEL_SOURCE,
         if lib_rows else None,
         "per": per or (
             "one request (batch 128): sum over the 21 main-path layer "
-            "shapes; library_ms covers the shapes torch._int_mm takes "
+            "shapes, device times; library_ms is torch._int_mm on the "
+            "planes as the port keeps them (N-major) with the epilogue, "
+            "library_kmajor_ms the same on a K-major copy, both over the "
+            "shapes torch._int_mm takes "
             f"({sum(r['launches_per_request'] for r in lib_rows)} of 21)"),
+        **extra,
     }
 
 
@@ -1149,24 +1344,98 @@ def lm_plan_shapes(planned):
 
 
 def b1_by_phase(rows):
-    """B1's time per hymba request split into prefill (tiled route) and
-    decode (small-M route, with the tiled yardstick at the same shapes),
-    each the per-shape time times the launches."""
-    split = {"prefill_ms": 0.0, "decode_ms": 0.0, "decode_tiled_ms": 0.0,
-             "decode_bound_ms": 0.0}
+    """B1's time per hymba request split into prefill (the wgmma route,
+    beside the mma.sync yardstick, the wgmma route on K-major planes, the
+    two library calls and the bound) and decode (small-M route, with the
+    tiled yardstick at the same shapes), each the per-shape time times the
+    launches."""
+    keys = ("prefill_ms", "prefill_mma_sync_ms", "prefill_kmajor_ms",
+            "prefill_library_ms", "prefill_library_kmajor_ms",
+            "prefill_bound_ms", "prefill_bound_bytes_ms",
+            "prefill_bound_ops_ms", "decode_ms", "decode_tiled_ms",
+            "decode_bound_ms")
+    split = dict.fromkeys(keys, 0.0)
     for r in rows:
         count = r["launches_per_request"]
         if r["route"][0] == "small_m":
             split["decode_ms"] += r["fused_ms"] * count
             split["decode_tiled_ms"] += r["fused_tiled_ms"] * count
             split["decode_bound_ms"] += r["fused_bound_ms"] * count
-        else:
-            split["prefill_ms"] += r["fused_ms"] * count
-    log(f"B1 per hymba request: decode {split['decode_ms']:.3f} ms on the "
-        f"small-M route (tiled yardstick {split['decode_tiled_ms']:.3f} ms, "
-        f"bound {split['decode_bound_ms']:.3f} ms), prefill "
-        f"{split['prefill_ms']:.3f} ms on the tiled route")
+            continue
+        for key, src in (("prefill_ms", "fused_ms"),
+                         ("prefill_mma_sync_ms", "fused_mma_sync_ms"),
+                         ("prefill_kmajor_ms", "fused_kmajor_ms"),
+                         ("prefill_library_ms", "fused_library_ms"),
+                         ("prefill_library_kmajor_ms",
+                          "fused_library_kmajor_ms"),
+                         ("prefill_bound_ms", "fused_bound_ms"),
+                         ("prefill_bound_bytes_ms", "fused_bound_bytes_ms"),
+                         ("prefill_bound_ops_ms", "fused_bound_ops_ms")):
+            if r.get(src) is not None:  # hymba's prefill rows have all
+                split[key] += r[src] * count
+    log(f"B1 per hymba request: prefill {split['prefill_ms']:.3f} ms on "
+        f"the wgmma route (the mma.sync yardstick "
+        f"{split['prefill_mma_sync_ms']:.3f} ms; on K-major planes, no "
+        f"transposition, {split['prefill_kmajor_ms']:.3f} ms; torch._int_mm"
+        f" + epilogue {split['prefill_library_ms']:.3f} ms, on a K-major "
+        f"copy {split['prefill_library_kmajor_ms']:.3f} ms; bound "
+        f"{split['prefill_bound_ms']:.3f} ms: operations "
+        f"{split['prefill_bound_ops_ms']:.3f}, bytes "
+        f"{split['prefill_bound_bytes_ms']:.3f}); decode "
+        f"{split['decode_ms']:.3f} ms on the small-M route (tiled yardstick"
+        f" {split['decode_tiled_ms']:.3f} ms, bound "
+        f"{split['decode_bound_ms']:.3f} ms)")
     return split
+
+
+# the small-M threshold: hymba's decode shapes at these M, each route that
+# takes them; launches of each shape in one decode step (32 layers)
+THRESHOLD_M = (64, 128)
+DECODE_STEP_COUNT = {"qo": 64, "kv": 64, "gate_up": 64, "down": 32}
+
+
+def threshold_rows(torch, dev, kern):
+    """The small-M route and the two tiled routes at M = 64 and 128 on
+    hymba's decode shapes (the small-M route takes M <= 64 only): device
+    times with cold weights (rotating over copies that exceed the 50 MB
+    L2, as a decode step finds them), each route in turn, and the sum
+    over one decode step's launches. Reported only: SMALL_M_MAX stays."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"rows": [], "per_step_ms": {}}
+    for m in THRESHOLD_M:
+        for lb, (k, n) in HYMBA_DECODE_KN.items():
+            a = planes(torch, gen, 1, m, k, dev)
+            a_s, w_s, _ = scales(torch, gen, m, n, dev)
+            ws = [planes(torch, gen, 1, k, n, dev)
+                  for _ in range(-(-100_000_000 // (k * n)) + 1)]
+            calls = {
+                "wgmma": lambda i: kern.yardstick_fused(
+                    "pim_matmul_fused_tiled", a, ws[i % len(ws)], a_s, w_s),
+                "mma_sync": lambda i: kern.yardstick_fused(
+                    "pim_matmul_fused_mma_sync", a, ws[i % len(ws)], a_s,
+                    w_s)}
+            if m <= kern.SMALL_M_MAX:
+                calls["small_m"] = lambda i: kern.pim_matmul_fused_cuda(
+                    a, ws[i % len(ws)], a_s, w_s)
+            row = {"M": m, "K": k, "N": n, "shape": lb,
+                   "route": kern.small_m_grid(m, k, n)[0],
+                   "ms": {name: device_ms(torch, fn)
+                          for name, fn in calls.items()}}
+            out["rows"].append(row)
+            for name, t in row["ms"].items():
+                key = f"m{m}_{name}"
+                out["per_step_ms"][key] = out["per_step_ms"].get(key, 0.0) \
+                    + t * DECODE_STEP_COUNT[lb]
+            del a, ws
+    torch.cuda.empty_cache()
+    log("B1 small-M threshold, hymba decode shapes, device time with cold "
+        "weights: " + "; ".join(
+            f"M={r['M']} {r['shape']} (wrappers take {r['route']}) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["ms"].items())
+            for r in out["rows"])
+        + "; per decode step of 224 launches: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in out["per_step_ms"].items()))
+    return out
 
 
 def lm_kernel_checks(torch, dev, kern, ref, shapes):
@@ -1239,8 +1508,8 @@ LM_PROFILED = (  # (module, attribute, range name) wrapped while profiling
     ("ssm", "ssm_step", "ssm glue"),
     ("ssm", "_project", "ssm in-projections (float32 GEMMs)"),
 )
-LM_KERNELS = {"pim_matmul kernel, tiled route (prefill)":
-              ("pim_matmul_kernel",),
+LM_KERNELS = {"pim_matmul kernel, wgmma route (prefill)":
+              ("pim_matmul_wgmma_kernel",),
               "pim_matmul kernel, small-M route (decode)":
               ("pim_matmul_small_m_kernel",),
               "ssd_scan kernel": ("ssd_scan_kernel",)}
@@ -1283,7 +1552,8 @@ def capture_decode_step(torch, pops, lm, planned, cfg, tokens):
         pops.pim_matmul_fused_cuda = original
     events = device_events(torch, prof)
     small = [e for e in events if "pim_matmul_small_m_kernel" in e.name]
-    tiled = [e for e in events if "pim_matmul_kernel" in e.name]
+    tiled = [e for e in events if "pim_matmul_kernel" in e.name
+             or "pim_matmul_wgmma_kernel" in e.name]
     if len(seen) != DECODE_STEP_LAUNCHES or any(c[5] for c in seen) or \
             len(small) != DECODE_STEP_LAUNCHES or tiled:
         raise AssertionError(
@@ -1392,6 +1662,8 @@ def hymba_path(torch, dev, mods, counters):
     (generated, _, _, logits), numbers = lm_serve_requests(
         torch, serve_mod, planned, cfg, tokens, counters)
     out.update(numbers)
+    out["launches_by_route"] = route_counts(mods["pim_kern"],
+                                            "pim_matmul_fused")
     per_step = 7 * cfg.num_layers
     want = {"ssd_scan": cfg.num_layers * LM_REQUESTS,
             "pim_matmul_fused": per_step * (1 + LM_GEN) * LM_REQUESTS}
@@ -1400,6 +1672,11 @@ def hymba_path(torch, dev, mods, counters):
             got[k] for k in got if k not in want):
         raise AssertionError(f"hymba launches {got}, expected {want} and "
                              "no other kernel")
+    want_routes = expected_routes(mods["pim_kern"], lm_plan_shapes(planned),
+                                  LM_REQUESTS)
+    if out["launches_by_route"] != want_routes:
+        raise AssertionError(f"hymba routes {out['launches_by_route']}, "
+                             f"expected {want_routes}")
     pre, step = phase_counts(torch, lm, planned, cfg, tokens, counters)
     if pre["ssd_scan"] != cfg.num_layers or step["ssd_scan"] or \
             pre["pim_matmul_fused"] != per_step or \
@@ -1411,7 +1688,8 @@ def hymba_path(torch, dev, mods, counters):
         f"{LM_PROMPT}, {LM_GEN} new tokens, finite logits; launches per "
         f"prefill {pre['ssd_scan']} ssd_scan + {pre['pim_matmul_fused']} "
         f"pim_matmul_fused, per decode step {step['ssd_scan']} + "
-        f"{step['pim_matmul_fused']}, no analog launch")
+        f"{step['pim_matmul_fused']}, no analog launch; pim_matmul_fused "
+        f"by route over the requests {out['launches_by_route']}")
 
     # exact-cuda against exact-torch, both ssd_backend="cuda": the prefill
     # logits (tiled route) and every decode step's (small-M route), on
@@ -1866,6 +2144,12 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
         flash_gap(torch, got, want, FLASH_SUM_REL,
                   FLASH_SUM_REL * want.abs().max().item(), f"{label} sum")
         for got, want in zip((dk, dv), sums))
+    # the head sum's own arithmetic: float32 adds in head order from 0
+    for got, want in zip((dk, dv), fref.flash_attention_bwd_sum_ordered(
+            dk_p, dv_p, kv)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the head sum differs from the "
+                                 "head-order float32 adds")
     row["err"] = err
     del sums
 
@@ -1906,6 +2190,15 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
                 "yardstick_ms", "bound_cuda_core_ms"):
         row[key] = {}
     for name, (kernel_call, plain_call) in calls.items():
+        if name == "flash_attention_bwd_sum":
+            # a streaming pass of tens of microseconds: device time (queued
+            # behind a spin kernel) for the kernel and for its plain
+            # version, torch.sum, which is also the library call
+            row["ms"][name] = device_ms(torch, lambda i: kernel_call())
+            row["plain_ms"][name] = device_ms(torch, lambda i: plain_call())
+            row["bound_ms"][name], row["bound_by"][name] = flash_bound(
+                b, s, h, kv, d, pairs, name)
+            continue
         row["plain_ms"][name] = time_ms(torch, plain_call)
         if name not in TC_PASSES:
             row["ms"][name] = time_ms(torch, kernel_call)
@@ -1954,6 +2247,12 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
             f"pass {gaps['pass']:.3g} (held within {FLASH_F64_REL}), the "
             f"yardstick {gaps['yardstick']:.3g}, the plain version "
             f"{gaps['plain']:.3g}")
+    log(f"flash {label} head sum (device time): "
+        f"{row['ms']['flash_attention_bwd_sum']:.4f} ms against torch.sum's "
+        f"{row['plain_ms']['flash_attention_bwd_sum']:.4f} ms, bound "
+        f"{row['bound_ms']['flash_attention_bwd_sum']:.4f} ms by "
+        f"{row['bound_by']['flash_attention_bwd_sum']}; equal to the "
+        "head-order float32 adds bit for bit")
     log(f"flash {label}: the backward's three passes {row['bwd_ms']:.4f} ms"
         f" against SDPA's backward {row['sdpa_bwd_ms']:.4f} ms (SDPA "
         f"forward {row['sdpa_fwd_ms']:.4f} ms, forward+backward "
@@ -2205,7 +2504,8 @@ def flash_entries(rows, windows, launches, err):
         "flash_attention_bwd_sum": (
             tot("plain_ms", "flash_attention_bwd_sum"),
             "the plain version is torch.sum over each kv head's query "
-            "heads, which is also the library call"),
+            "heads, which is also the library call; kernel and torch.sum "
+            "timed as device time queued behind a spin kernel"),
     }
     sdpa_bwd = sum((rows[lb]["sdpa_fwd_bwd_ms"] - rows[lb]["sdpa_fwd_ms"])
                    * n for lb, n in count.items())
@@ -2316,6 +2616,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, one process per "
         "source)")
+    sass = sass_check(runtime)
 
     err = kernel_phase(torch, dev, kern, ref)
     analog_err, noisy = analog_kernel_phase(torch, dev, akern, aref)
@@ -2331,7 +2632,8 @@ def main() -> int:
                               PIM_KERNELS, "exact")
     rows = shape_numbers(torch, dev, kern, ref, path["shapes"])
     kernels = [kernel_entry("pim_matmul_fused", "fused", rows,
-                            path["launches"], err),
+                            path["launches"], err,
+                            routes=path["launches_by_route"]),
                kernel_entry("pim_matmul_int", "int", rows,
                             path["launches"], err)]
 
@@ -2358,17 +2660,24 @@ def main() -> int:
     lm_rows = shape_numbers(torch, dev, kern, ref, hymba["shapes"],
                             with_bias=False)
     hymba["b1_by_phase"] = b1_by_phase(lm_rows)
+    hymba["b1_threshold"] = threshold_rows(torch, dev, kern)
+    b1 = hymba["b1_by_phase"]
     kernels.append(kernel_entry(
         "pim_matmul_fused", "fused", lm_rows, hymba["launches"],
         {"pim_matmul_fused": lm_err}, path="hymba-1.5b pim",
+        routes=hymba["launches_by_route"],
         per=(f"one hymba-1.5b request (batch {LM_BATCH}, prompt "
              f"{LM_PROMPT}, {LM_GEN} new tokens, w4a4): sum over the "
-             "prefill's launches (tiled route, timed as before) and the "
-             "decode steps' (small-M route, device time with cold weights; "
-             "the tiled yardstick at the same shapes takes "
-             f"{hymba['b1_by_phase']['decode_tiled_ms']:.4f} ms); "
-             "library_ms covers the prefill shapes (torch._int_mm takes "
-             "M > 16)")))
+             f"prefill's launches (wgmma route, device time: "
+             f"{b1['prefill_ms']:.4f} ms, the mma.sync yardstick "
+             f"{b1['prefill_mma_sync_ms']:.4f} ms, bound "
+             f"{b1['prefill_bound_ms']:.4f} ms) and the decode steps' "
+             "(small-M route, device time with cold weights: "
+             f"{b1['decode_ms']:.4f} ms; the tiled yardstick at the same "
+             f"shapes takes {b1['decode_tiled_ms']:.4f} ms); library_ms "
+             "and library_kmajor_ms cover the prefill shapes "
+             "(torch._int_mm takes M > 16); yardstick_ms sums the "
+             "mma.sync yardstick over the prefill shapes only")))
     kernels.append(ssd_entry(hymba, ssd_err))
     entry = serve_entry_phase(torch, serve_mod, configs, counters)
     mamba2 = mamba2_path(torch, dev, mods, counters)
@@ -2385,7 +2694,8 @@ def main() -> int:
         listed = lambda p: dict(p, shapes=[list(s) + [c] for s, c in
                                            p["shapes"].items()])
         opts.json.write_text(json.dumps(
-            {"card": smi, "build_s": build_s, "main_path": listed(path),
+            {"card": smi, "build_s": build_s, "sass": sass,
+             "main_path": listed(path),
              "profile": profile, "shapes": rows,
              "analog_path": listed(apath), "analog_profile": aprofile,
              "analog_shapes": arows, "analog_noisy_checks": noisy,

@@ -1273,24 +1273,51 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // backward, launch 3 (rep > 1 only): dK and dV of each kv head, the sum of
-// its rep query heads' partials in head order; one thread per output.
+// its rep query heads' partials in head order from 0.f, the plain
+// sequential adds bit for bit. A streaming pass, bound by device memory
+// (42 MB at gemma3-1b's training shape): one warp per (b, t, kv) row, the
+// row's base offsets computed once per row in 32-bit and 64-bit integers,
+// lanes on neighbouring 16-byte pieces of the row (4-byte pieces where D %
+// 4 != 0 or a pointer is not 16-byte aligned), and enough warps in flight
+// to fill every SM.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_sum_heads(const float* __restrict__ dk_part,
                     const float* __restrict__ dv_part, float* __restrict__ dk,
-                    float* __restrict__ dv, Geo g) {
-  const size_t n = static_cast<size_t>(g.B) * g.S * g.KV * g.D;
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * kThreads) {
-    // row = (b * S + t) * KV + kv head
-    const size_t c = i % g.D, row = i / g.D;
-    const size_t base = (row / g.KV * g.H + row % g.KV * g.rep) * g.D + c;
-    float sk = 0.f, sv = 0.f;
-    for (int r = 0; r < g.rep; ++r) {
-      sk += dk_part[base + static_cast<size_t>(r) * g.D];
-      sv += dv_part[base + static_cast<size_t>(r) * g.D];
+                    float* __restrict__ dv, Geo g, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarps;
+  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
+       row += stride) {
+    const int bt = row / g.KV, kvh = row - bt * g.KV;  // row = bt * KV + kvh
+    const size_t in = (static_cast<size_t>(bt) * g.H +
+                       static_cast<size_t>(kvh) * g.rep) * g.D;
+    const size_t out = static_cast<size_t>(row) * g.D;
+    if (VEC) {
+      for (int c = 4 * lane; c < g.D; c += 128) {
+        float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+        for (int r = 0; r < g.rep; ++r) {
+          const size_t o = in + static_cast<size_t>(r) * g.D + c;
+          const float4 pk = __ldg(reinterpret_cast<const float4*>(dk_part + o));
+          const float4 pv = __ldg(reinterpret_cast<const float4*>(dv_part + o));
+          sk.x += pk.x; sk.y += pk.y; sk.z += pk.z; sk.w += pk.w;
+          sv.x += pv.x; sv.y += pv.y; sv.z += pv.z; sv.w += pv.w;
+        }
+        *reinterpret_cast<float4*>(dk + out + c) = sk;
+        *reinterpret_cast<float4*>(dv + out + c) = sv;
+      }
+    } else {
+      for (int c = lane; c < g.D; c += 32) {
+        float sk = 0.f, sv = 0.f;
+        for (int r = 0; r < g.rep; ++r) {
+          const size_t o = in + static_cast<size_t>(r) * g.D + c;
+          sk += dk_part[o];
+          sv += dv_part[o];
+        }
+        dk[out + c] = sk;
+        dv[out + c] = sv;
+      }
     }
-    dk[i] = sk;
-    dv[i] = sv;
   }
 }
 
@@ -1537,14 +1564,21 @@ int flash_bwd_sum(const void* dk_part, const void* dv_part, void* dk,
                   void* stream) {
   if (b < 1 || s < 1 || kv < 1 || d < 1 || h % kv)
     return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(b) * s * kv;
+  if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const Geo g = make_geo(b, s, h, kv, d, 0, 0, 0, false);
-  const size_t n = static_cast<size_t>(b) * s * kv * d;
-  const size_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  flash_bwd_sum_heads<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const long long want = (rows + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  const bool vec = d % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(dk_part) |
+                     reinterpret_cast<uintptr_t>(dv_part) |
+                     reinterpret_cast<uintptr_t>(dk) |
+                     reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  auto kernel = vec ? flash_bwd_sum_heads<true> : flash_bwd_sum_heads<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<float*>(dk), static_cast<float*>(dv), g);
+      static_cast<float*>(dk), static_cast<float*>(dv), g,
+      static_cast<int>(rows));
   return cudaGetLastError();
 }
 

@@ -102,3 +102,22 @@ def flash_attention_bwd_sum_ref(dk_part: torch.Tensor, dv_part: torch.Tensor,
     b, s, h, d = dk_part.shape
     return (dk_part.reshape(b, s, kv, h // kv, d).sum(3),
             dv_part.reshape(b, s, kv, h // kv, d).sum(3))
+
+
+def flash_attention_bwd_sum_ordered(dk_part: torch.Tensor,
+                                    dv_part: torch.Tensor, kv: int
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The third backward kernel's own arithmetic: each kv head's dk and
+    dv (b, s, kv, d) as float32 adds of its query heads' partials in head
+    order, starting from 0, so that the kernel equals it bit for bit
+    (``torch.sum`` may add in another order)."""
+    b, s, h, d = dk_part.shape
+    parts = [p.reshape(b, s, kv, h // kv, d) for p in (dk_part, dv_part)]
+    sums = []
+    for part in parts:
+        acc = torch.zeros((b, s, kv, d), dtype=part.dtype,
+                          device=part.device)
+        for r in range(h // kv):
+            acc = acc + part[:, :, :, r]
+        sums.append(acc)
+    return sums[0], sums[1]

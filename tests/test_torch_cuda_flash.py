@@ -419,3 +419,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         kern.flash_attention_bwd_sum_cuda(q, q, 3)
     with pytest.raises(ValueError):          # dv_part of another shape
         kern.flash_attention_bwd_sum_cuda(q, k, 2)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", ((2, 2048, 4, 1, 256), (2, 77, 6, 2, 200),
+                                        (1, 64, 2, 1, 30), (1, 100, 8, 2, 40),
+                                        (3, 5, 4, 4, 16)))
+def test_head_sum_equals_head_order_adds(cuda, b, s, h, kv, d):
+    """The head sum (16-byte pieces where D % 4 == 0, 4-byte ones else)
+    equals float32 adds in head order from 0 bit for bit, and lies within
+    rtol 1e-6 of torch.sum."""
+    gen = torch.Generator(device=cuda).manual_seed(b * s + d)
+    dk_p, dv_p = (torch.randn((b, s, h, d), generator=gen, device=cuda)
+                  for _ in range(2))
+    got = kern.flash_attention_bwd_sum_cuda(dk_p, dv_p, kv)
+    want = ref.flash_attention_bwd_sum_ordered(dk_p, dv_p, kv)
+    sums = ref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)
+    for g, w, t in zip(got, want, sums):
+        assert g.shape == (b, s, kv, d) and torch.equal(g, w)
+        assert (g - t).abs().max().item() <= 1e-6 * t.abs().max().item()

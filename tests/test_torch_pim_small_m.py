@@ -64,13 +64,15 @@ def test_hymba_decode_takes_small_m_route(proj, m):
         assert blocks >= SMS
 
 
-@pytest.mark.parametrize("m,k,n", ((128, 512, 100), (4096, 2048, 1664),
-                                   (4096, 5632, 1664), (65, 2048, 384),
-                                   (131072, 1024, 64), (0, 16, 16)))
-def test_large_m_keeps_tiled_route(m, k, n):
+@pytest.mark.parametrize("m,k,n,route", (
+    (128, 512, 100, "mma_sync"), (4096, 2048, 1664, "wgmma"),
+    (4096, 5632, 1664, "wgmma"), (65, 2048, 384, "wgmma"),
+    (131072, 1024, 64, "wgmma"), (0, 16, 16, "wgmma")))
+def test_large_m_keeps_tiled_route(m, k, n, route):
     """ResNet18's fc (M = 128), its convolutions and every prefill launch
-    stay on the tiled route, and so does an empty M."""
-    assert kern.small_m_grid(m, k, n) == ("tiled", 0, 0)
+    stay on a tiled route, and so does an empty M: the wgmma route where
+    TMA can describe the planes, the mma.sync route for fc's N = 100."""
+    assert kern.small_m_grid(m, k, n) == (route, 0, 0)
 
 
 @pytest.mark.parametrize("m,k,n", (

@@ -52,11 +52,16 @@ package. Phases, each of which raises on failure:
    pass's time, launches, bound and plain-version time;
 7. the ADC ablation and Table II (``repro_torch.benchmarks_impl.table2``)
    on the card, printing their rows;
-8. the SSD scan kernel against its plain version (the chunked form, or
-   the sequential recurrence for a ragged length) and the sequential
-   recurrence, within the tolerance stated at ``SSD_RTOL``, at
-   hymba-1.5b's and mamba2-370m's scan shapes, a ragged one and the
-   long-decay case, with its time at each;
+8. the SSD scan kernel (a chunk-parallel pass on the tensor cores, 3xTF32)
+   against its plain version (the chunked form, or the sequential
+   recurrence for a ragged length) and the sequential recurrence, within
+   the tolerance stated at ``SSD_RTOL``, at hymba-1.5b's and
+   mamba2-370m's scan shapes, a ragged one, the long-decay case and 16
+   chunks (L = 2048); two launches on the same inputs bit for bit; at
+   each shape its device time in turns with the serial CUDA-core kernel
+   it replaced (the C library's yardstick symbol ``ssd_scan_serial``,
+   which no wrapper calls), the plain version's time, and its bytes
+   bound beside both operation bounds (CUDA-core float32 and 3xTF32);
 9. the LM path: hymba-1.5b at full width (32 layers, d_model 1600, random
    weights from seed 0), its float prefill logits through the SSD kernel
    against the chunked route (within ``LM_FLOAT_TOL``), then programmed
@@ -227,6 +232,7 @@ SSD_CHECKS = {
     "mamba2": (256, 512, 64, 128, 128, None),
     "ragged": (400, 600, 64, 16, 128, None),
     "long_decay": (400, 512, 64, 16, 128, 1e-6),
+    "many_chunks": (256, 2048, 64, 128, 128, None),
 }
 SSD_RTOL, SSD_ATOL = 2e-4, 2e-5
 # Float-path prefill logits of the SSD kernel route against the chunked
@@ -1201,12 +1207,15 @@ def ssd_plain(sref, x, a, b, c, chunk):
 
 
 def ssd_bound(bh, l, p, n, chunk):
-    """Least time (ms) of one scan: the bytes of x, a, b, c read once and
+    """Least times (ms) of one scan: the bytes of x, a, b, c read once and
     y and the final state written once, at HBM bandwidth; the float32
     multiply-adds the chunked form needs (the causal half of the two
     Q x Q products, the inter-chunk product and the state update, for the
-    chunk lengths of this L) at the CUDA cores' peak. Returns
-    (ms, "bytes" | "operations")."""
+    chunk lengths of this L) at the CUDA cores' peak, and as 3xTF32 (three
+    TF32 tensor-core products each, at a third of the dense TF32 peak),
+    which is what the kernel runs. Returns (ms, "bytes" | "operations",
+    {"bytes_ms", "cuda_core_ms", "tf32x3_ms"}), ms that of the kernel:
+    the larger of the bytes and the 3xTF32 time."""
     moved = 4 * bh * (2 * l * p + l + 2 * l * n + n * p)
     flops = 0
     for start in range(0, l, chunk):
@@ -1214,9 +1223,12 @@ def ssd_bound(bh, l, p, n, chunk):
         tri = q * (q + 1) // 2
         flops += 2 * (tri * n + tri * p + 2 * q * n * p)
     flops *= bh
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
+    parts = {"bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+             "cuda_core_ms": flops / FP32_OPS_PER_S * 1e3,
+             "tf32x3_ms": flops / (TF32_OPS_PER_S / 3) * 1e3}
+    by_bytes = parts["bytes_ms"] >= parts["tf32x3_ms"]
+    return max(parts["bytes_ms"], parts["tf32x3_ms"]), \
+        ("bytes" if by_bytes else "operations"), parts
 
 
 def ssd_gap(torch, got, want):
@@ -1236,18 +1248,35 @@ def ssd_gap(torch, got, want):
 
 
 def ssd_time_row(torch, skern, sref, label, args, chunk, count):
-    """Kernel, plain and bound times of one scan on ``args``."""
+    """Times of one scan on ``args``: the kernel's device time in turns
+    with the serial CUDA-core kernel it replaced (yardstick, kernel,
+    kernel, yardstick; queued behind a spin kernel, so the ctypes
+    wrappers' enqueue does not show), the plain version's, and the
+    bounds."""
     x = args[0]
     bh, l, p = x.shape
     n = args[2].shape[-1]
     row = {"shape": label, "BH": bh, "L": l, "P": p, "N": n, "chunk": chunk,
            "launches_per_request": count}
-    row["ms"] = time_ms(torch, lambda: skern.ssd_scan_cuda(*args, chunk))
+    calls = {"kernel": lambda i: skern.ssd_scan_cuda(*args, chunk),
+             "serial": lambda i: skern.yardstick_serial(*args, chunk)}
+    turns = [(name, device_ms(torch, calls[name], reps=50))
+             for name in ("serial", "kernel", "kernel", "serial")]
+    row["turns_ms"] = turns
+    row["ms"] = statistics.mean(t for nm, t in turns if nm == "kernel")
+    row["serial_ms"] = statistics.mean(t for nm, t in turns
+                                       if nm == "serial")
     row["plain_ms"] = time_ms(torch, lambda: ssd_plain(sref, *args, chunk))
-    row["bound_ms"], row["bound_by"] = ssd_bound(bh, l, p, n, chunk)
+    row["bound_ms"], row["bound_by"], parts = ssd_bound(bh, l, p, n, chunk)
+    row.update({f"bound_{k}": v for k, v in parts.items()})
     log(f"ssd_scan {label} BH={bh} L={l} P={p} N={n} Q={chunk}: kernel "
-        f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']}, plain {row['plain_ms']:.4f} ms)")
+        f"{row['ms']:.4f} ms device time (turns serial, kernel, kernel, "
+        f"serial: " + ", ".join(f"{t:.4f}" for _, t in turns) + " ms; the "
+        f"serial yardstick {row['serial_ms']:.4f} ms), plain "
+        f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} (bytes {parts['bytes_ms']:.4f} ms, 3xTF32 "
+        f"{parts['tf32x3_ms']:.4f} ms, CUDA-core float32 "
+        f"{parts['cuda_core_ms']:.4f} ms)")
     return row
 
 
@@ -1263,13 +1292,18 @@ def ssd_kernel_phase(torch, dev, skern, sref):
         torch.cuda.synchronize()
         gap = ssd_gap(torch, got, ssd_plain(sref, *args, q))
         gap_seq = ssd_gap(torch, got, sref.ssd_scan_ref(*args))
+        again = skern.ssd_scan_cuda(*args, q)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"ssd check {label}: two launches on the "
+                                 "same inputs differ")
         err = max(err, gap)
         log(f"ssd check {label} BH={bh} L={l} P={p} N={n} Q={q}"
             + (f" a={decay}" if decay else "") + f": within rtol "
             f"{SSD_RTOL}, atol {SSD_ATOL} of the plain version (max |diff| "
-            f"{gap:.3g}) and of the sequential recurrence ({gap_seq:.3g})")
+            f"{gap:.3g}) and of the sequential recurrence ({gap_seq:.3g}); "
+            "a second launch bit for bit")
         rows.append(ssd_time_row(torch, skern, sref, label, args, q, 0))
-        del args, got
+        del args, got, again
         torch.cuda.empty_cache()
     return err, rows
 
@@ -1512,7 +1546,8 @@ LM_KERNELS = {"pim_matmul kernel, wgmma route (prefill)":
               ("pim_matmul_wgmma_kernel",),
               "pim_matmul kernel, small-M route (decode)":
               ("pim_matmul_small_m_kernel",),
-              "ssd_scan kernel": ("ssd_scan_kernel",)}
+              "ssd_scan kernel": ("ssd_chunk_kernel", "ssd_state_kernel",
+                                  "ssd_inter_kernel")}
 # hymba's decode-step replay: 7 projections in each of 32 layers
 DECODE_STEP_LAUNCHES = 7 * 32
 
@@ -1748,7 +1783,7 @@ def hymba_path(torch, dev, mods, counters):
         nested={"ssm glue": ("ssd_scan kernel",
                              "ssm in-projections (float32 GEMMs)")})
     ssd_args, chunk = capture_ssd_inputs(mods["ssd_kern"], run)
-    out["ssd_row"] = ssd_time_row(torch, mods["ssd_kern"], mods["ssd_ref"],
+    out["ssd_row"] = ssd_time_row(torch, mods["ssd_wrap"], mods["ssd_ref"],
                                   "hymba (path inputs)", ssd_args, chunk,
                                   cfg.num_layers)
     out["ssd_row"]["max_abs_err"] = ssd_gap(
@@ -1829,7 +1864,7 @@ def mamba2_path(torch, dev, mods, counters):
     run = lambda: serve_mod.static_loop(params, cfg, tokens, LM_GEN)
     ssd_args, chunk = capture_ssd_inputs(mods["ssd_kern"], run)
     numbers["ssd_row"] = ssd_time_row(
-        torch, mods["ssd_kern"], mods["ssd_ref"], "mamba2 (path inputs)",
+        torch, mods["ssd_wrap"], mods["ssd_ref"], "mamba2 (path inputs)",
         ssd_args, chunk, cfg.num_layers)
     numbers["ssd_row"]["max_abs_err"] = ssd_gap(
         torch, mods["ssd_kern"].ssd_scan_cuda(*ssd_args, chunk),
@@ -1852,12 +1887,19 @@ def ssd_entry(hymba, err):
         "ms": row["ms"] * count, "plain_ms": row["plain_ms"] * count,
         "bound_ms": row["bound_ms"] * count, "bound_by": row["bound_by"],
         "library_ms": None,
+        "bound_cuda_core_ms": row["bound_cuda_core_ms"] * count,
+        "yardstick_ms": row["serial_ms"] * count,
         "per": (f"one hymba-1.5b request (batch {LM_BATCH}, prompt "
                 f"{LM_PROMPT}): {count} launches of BH {row['BH']}, L "
                 f"{row['L']}, P {row['P']}, N {row['N']}, Q {row['chunk']}"
-                ", timed on the path's own inputs; library_ms is null "
-                "because no single PyTorch call computes the chunked SSD "
-                "scan")}
+                ", device time on the path's own inputs; bound_ms is the "
+                "larger of the bytes and the products as 3xTF32 (three "
+                "TF32 tensor-core products each at the dense TF32 peak), "
+                "bound_cuda_core_ms the products as float32 at the CUDA "
+                "cores' peak; yardstick_ms is the serial CUDA-core kernel "
+                "it replaced (ssd_scan_serial), timed in turns with it; "
+                "library_ms is null because no single PyTorch call "
+                "computes the chunked SSD scan")}
 
 
 # ---------------------------------------------------------------------------
@@ -2653,7 +2695,8 @@ def main() -> int:
 
     mods = {"lm": lm, "serve": serve_mod, "pim": pim, "configs": configs,
             "attention": attention, "ssm": ssm, "ssd_kern": sops,
-            "ssd_ref": sref, "pim_ops": pops, "pim_kern": kern,
+            "ssd_wrap": skern, "ssd_ref": sref, "pim_ops": pops,
+            "pim_kern": kern,
             "pim_ref": ref}
     hymba = hymba_path(torch, dev, mods, counters)
     lm_err = lm_kernel_checks(torch, dev, kern, ref, hymba["shapes"])

@@ -22,7 +22,8 @@
 // The reduction index k of one step may be permuted at will, as long as A
 // and B agree: a caller can load the pair k = t, t + 4 from any two rows.
 //
-// Used by the dQ and dK/dV passes of flash_attention.cu.
+// Used by the dQ and dK/dV passes of flash_attention.cu and by the four
+// contractions of ssd_scan.cu.
 #pragma once
 
 #include <stdint.h>

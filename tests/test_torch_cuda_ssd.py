@@ -5,9 +5,12 @@ and nvcc and skips without them; this file imports no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_ssd.py
 
 Tolerance: rtol 2e-4, atol 2e-5 (the JAX package's bound between its
-kernel and its sequential oracle): the kernel sums in float32 FMAs in
-another order than the plain versions. TF32 stays off for the plain
-versions' matmuls (``allow_tf32`` is set False in the fixture).
+kernel and its sequential oracle): the kernel's products are 3xTF32 on the
+tensor cores, float32 sums in another order than the plain versions'
+(the yardstick ``ssd_scan_serial``, float32 FMAs on the CUDA cores, is
+held to the same bound). TF32 stays off for the plain versions' matmuls
+(``allow_tf32`` is set False in the fixture). Two launches on the same
+inputs must agree bit for bit: no atomics, a fixed order of every sum.
 """
 import dataclasses
 
@@ -18,19 +21,24 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_scan_ref
-from repro_torch.kernels.ssd_scan.ssd_scan import LAUNCHES, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ssd_scan import (LAUNCHES, ssd_scan_cuda,
+                                                   yardstick_serial)
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 # (BH, L, P, N, chunk): hymba-1.5b and mamba2-370m at batch 8, prompt
-# 512; a ragged tail; odd and small dimensions; a chunk above 128; each
-# of the kernel's column counts per lane (P up to 32, 64, 128)
+# 512; a ragged tail; odd and small dimensions; a chunk above 128; the
+# yardstick's column counts per lane (P up to 32, 64, 128) and the chunk
+# pass's second column pass (P above 64)
 SHAPES = ((400, 512, 64, 16, 128), (256, 512, 64, 128, 128),
           (16, 600, 64, 16, 128), (3, 97, 5, 3, 20), (2, 33, 1, 1, 7),
           (4, 512, 64, 16, 256), (1, 8, 8, 8, 8), (3, 200, 128, 32, 64),
           (2, 70, 40, 7, 33), (2, 300, 100, 5, 96))
+# 16 chunks (L = 2048) at mamba2's and hymba's widths, and a ragged 17th
+MANY_CHUNKS = ((16, 2048, 64, 128, 128), (32, 2048, 64, 16, 128),
+               (8, 2100, 64, 128, 128))
 
 
 @pytest.fixture
@@ -65,6 +73,39 @@ def test_kernel_matches_plain(cuda, bh, l, p, n, q):
     assert_close(got, ssd_scan_ref(*args))
     if l % q == 0:
         assert_close(got, ssd_chunked_ref(*args, chunk=q))
+
+
+@pytest.mark.parametrize("bh,l,p,n,q", MANY_CHUNKS)
+def test_kernel_matches_plain_over_many_chunks(cuda, bh, l, p, n, q):
+    args = inputs(bh, l, p, n, cuda, seed=l + n + 1)
+    got = ssd_scan_cuda(*args, q)
+    torch.cuda.synchronize()
+    assert_close(got, ssd_scan_ref(*args))
+    if l % q == 0:
+        assert_close(got, ssd_chunked_ref(*args, chunk=q))
+
+
+@pytest.mark.parametrize("bh,l,p,n,q", ((256, 512, 64, 128, 128),
+                                         (400, 600, 64, 16, 128),
+                                         (3, 97, 5, 3, 20)))
+def test_two_launches_agree_bit_for_bit(cuda, bh, l, p, n, q):
+    args = inputs(bh, l, p, n, cuda, seed=3)
+    first = ssd_scan_cuda(*args, q)
+    second = ssd_scan_cuda(*args, q)
+    for f, s in zip(first, second):
+        assert torch.equal(f, s)
+
+
+@pytest.mark.parametrize("bh,l,p,n,q", ((256, 512, 64, 128, 128),
+                                         (16, 600, 64, 16, 128),
+                                         (2, 300, 100, 5, 96)))
+def test_serial_yardstick_matches_plain(cuda, bh, l, p, n, q):
+    args = inputs(bh, l, p, n, cuda, seed=4)
+    before = LAUNCHES["ssd_scan"]
+    got = yardstick_serial(*args, q)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == before
+    assert_close(got, ssd_scan_ref(*args))
 
 
 def test_long_decay_finite(cuda):

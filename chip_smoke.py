@@ -26,9 +26,17 @@ package. Phases, each of which raises on failure:
    2^32, and the wgmma route's level-overflow case (every plane 127, K =
    139,264: each shift level's own sum overflows int32); then both passes of the analog readout kernel (full scale and
    readout, with and without a bias) at w4a4 and w8a8 on main-path shapes
-   and a ragged one, with the (chunk, ADC bits) sweep on the ragged one,
-   bit for bit on the deterministic path, and with noise within the
-   tolerance stated at ``NOISY_SHARE``;
+   and a ragged one, with the (chunk, ADC bits) sweep on the ragged one
+   (chunks 4, 8, 16 on the tensor-core route, 3 and 24 on the CUDA-core
+   route: ``analog_readout.analog_route``), with the activation planes as
+   wide as the weight planes and narrower (Ka < Kw, as the main path
+   passes them), bit for bit on the deterministic path, a second launch
+   bit for bit, the yardstick symbols (``analog_*_simt``, the CUDA-core
+   kernel) equal to the route, and with noise (CUDA-core route) within
+   the tolerance stated at ``NOISY_SHARE``; the tensor-core route's ADC
+   (its quotient against ``__fdiv_rn(s, lsb)``, its code against
+   ``__float2int_rn`` of that) for every integer s in [-2^22, 2^22] at
+   ``ADC_CHECK_BITS`` x ``ADC_CHECK_FULL_SCALES``;
 3. the exact path: full-width ResNet18 (CIFAR-100, 32x32, random weights
    from seed 0) programmed once at w4a4 on ``exact-cuda``, then 4
    requests of 128 synthetic images through ``cnn_forward``; 21 kernel
@@ -43,13 +51,18 @@ package. Phases, each of which raises on failure:
    and on a K-major copy, each + the epilogue);
 5. the analog path: the same network and requests programmed at w4a4
    with a 5-bit ADC on ``analog-cuda``; 21 launches of each analog pass
-   per request and none of the PIM matmul kernel, logits bit-identical
-   to the plain ``analog`` substrate on the card; one noisy request
-   (CPU generator of seed 9, the cell model's implied sigma) that is
-   finite, differs from the deterministic one and repeats bit for bit;
+   per request, all on the tensor-core route, and none of the PIM matmul
+   kernel, logits bit-identical to the plain ``analog`` substrate on the
+   card; one noisy request (CPU generator of seed 9, the cell model's
+   implied sigma) that is finite, differs from the deterministic one and
+   repeats bit for bit;
 6. numbers of the analog path: latency, a profile with both analog
-   kernels named, and per shape, on the inputs the path gave it, each
-   pass's time, launches, bound and plain-version time;
+   kernels named, and per shape, on the inputs the path gave it (the
+   activation planes unpadded), each pass's device time in turns with
+   its yardstick (the CUDA-core kernel) on activation planes padded to
+   Kw, the yardstick on the unpadded planes, launches, bound,
+   plain-version time, the share of zero chunk sums and of chunks never
+   formed (wholly past Ka), and the ADC check at the shape's own lsb;
 7. the ADC ablation and Table II (``repro_torch.benchmarks_impl.table2``)
    on the card, printing their rows;
 8. the SSD scan kernel (a chunk-parallel pass on the tensor cores, 3xTF32)
@@ -204,9 +217,27 @@ REPLACES = {
     "analog_readout":
         "src/repro/kernels/analog_readout/analog_readout.py:322",
 }
-# the analog kernels take K in whole WDM chunks (336 = 21 * 16)
-ANALOG_CHECK_SHAPES = {**CNN_CHECK_SHAPES, "ragged": (1000, 336, 77)}
-ANALOG_SWEEP = ((4, 3), (8, 5), (16, 8))   # (chunk, adc_bits) on "ragged"
+# (M, Ka, Kw, N): the analog kernels take the weights' K in whole WDM
+# chunks (336 = 21 * 16); the activation planes as wide or narrower, as
+# the main path passes them (stage 0: 576 of 1024; the stem: 27 of 32)
+ANALOG_CHECK_SHAPES = {
+    **{lb: (m, k, k, n) for lb, (m, k, n) in CNN_CHECK_SHAPES.items()
+       if lb != "ragged"},
+    "ragged": (1000, 336, 336, 77),
+    "stage0_unpadded": (131072, 576, 1024, 64),
+    "stem_unpadded": (131072, 27, 32, 64),
+    "ragged_unpadded": (1000, 333, 336, 77),
+}
+# (chunk, adc_bits) on the ragged shapes: the tensor-core route's three
+# chunks, two the CUDA-core route takes, and a 24-bit ADC (the tensor-core
+# route's blocks then divide: |s / lsb| may pass 2^21)
+ANALOG_SWEEP = ((4, 3), (8, 5), (16, 8), (3, 5), (24, 6), (8, 24))
+# the ADC check: every integer chunk sum in [-2^22, 2^22] at these widths
+# and full scales (1e-6 is the floor; 262144 = 16 * 128 * 128, the
+# largest |s| of int8 planes at chunk 16), and at the main path's lsb
+ADC_CHECK_BITS = (2, 3, 5, 8, 12, 16, 24)
+ADC_CHECK_FULL_SCALES = (1e-6, 1.0, 7.0, 225.0, 1000.0, 1800.0, 3600.0,
+                         262144.0)
 NOISE_SIGMA = 0.05
 NOISE_SEED = 1234
 # Noisy kernel checks: the kernel and the plain version evaluate the same
@@ -556,39 +587,77 @@ def kernel_phase(torch, dev, kern, ref):
 
 def analog_kernel_phase(torch, dev, akern, aref):
     """Both analog passes against their plain versions: bit for bit on
-    the deterministic path, within the NOISY_SHARE rule with noise."""
+    the deterministic path (on the route ``analog_route`` gives, with the
+    activation planes as wide as the weights or narrower; the yardstick
+    symbols and a second launch bit for bit too), within the NOISY_SHARE
+    rule with noise; then the tensor-core route's ADC against the IEEE
+    divide."""
+    import torch.nn.functional as F
     err = {"analog_fullscale": 0.0, "analog_readout": 0.0}
     noisy = []
     gen = torch.Generator(device=dev).manual_seed(3)
-    for label, (m, k, n) in ANALOG_CHECK_SHAPES.items():
+    for label, (m, ka, k, n) in ANALOG_CHECK_SHAPES.items():
         for pa, pw in ((1, 1), (2, 2)):
-            a = planes(torch, gen, pa, m, k, dev)
+            a = planes(torch, gen, pa, m, ka, dev)
             w = planes(torch, gen, pw, k, n, dev)
+            a_pad = F.pad(a, (0, k - ka))
             a_s, w_s, bias = scales(torch, gen, m, n, dev)
-            sweep = ANALOG_SWEEP if label == "ragged" else ((8, 5),)
+            sweep = ANALOG_SWEEP if label.startswith("ragged") else ((8, 5),)
             for chunk, adc in sweep:
                 fs = akern.analog_fullscale_cuda(a, w, chunk=chunk)
-                ref_fs = aref.analog_fullscale_ref(a, w, chunk).reshape(1)
-                err["analog_fullscale"] = max(err["analog_fullscale"],
-                                              max_err(torch, fs, ref_fs))
+                ref_fs = aref.analog_fullscale_ref(a_pad, w, chunk).reshape(1)
+                err["analog_fullscale"] = max(
+                    err["analog_fullscale"], max_err(torch, fs, ref_fs),
+                    max_err(torch, akern.yardstick_fullscale(a, w,
+                                                             chunk=chunk),
+                            ref_fs))
                 for b in (None, bias):
-                    got = akern.analog_readout_cuda(
-                        a, w, a_s, w_s, fs, chunk=chunk, adc_bits=adc,
-                        bias=b)
-                    want = aref.analog_readout_ref(a, w, a_s, w_s, ref_fs,
+                    kw = dict(chunk=chunk, adc_bits=adc, bias=b)
+                    got = akern.analog_readout_cuda(a, w, a_s, w_s, fs, **kw)
+                    want = aref.analog_readout_ref(a_pad, w, a_s, w_s, ref_fs,
                                                    chunk, adc, bias=b)
-                    err["analog_readout"] = max(err["analog_readout"],
-                                                max_err(torch, got, want))
-                log(f"analog check {label} M={m} K={k} N={n} "
-                    f"w{4 * pw}a{4 * pa} chunk={chunk} adc={adc}b: full "
-                    "scale, readout, readout+bias all bit-exact")
+                    again = akern.analog_readout_cuda(a, w, a_s, w_s, fs,
+                                                      **kw)
+                    yard = akern.yardstick_readout(a, w, a_s, w_s, fs, **kw)
+                    err["analog_readout"] = max(
+                        err["analog_readout"], max_err(torch, got, want),
+                        max_err(torch, again, want),
+                        max_err(torch, yard, want))
+                log(f"analog check {label} M={m} Ka={ka} Kw={k} N={n} "
+                    f"w{4 * pw}a{4 * pa} chunk={chunk} adc={adc}b "
+                    f"{akern.analog_route(chunk, False)}: full scale, "
+                    "readout, readout+bias, a second launch and the "
+                    "yardstick all bit-exact")
             if label in ("ragged", "stage3") and (label, pa) != ("stage3",
                                                                  2):
                 noisy.append(noisy_check(torch, akern, aref, label, a, w,
                                          a_s, w_s, pa + pw - 1))
-            del a, w
+            del a, w, a_pad
             torch.cuda.empty_cache()
-    return err, noisy
+    adc_rows = [adc_check(akern, f"{bits}b fs={fs:g}",
+                          float(torch.tensor(fs, dtype=torch.float32) *
+                                torch.tensor(aref.inv_half_levels(bits),
+                                             dtype=torch.float32)))
+                for bits in ADC_CHECK_BITS for fs in ADC_CHECK_FULL_SCALES]
+    log(f"ADC check: {len(adc_rows)} lsb values x every integer s in "
+        f"[-2^22, 2^22]: no quotient differs from __fdiv_rn and no code "
+        f"from __float2int_rn(__fdiv_rn) ("
+        f"{sum(r['rounded'] for r in adc_rows)} of "
+        f"{sum(r['sums'] for r in adc_rows)} in the magic add's range)")
+    return err, noisy, adc_rows
+
+
+def adc_check(akern, label, lsb):
+    """The tensor-core route's ADC at one lsb, every integer chunk sum in
+    [-2^22, 2^22]; raises on any quotient or code that differs from the
+    divide's."""
+    bad, rounded = akern.adc_check_cuda(lsb, -(1 << 22), 1 << 22)
+    row = {"lsb": lsb, "label": label, "mismatches": bad,
+           "rounded": rounded, "sums": (1 << 23) + 1}
+    if bad:
+        raise AssertionError(f"the tensor-core route's ADC differs from "
+                             f"__fdiv_rn + rint: {row}")
+    return row
 
 
 def noisy_check(torch, akern, aref, label, a, w, a_s, w_s, levels):
@@ -751,13 +820,19 @@ def analog_path(torch, model, cnn, pim, counters, exact_logits):
     fwd = lambda x, c=cfg, rng=None: cnn.cnn_forward(
         params, layers, x, pim=c, rng=rng, plans=plans)
     logits, lat_ms, launches, peak = serve(torch, fwd, requests, counters)
+    akern = counters[1]
+    routes = {name: route_counts(akern, name)
+              for name in ("analog_fullscale", "analog_readout")}
     per_request = len(plans)
+    want_routes = {"mma_sync": per_request * REQUESTS}
     if launches["analog_fullscale"] != per_request * REQUESTS or \
             launches["analog_readout"] != per_request * REQUESTS or \
-            launches["pim_matmul_fused"] or launches["pim_matmul_int"]:
-        raise AssertionError(f"analog path launches {launches}, expected "
-                             f"{per_request} of each analog pass per "
-                             "request and no PIM matmul launch")
+            launches["pim_matmul_fused"] or launches["pim_matmul_int"] or \
+            any(r != want_routes for r in routes.values()):
+        raise AssertionError(f"analog path launches {launches} by route "
+                             f"{routes}, expected {per_request} of each "
+                             "analog pass per request, all on the "
+                             "tensor-core route, and no PIM matmul launch")
     plain = fwd(requests[0], pim.PimConfig(weight_bits=4, act_bits=4,
                                            adc_bits=5, substrate="analog"))
     if not torch.equal(plain, logits[0]):
@@ -775,7 +850,8 @@ def analog_path(torch, model, cnn, pim, counters, exact_logits):
     agree_noisy = (noisy.argmax(1) == exact_logits.argmax(1)).float().mean()
     log(f"analog path: {REQUESTS} requests x {BATCH} images, logits "
         f"({BATCH}, 100) finite, {per_request} analog_fullscale + "
-        f"{per_request} analog_readout launches per request and no "
+        f"{per_request} analog_readout launches per request (by route "
+        f"over the {REQUESTS} requests: {routes['analog_readout']}) and no "
         "pim_matmul launch, logits bit-identical to analog; the noisy "
         "request (seed 9) repeats bit for bit; argmax agrees with "
         f"exact-cuda on {agree.item():.3f} of images deterministic, "
@@ -784,7 +860,8 @@ def analog_path(torch, model, cnn, pim, counters, exact_logits):
     numbers = {
         "latency_ms": lat_ms, "latency_ms_median": med,
         "images_per_s": BATCH / (med / 1e3), "peak_bytes": peak,
-        "launches": launches, "launches_per_request": per_request,
+        "launches": launches, "launches_by_route": routes,
+        "launches_per_request": per_request,
         "shapes": analog_shapes(layers, plans),
         "argmax_agreement_with_exact": agree.item(),
         "argmax_agreement_with_exact_noisy": agree_noisy.item(),
@@ -801,14 +878,15 @@ def analog_shapes(layers, plans):
 
 def capture_analog_inputs(aops, run):
     """The readout pass's inputs at each analog main-path shape, from one
-    request, keyed like :func:`analog_shapes`: the per-shape numbers time
-    the kernels on the data the main path gives them, whose share of zero
-    chunk sums (ReLU zeros, padded K) the readout's time depends on."""
+    request, keyed like :func:`analog_shapes` (the weights' K): the
+    per-shape numbers time the kernels on the data the main path gives
+    them (the activation planes unpadded, K = Ka), whose share of zero
+    chunk sums (ReLU zeros) the CUDA-core yardstick's time depends on."""
     seen = {}
     original = aops.analog_readout_cuda
 
     def recording(a, w, a_s, w_s, fs, *, chunk, **kw):
-        seen.setdefault((a.shape[1], a.shape[2], w.shape[2], chunk),
+        seen.setdefault((a.shape[1], w.shape[1], w.shape[2], chunk),
                         (a, w, a_s, w_s, kw.get("bias")))
         return original(a, w, a_s, w_s, fs, chunk=chunk, **kw)
 
@@ -953,17 +1031,20 @@ def small_m_times(torch, dev, kern, gen, row, args):
                                             if nm == "tiled")
 
 
-def analog_bound(pa, pw, m, k, n, conversions, out_bytes, extra_bytes):
+def analog_bound(pa, pw, m, ka, kw, n, chunk, conversions, out_bytes,
+                 extra_bytes):
     """Least time (ms) for one analog pass, the largest of three floors:
-    each input read once and each output written once at HBM bandwidth;
-    the 2*Pa*Pw*M*K*N multiply-adds at the int8 tensor-core peak; and one
+    each input read once (the activation planes Ka wide, the weight
+    planes up to Ka rounded up to a chunk, where every later chunk sum is
+    zero) and each output written once at HBM bandwidth; the
+    2*Pa*Pw*M*Ka*N multiply-adds at the int8 tensor-core peak; and one
     CUDA-core operation per chunk sum the pass must range or convert at
-    the float32 non-tensor peak. It is a floor: a conversion is an IEEE
-    divide and a rounding, several operations, and the chunk sums are
-    shorter than any int8 MMA. Returns (ms, "bytes" | "operations")."""
-    moved = pa * m * k + pw * k * n + out_bytes * m * n + extra_bytes
+    the float32 non-tensor peak. It is a floor: a conversion is several
+    operations. Returns (ms, "bytes" | "operations")."""
+    kw_read = min(kw, -(-ka // chunk) * chunk)
+    moved = pa * m * ka + pw * kw_read * n + out_bytes * m * n + extra_bytes
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = max(2.0 * pa * pw * m * k * n / INT8_OPS_PER_S,
+    t_ops = max(2.0 * pa * pw * m * ka * n / INT8_OPS_PER_S,
                 conversions / FP32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
@@ -971,51 +1052,90 @@ def analog_bound(pa, pw, m, k, n, conversions, out_bytes, extra_bytes):
 
 def analog_shape_numbers(torch, akern, aref, shapes, inputs):
     """Per analog main-path shape, on the readout inputs the main path
-    gave it (``inputs``, w4a4, 5-bit ADC, the layer's bias): each pass's
-    time and its plain version's beside the bound. The ranging pass
-    visits every chunk sum; the readout pass converts only the nonzero
-    ones (a zero sum has code 0), counted on these inputs."""
+    gave it (``inputs``: w4a4, 5-bit ADC, the layer's bias, the
+    activation planes unpadded): each pass's device time (queued behind a
+    spin kernel) in turns with its yardstick, the CUDA-core kernel, on the
+    activation planes padded to Kw (yardstick, route, route, yardstick);
+    the yardstick on the unpadded planes; the plain versions' times; the
+    bound. The ranging pass must form every chunk sum up to Ka; the
+    readout pass must convert only the nonzero ones, since a zero sum's
+    code is 0. The ADC check runs at the shape's lsb."""
+    import torch.nn.functional as F
     rows = []
     for (m, k, n, chunk), count in sorted(shapes.items(),
                                           key=lambda s: -s[0][0]):
         a, w, a_s, w_s, bias = inputs[(m, k, n, chunk)]
-        pa, pw = a.shape[0], w.shape[0]
+        pa, pw, ka = a.shape[0], w.shape[0], a.shape[2]
+        a_pad = F.pad(a, (0, k - ka))
         fs = akern.analog_fullscale_cuda(a, w, chunk=chunk)
         nonzero = sum(int(torch.count_nonzero(sums)) for _, _, sums in
-                      aref.chunk_sum_blocks(a, w, chunk))
-        row = {"M": m, "K": k, "N": n, "chunk": chunk, "planes": [pa, pw],
-               "launches_per_request": count,
+                      aref.chunk_sum_blocks(a_pad, w, chunk))
+        needed = pa * pw * m * n * (-(-ka // chunk))
+        route = akern.analog_route(chunk, False)
+        # chunks a kernel forms: up to Ka in whole k16 steps on the
+        # tensor-core route, in whole chunks on the CUDA-core one
+        formed = -(-ka // chunk) if route == "simt" else \
+            min(k, -(-ka // 16) * 16) // chunk
+        row = {"M": m, "Ka": ka, "K": k, "N": n, "chunk": chunk,
+               "planes": [pa, pw], "launches_per_request": count,
+               "route": route,
                "zero_chunk_sum_share": 1.0 - nonzero / (pa * pw * m * n
-                                                        * (k // chunk))}
-        row["fullscale_ms"] = time_ms(
-            torch, lambda: akern.analog_fullscale_cuda(a, w, chunk=chunk),
-            budget_ms=150.0)
+                                                        * (k // chunk)),
+               "chunk_sums_needed": needed, "chunk_sums_nonzero": nonzero,
+               "skipped_chunk_share": 1.0 - formed / (k // chunk)}
+        row["adc_check"] = adc_check(
+            akern, f"shape M={m} Kw={k} N={n}",
+            float(aref.lsb_from_fullscale(fs, 5)))
+        passes = {
+            "fullscale": (
+                lambda i: akern.analog_fullscale_cuda(a, w, chunk=chunk),
+                lambda i: akern.yardstick_fullscale(a_pad, w, chunk=chunk),
+                lambda i: akern.yardstick_fullscale(a, w, chunk=chunk)),
+            "readout": (
+                lambda i: akern.analog_readout_cuda(
+                    a, w, a_s, w_s, fs, chunk=chunk, adc_bits=5, bias=bias),
+                lambda i: akern.yardstick_readout(
+                    a_pad, w, a_s, w_s, fs, chunk=chunk, adc_bits=5,
+                    bias=bias),
+                lambda i: akern.yardstick_readout(
+                    a, w, a_s, w_s, fs, chunk=chunk, adc_bits=5,
+                    bias=bias))}
+        for name, (route, yard, yard_unpadded) in passes.items():
+            calls = {"route": route, "yardstick": yard}
+            turns = [(nm, device_ms(torch, calls[nm], reps=50))
+                     for nm in ("yardstick", "route", "route", "yardstick")]
+            row[f"{name}_turns_ms"] = turns
+            row[f"{name}_ms"] = statistics.mean(t for nm, t in turns
+                                                if nm == "route")
+            row[f"{name}_yardstick_ms"] = statistics.mean(
+                t for nm, t in turns if nm == "yardstick")
+            row[f"{name}_yardstick_unpadded_ms"] = device_ms(
+                torch, yard_unpadded, reps=50)
         row["fullscale_plain_ms"] = time_ms(
-            torch, lambda: aref.analog_fullscale_ref(a, w, chunk),
-            budget_ms=150.0)
-        row["readout_ms"] = time_ms(
-            torch, lambda: akern.analog_readout_cuda(
-                a, w, a_s, w_s, fs, chunk=chunk, adc_bits=5, bias=bias),
+            torch, lambda: aref.analog_fullscale_ref(a_pad, w, chunk),
             budget_ms=150.0)
         row["readout_plain_ms"] = time_ms(
             torch, lambda: aref.analog_readout_ref(
-                a, w, a_s, w_s, fs, chunk, 5, bias=bias), budget_ms=150.0)
+                a_pad, w, a_s, w_s, fs, chunk, 5, bias=bias), budget_ms=150.0)
         row["fullscale_bound_ms"], row["fullscale_bound_by"] = analog_bound(
-            pa, pw, m, k, n, pa * pw * m * n * (k // chunk), 0, 4)
+            pa, pw, m, ka, k, n, chunk, needed, 0, 4)
         row["readout_bound_ms"], row["readout_bound_by"] = analog_bound(
-            pa, pw, m, k, n, nonzero, 4, 4 * m + 8 * n + 4)
+            pa, pw, m, ka, k, n, chunk, nonzero, 4, 4 * m + 8 * n + 4)
         row["fullscale_library_ms"] = row["readout_library_ms"] = None
         rows.append(row)
-        log(f"analog shape M={m} K={k} N={n} chunk={chunk} x{count}/request"
-            f" (zero chunk sums {row['zero_chunk_sum_share']:.3f}):"
-            f" full scale {row['fullscale_ms']:.4f} ms (bound "
-            f"{row['fullscale_bound_ms']:.4f} ms by "
-            f"{row['fullscale_bound_by']}, plain "
-            f"{row['fullscale_plain_ms']:.4f} ms), readout "
-            f"{row['readout_ms']:.4f} ms (bound "
-            f"{row['readout_bound_ms']:.4f} ms by "
-            f"{row['readout_bound_by']}, plain "
-            f"{row['readout_plain_ms']:.4f} ms)")
+        log(f"analog shape M={m} Ka={ka} Kw={k} N={n} chunk={chunk} "
+            f"x{count}/request {row['route']} (zero chunk sums "
+            f"{row['zero_chunk_sum_share']:.3f}, chunks past Ka never formed "
+            f"{row['skipped_chunk_share']:.3f}):"
+            + "".join(
+                f" {nm} {row[f'{nm}_ms']:.4f} ms (yardstick on padded "
+                f"planes {row[f'{nm}_yardstick_ms']:.4f}, turns "
+                + ", ".join(f"{t:.4f}" for _, t in row[f"{nm}_turns_ms"])
+                + f"; on unpadded {row[f'{nm}_yardstick_unpadded_ms']:.4f};"
+                f" bound {row[f'{nm}_bound_ms']:.4f} by "
+                f"{row[f'{nm}_bound_by']}; plain {row[f'{nm}_plain_ms']:.4f})"
+                for nm in ("fullscale", "readout")))
+        del a_pad
     return rows
 
 
@@ -1031,8 +1151,10 @@ PROFILED = (  # (module, attribute, range name) wrapped while profiling
 PIM_KERNELS = {"pim_matmul kernel": ("pim_matmul_wgmma_kernel",
                                      "pim_matmul_kernel")}
 ANALOG_KERNELS = {  # demangled and mangled template names of each pass
-    "analog_fullscale kernel": ("analog_kernel<false", "analog_kernelILb0"),
-    "analog_readout kernel": ("analog_kernel<true", "analog_kernelILb1"),
+    "analog_fullscale kernel": ("analog_mma_kernel<false",
+                                "analog_mma_kernelILb0"),
+    "analog_readout kernel": ("analog_mma_kernel<true",
+                              "analog_mma_kernelILb1"),
 }
 
 
@@ -1176,10 +1298,36 @@ def kernel_entry(name, prefix, rows, launches, err, source=KERNEL_SOURCE,
 
 ANALOG_PER = ("one analog-path request (batch 128, w4a4, 5-bit ADC): sum "
               "over the 21 layer shapes, each timed on the inputs the "
-              "path gave it; library_ms is null because no "
-              "single PyTorch call computes the per-chunk ADC readout chain "
-              "(chunk sums, shared full scale, per-chunk rounding, code "
-              "sums)")
+              "path gave it (device time, queued behind a spin kernel); "
+              "yardstick_ms is the CUDA-core kernel the tensor-core route "
+              "replaced (the library's analog_*_simt symbol, which no "
+              "wrapper calls) on the activation planes padded to Kw, "
+              "timed in turns with the route; "
+              "yardstick_unpadded_ms the same kernel on the unpadded "
+              "planes; bound_ms reads the weight planes up to Ka rounded "
+              "up to a chunk and counts one conversion per nonzero chunk "
+              "sum for the readout pass, one per chunk sum up to Ka for "
+              "the ranging pass; library_ms is null because no single PyTorch call "
+              "computes the per-chunk ADC readout chain (chunk sums, shared "
+              "full scale, per-chunk rounding, code sums)")
+
+
+def analog_entries(rows, apath, err):
+    """The two analog passes' lines: B1's fields, plus each pass's
+    yardsticks and launches by route."""
+    entries = []
+    for name, prefix in (("analog_fullscale", "fullscale"),
+                         ("analog_readout", "readout")):
+        entry = kernel_entry(name, prefix, rows, apath["launches"], err,
+                             source=ANALOG_SOURCE, per=ANALOG_PER,
+                             path="resnet18 analog",
+                             routes=apath["launches_by_route"][name])
+        for key in ("yardstick", "yardstick_unpadded"):
+            entry[f"{key}_ms"] = sum(r[f"{prefix}_{key}_ms"]
+                                     * r["launches_per_request"]
+                                     for r in rows)
+        entries.append(entry)
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2661,7 +2809,8 @@ def main() -> int:
     sass = sass_check(runtime)
 
     err = kernel_phase(torch, dev, kern, ref)
-    analog_err, noisy = analog_kernel_phase(torch, dev, akern, aref)
+    analog_err, noisy, adc_rows = analog_kernel_phase(torch, dev, akern,
+                                                      aref)
     err.update(analog_err)
     ssd_err, ssd_rows = ssd_kernel_phase(torch, dev, skern, sref)
     flash_err, flash_rows = flash_kernel_phase(torch, dev, fkern, fref)
@@ -2686,11 +2835,7 @@ def main() -> int:
                                ANALOG_KERNELS, "analog")
     arows = analog_shape_numbers(torch, akern, aref, apath["shapes"],
                                  capture_analog_inputs(aops, run_analog))
-    kernels += [kernel_entry(name, prefix, arows, apath["launches"], err,
-                             source=ANALOG_SOURCE, per=ANALOG_PER,
-                             path="resnet18 analog")
-                for name, prefix in (("analog_fullscale", "fullscale"),
-                                     ("analog_readout", "readout"))]
+    kernels += analog_entries(arows, apath, err)
     studies = study_phase(table2)
 
     mods = {"lm": lm, "serve": serve_mod, "pim": pim, "configs": configs,
@@ -2742,6 +2887,7 @@ def main() -> int:
              "profile": profile, "shapes": rows,
              "analog_path": listed(apath), "analog_profile": aprofile,
              "analog_shapes": arows, "analog_noisy_checks": noisy,
+             "adc_checks": adc_rows,
              "studies": studies, "ssd_shapes": ssd_rows,
              "hymba": listed(hymba), "hymba_shapes": lm_rows,
              "serve_entry": entry, "mamba2": mamba2,

@@ -298,8 +298,9 @@ def emulate_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
 # shift-and-add -> dequant epilogue) lives in kernels/analog_readout/:
 # ``ref.py`` is the plain version the ``analog`` substrate runs, and the
 # two-pass CUDA kernel behind ``analog-cuda`` equals it bit for bit on the
-# deterministic path. Both consume the plans' pre-padded layout (K lands
-# on a WDM-chunk boundary at programming time).
+# deterministic path. Both take the plans' pre-padded weight planes (K
+# lands on a WDM-chunk boundary at programming time); the kernels take the
+# activation planes unpadded, the plain version padded to the same K.
 def _resolve_analog_sigma(cfg: PimConfig, rng: Optional[torch.Generator]
                           ) -> float:
     """The transmission-noise sigma an analog substrate models.
@@ -329,8 +330,8 @@ def _resolve_analog_sigma(cfg: PimConfig, rng: Optional[torch.Generator]
 
 def _analog_inputs(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
                    rng: Optional[torch.Generator]):
-    """Shared analog-substrate prep: dynamic activation quantization,
-    act-plane padding to the plan's layout, the WDM chunk length, the
+    """Shared analog-substrate prep: dynamic activation quantization (the
+    planes unpadded, (Pa, M, K)), the WDM chunk length, the
     effective noise sigma (0 without an rng) and the noise seed, a host
     int drawn from ``rng`` (a CPU ``torch.Generator``; no device sync)."""
     a_q, a_planes = _quantize_activations(x2, cfg)
@@ -341,8 +342,7 @@ def _analog_inputs(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
     if rng is not None:
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng,
                                  device="cpu"))
-    return (a_q, _pad_act_planes(a_planes, plan), chunk,
-            sigma if rng is not None else 0.0, seed)
+    return a_q, a_planes, chunk, sigma if rng is not None else 0.0, seed
 
 
 def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
@@ -353,8 +353,9 @@ def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
     slice."""
     a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng)
     out = analog_readout_fused_ref(
-        a_planes, plan.planes, a_q.scale, plan.padded_scale, chunk,
-        cfg.adc_bits, sigma=sigma, seed=seed)[:, :plan.n]
+        _pad_act_planes(a_planes, plan), plan.planes, a_q.scale,
+        plan.padded_scale, chunk, cfg.adc_bits, sigma=sigma,
+        seed=seed)[:, :plan.n]
     if bias is not None:
         out = out + bias.to(torch.float32).reshape(1, -1)
     return out
@@ -367,8 +368,10 @@ def analog_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
     """``analog-cuda`` substrate: the two-pass hand-written kernel, bias
     fused (counterpart of ``analog_pallas_matmul2d``). Bit-identical to
     :func:`analog_matmul2d` for the same rng state, with or without a
-    bias, up to the noise normals' transcendental ulps. On CPU tensors
-    the same call runs the plain version."""
+    bias, up to the noise normals' transcendental ulps. The activation
+    planes go in unpadded: the kernels take them zero beyond their K, so
+    the plan's K padding costs no copy and no work. On CPU tensors the
+    same call runs the plain version."""
     a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng)
     out = analog_ops.analog_matmul_fused(
         a_planes, plan.planes, a_q.scale, plan.padded_scale, seed,

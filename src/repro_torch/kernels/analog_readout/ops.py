@@ -4,10 +4,12 @@
 ``analog_matmul_fused`` is the planned-weight entry point behind the
 engine's ``analog-cuda`` substrate. Dispatch is by device: CUDA tensors
 run the ranging pass and the readout pass back to back, with the full
-scale kept on the card between them; CPU tensors take the plain version
-in :mod:`.ref`. There is no fallback. Model code programs a plan with
-``engine.program`` (``substrate="analog-cuda"``) and executes it with
-``engine.matmul`` instead of calling this directly.
+scale kept on the card between them, over the activation planes as
+given (no K padding); CPU tensors take the plain version in :mod:`.ref`,
+with the activation planes padded to the weight planes' K. There is no
+fallback. Model code programs a plan with ``engine.program``
+(``substrate="analog-cuda"``) and executes it with ``engine.matmul``
+instead of calling this directly.
 """
 from __future__ import annotations
 
@@ -34,21 +36,24 @@ def analog_matmul_fused(a_planes: torch.Tensor, w_planes: torch.Tensor,
     chain (WDM-chunk sums, optional noise, shared auto-ranged ADC, integer
     code accumulation, shift-and-add, dequant epilogue).
 
-    a_planes (Pa, M, K) int8; w_planes (Pw, K, N) int8; a_scale (M, 1);
-    w_scale (1, N); bias (1, N) or None. ``seed`` is a host int keying the
-    counter-based noise; ``None`` or ``sigma == 0`` gives the
-    deterministic ADC-only transfer, on which the kernels equal the plain
-    version bit for bit."""
+    a_planes (Pa, M, Ka) int8; w_planes (Pw, Kw, N) int8 with Ka <= Kw
+    (the activations are zero beyond Ka, so a plan's K padding needs no
+    copy of them); a_scale (M, 1); w_scale (1, N); bias (1, N) or None.
+    ``seed`` is a host int keying the counter-based noise; ``None`` or
+    ``sigma == 0`` gives the deterministic ADC-only transfer, on which the
+    kernels equal the plain version bit for bit."""
+    kw = w_planes.shape[1]
     if on_cuda(a_planes, w_planes, a_scale, w_scale, bias):
-        pad = (-a_planes.shape[2]) % chunk
+        pad = (-kw) % chunk
         if pad:       # absolute chunk boundaries: right zero-padding is exact
-            a_planes = F.pad(a_planes, (0, pad))
             w_planes = F.pad(w_planes, (0, 0, 0, pad))
         fs = analog_fullscale_cuda(a_planes, w_planes, chunk=chunk,
                                    sigma=sigma, seed=seed)
         return analog_readout_cuda(a_planes, w_planes, a_scale, w_scale, fs,
                                    chunk=chunk, adc_bits=adc_bits,
                                    sigma=sigma, seed=seed, bias=bias)
+    if a_planes.shape[2] < kw:   # the plain version takes one K
+        a_planes = F.pad(a_planes, (0, kw - a_planes.shape[2]))
     return analog_readout_fused_ref(a_planes, w_planes, a_scale, w_scale,
                                     chunk, adc_bits, sigma=sigma, seed=seed,
                                     bias=bias)

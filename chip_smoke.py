@@ -111,16 +111,18 @@ package. Phases, each of which raises on failure:
     also equal to head-order float32 adds bit for bit, and timed as device
     time beside ``torch.sum``), timed with it
     and with its bound, and ``scaled_dot_product_attention`` as a
-    yardstick; the dQ and the dK/dV pass (3xTF32 on the tensor cores)
-    each also against the CUDA-core kernel it replaced (the library's
-    ``flash_bwd_dq_simt`` and ``flash_bwd_dkv_simt``, which no wrapper
-    calls): both against the plain version, the dQ yardstick's delta
-    equal to the pass's bit for bit, the three against a float64
-    evaluation of the same inputs (``dq_float64``, ``dkv_float64``; the
-    pass held within ``FLASH_F64_REL``, the others reported), pass and
-    yardstick timed in turns, with the pass's 3xTF32 bound and its
-    CUDA-core float32 bound; and the backward's three passes summed
-    against SDPA's backward (its forward + backward minus its forward);
+    yardstick; the forward, the dQ and the dK/dV pass (3xTF32 on the
+    tensor cores) each also against the CUDA-core kernel it replaced (the
+    library's ``flash_fwd_simt``, ``flash_bwd_dq_simt`` and
+    ``flash_bwd_dkv_simt``, which no wrapper calls): both against the
+    plain version, the dQ yardstick's delta equal to the pass's bit for
+    bit, the three against a float64 evaluation of the same inputs
+    (``fwd_float64`` for o and the log-sum-exp, ``dq_float64``,
+    ``dkv_float64``; the kernel held within ``FLASH_F64_REL``, the others
+    reported), kernel and yardstick timed in turns, with the kernel's
+    3xTF32 bound and its CUDA-core float32 bound; and the backward's three
+    passes summed against SDPA's backward (its forward + backward minus
+    its forward);
 13. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
@@ -298,8 +300,9 @@ FLASH_SUM_REL = 1e-6
 # order; at D = 256 the terms cancel, and an element near 0 differs by a few
 # float32 ulps of the terms' magnitude, 5.2e-6 read on an H100)
 FLASH_DELTA_RTOL = 1e-6
-# The tensor-core passes (dQ, dK/dV) against a float64 evaluation of the
-# same inputs: each gradient within FLASH_F64_REL of its largest magnitude.
+# The tensor-core kernels (the forward, dQ, dK/dV) against a float64
+# evaluation of the same inputs: each output (o and the log-sum-exp; each
+# gradient) within FLASH_F64_REL of its largest magnitude.
 # The float32 plain version reads 2.44e-6 at the global shape and the dK/dV
 # pass 1.24e-6; an accumulator that takes every key or query of the global
 # layer in the tensor cores (which truncate as they add) drifted to 2.7e-5.
@@ -2094,8 +2097,10 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 
 def flash_bound(b, s, h, kv, d, pairs, kernel, ops_per_s=FP32_OPS_PER_S):
     """Least time (ms) of one launch of ``kernel``: its float32 operations
-    at ``ops_per_s`` (the CUDA cores' peak by default), and the bytes of
-    its inputs read once and its outputs written once at HBM bandwidth.
+    at ``ops_per_s`` (the CUDA cores' peak by default; the tensor-core
+    kernels, the forward, dQ and dK/dV, are priced at a third of the dense
+    TF32 peak by ``tensor_core_bounds``), and the bytes of its inputs read
+    once and its outputs written once at HBM bandwidth.
     Per unmasked pair and head the forward needs 2 products of width d (the
     logit, P V), the dQ pass 3 (the logit, dP, dQ) and the dK/dV pass 4
     (the logit, dP, dV, dK), at 2 operations per multiply-add; the head sum
@@ -2119,14 +2124,16 @@ def flash_bound(b, s, h, kv, d, pairs, kernel, ops_per_s=FP32_OPS_PER_S):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# the backward passes on the tensor cores (3xTF32 mma.sync), each with the
-# CUDA-core kernel it replaced kept in the library as a yardstick symbol
-TC_PASSES = {"flash_attention_bwd_dq": "flash_bwd_dq_simt",
+# the kernels on the tensor cores (3xTF32 mma.sync): the forward and the
+# two backward passes, each with the CUDA-core kernel it replaced kept in
+# the library as a yardstick symbol
+TC_PASSES = {"flash_attention_fwd": "flash_fwd_simt",
+             "flash_attention_bwd_dq": "flash_bwd_dq_simt",
              "flash_attention_bwd_dkv": "flash_bwd_dkv_simt"}
 
 
 def tensor_core_bounds(kernel, b, s, h, kv, d, pairs):
-    """A tensor-core pass's bounds: (the CUDA-core float32 bound, the bound
+    """A tensor-core kernel's bounds: (the CUDA-core float32 bound, the bound
     of what its kernel runs), each (ms, "bytes" | "operations"). The kernel
     does every float32 product as three TF32 tensor-core products, so its
     operations count at a third of the dense TF32 peak."""
@@ -2151,6 +2158,25 @@ def run_simt(torch, fkern, symbol, tensors, causal, window, prefix):
             window, prefix, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc}")
+
+
+def fwd_simt(torch, fkern, q, k, v, causal, window, prefix):
+    """o and lse through ``flash_fwd_simt`` (the forward's CUDA-core
+    yardstick, which takes the forward's arguments), on the same inputs."""
+    lib = fkern._library()
+    fn = getattr(lib, TC_PASSES["flash_attention_fwd"])
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = lib.flash_fwd.argtypes, lib.flash_fwd.restype
+    (b, s, h, d), kv = q.shape, k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), int(q.dtype == torch.bfloat16), b, s, h, kv, d,
+            int(causal), window, prefix,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_simt: CUDA error {rc}")
+    return o, lse
 
 
 def dq_simt(torch, fkern, q, k, v, o, lse, dout, *mask):
@@ -2187,6 +2213,30 @@ def probs_float64(torch, q, k, v, lse, delta, dout, causal, window,
     return p, ds, qg, dog
 
 
+def fwd_float64(torch, q, k, v, causal, window, prefix):
+    """o (b, s, h, d) and lse (b, h, s) in float64 from the forward's
+    float32 inputs, with masked logits -1e30 as in the kernel."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.double().reshape(b, s, kv, h // kv, d)
+    ok = flash_mask(torch, q.device, s, causal, window, prefix)
+    logits = torch.where(ok, torch.einsum("bskrd,btkd->bkrst", qg,
+                                          k.double()) / math.sqrt(d),
+                         torch.tensor(-1e30, dtype=torch.float64,
+                                      device=q.device))
+    lse = torch.logsumexp(logits, -1)
+    o = torch.einsum("bkrst,btkd->bskrd", torch.exp(logits - lse[..., None]),
+                     v.double())
+    return o.reshape(b, s, h, d), lse.reshape(b, h, s)
+
+
+def plain_lse(torch, fref, q, k, causal, window, prefix):
+    """The plain version's log-sum-exp (b, h, s) in float32."""
+    b, s, h, _ = q.shape
+    return torch.logsumexp(fref._logits(q, k, causal, window, prefix),
+                           -1).reshape(b, h, s)
+
+
 def dq_float64(torch, q, k, v, o, lse, dout, *mask):
     """dQ in float64 from the dQ pass's float32 inputs (delta = rowsum(dO
     * O) formed in float64); a one-tuple, as ``float64_gap`` takes it."""
@@ -2208,8 +2258,8 @@ def dkv_float64(torch, q, k, v, lse, delta, dout, *mask):
 
 
 def float64_gap(got, truth):
-    """Largest |got - truth| over a pass's gradients ((dQ,) or (dK, dV)),
-    each relative to that gradient's largest magnitude."""
+    """Largest |got - truth| over a kernel's outputs ((o, lse), (dQ,) or
+    (dK, dV)), each relative to that output's largest magnitude."""
     return max(((g.double() - t).abs().max() / t.abs().max()).item()
                for g, t in zip(got, truth))
 
@@ -2250,13 +2300,13 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     """The four kernels at one training shape: the forward against the
     plain version, the backward kernels' gradients against autograd of
     the plain version, and each backward kernel against its own plain
-    version on the same inputs; the two tensor-core passes also against
-    the CUDA-core kernels they replaced and a float64 evaluation; then each
-    kernel's time, its plain version's and its bound (the tensor-core
-    passes in turns with their yardsticks, with both bounds), SDPA with
-    the same mask (forward, and forward + backward) as a yardstick, the
-    backward's three passes against SDPA's backward, and the pairs the
-    kernels visit against those counted."""
+    version on the same inputs; the three tensor-core kernels (the
+    forward, dQ, dK/dV) also against the CUDA-core kernels they replaced
+    and a float64 evaluation; then each kernel's time, its plain version's
+    and its bound (the tensor-core kernels in turns with their yardsticks,
+    with both bounds), SDPA with the same mask (forward, and forward +
+    backward) as a yardstick, the backward's three passes against SDPA's
+    backward, and the pairs the kernels visit against those counted."""
     b, s, h, kv, d, causal, win, pre = shape
     mask_args = (causal, win, pre)
     q, k, v = flash_inputs(torch, dev, b, s, h, kv, d, 20)
@@ -2280,8 +2330,9 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     mask = flash_mask(torch, dev, s, causal, win, pre)
     lib_o = sdpa_call(torch, q, k, v, mask)
     row["sdpa_max_abs_gap"] = (lib_o - ref_o.detach()).abs().max().item()
+    plain_o = ref_o.detach()
     del leaves, ref_o, lib_o
-    dq_name, dkv_name = TC_PASSES
+    fwd_name, dq_name, dkv_name = TC_PASSES
     want_dq, want_delta = fref.flash_attention_bwd_dq_ref(q, k, v, o, lse,
                                                           dout, *mask_args)
     err[dq_name] = max(
@@ -2293,19 +2344,28 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     err[dkv_name] = max(
         flash_grad_gap(torch, dk_p, want_dk, f"{label} dK pass"),
         flash_grad_gap(torch, dv_p, want_dv, f"{label} dV pass"))
-    # each tensor-core pass beside the CUDA-core yardstick on the same
-    # inputs (the yardstick against the plain version and the pass against
-    # the yardstick, each within FLASH_BWD_REL), and the three against
-    # float64: the pass held within FLASH_F64_REL, the others reported
+    # each tensor-core kernel beside the CUDA-core yardstick on the same
+    # inputs (the yardstick against the plain version and the kernel
+    # against the yardstick, each within the kernel's tolerance: the
+    # forward's FLASH_RTOL and FLASH_ATOL, the backward's FLASH_BWD_REL),
+    # and the three against float64: the kernel held within FLASH_F64_REL,
+    # the others reported
     yard_dq, yard_delta = dq_simt(torch, fkern, q, k, v, o, lse, dout,
                                   *mask_args)
     if not torch.equal(yard_delta, delta):
         raise AssertionError(f"{label}: the dQ pass's delta differs from "
                              "the CUDA-core kernel's")
+    fwd_gap = lambda got, want, what: flash_gap(torch, got, want, FLASH_RTOL,
+                                                FLASH_ATOL, what)
+    bwd_gap = lambda got, want, what: flash_grad_gap(torch, got, want, what)
     passes = {
-        dq_name: ("dQ", (dq,), (want_dq,), (yard_dq,),
+        fwd_name: ("forward", fwd_gap, (o, lse),
+                   (plain_o, plain_lse(torch, fref, q, k, *mask_args)),
+                   fwd_simt(torch, fkern, q, k, v, *mask_args),
+                   fwd_float64(torch, q, k, v, *mask_args)),
+        dq_name: ("dQ", bwd_gap, (dq,), (want_dq,), (yard_dq,),
                   dq_float64(torch, q, k, v, o, lse, dout, *mask_args)),
-        dkv_name: ("dK/dV", (dk_p, dv_p), (want_dk, want_dv),
+        dkv_name: ("dK/dV", bwd_gap, (dk_p, dv_p), (want_dk, want_dv),
                    dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
                             *mask_args),
                    dkv_float64(torch, q, k, v, lse, delta, dout,
@@ -2313,22 +2373,23 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     }
     row["yardstick_err"], row["vs_yardstick"], row["float64_gap"] = \
         {}, {}, {}
-    for name, (what, got, plain, yard, truth) in passes.items():
+    for name, (what, gap, got, plain, yard, truth) in passes.items():
         row["yardstick_err"][name] = max(
-            flash_grad_gap(torch, y, w, f"{label} {what} yardstick")
+            gap(y, w, f"{label} {what} yardstick")
             for y, w in zip(yard, plain))
         row["vs_yardstick"][name] = max(
-            flash_grad_gap(torch, g, y, f"{label} {what} pass against the "
-                           "yardstick") for g, y in zip(got, yard))
+            gap(g, y, f"{label} {what} kernel against the yardstick")
+            for g, y in zip(got, yard))
         gaps = {"pass": float64_gap(got, truth),
                 "yardstick": float64_gap(yard, truth),
                 "plain": float64_gap(plain, truth)}
         row["float64_gap"][name] = gaps
         if gaps["pass"] > FLASH_F64_REL:
             raise AssertionError(
-                f"{label}: the {what} pass lies {gaps['pass']:.3g} of its "
-                f"largest gradient from float64, above {FLASH_F64_REL}")
-    del want_dq, want_delta, want_dk, want_dv, yard_dq, yard_delta, passes
+                f"{label}: the {what} kernel lies {gaps['pass']:.3g} of its "
+                f"largest output from float64, above {FLASH_F64_REL}")
+    del want_dq, want_delta, want_dk, want_dv, yard_dq, yard_delta, passes, \
+        plain_o
     sums = fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)
     err["flash_attention_bwd_sum"] = max(
         flash_gap(torch, got, want, FLASH_SUM_REL,
@@ -2370,6 +2431,7 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
             lambda: fref.flash_attention_bwd_sum_ref(dk_p, dv_p, kv)),
     }
     yardsticks = {
+        fwd_name: lambda: fwd_simt(torch, fkern, q, k, v, *mask_args),
         dq_name: lambda: dq_simt(torch, fkern, q, k, v, o, lse, dout,
                                  *mask_args),
         dkv_name: lambda: dkv_simt(torch, fkern, q, k, v, lse, delta, dout,
@@ -2395,9 +2457,9 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
             row["bound_ms"][name], row["bound_by"][name] = flash_bound(
                 b, s, h, kv, d, pairs, name)
             continue
-        # a tensor-core pass and its CUDA-core yardstick in turns
-        # (yardstick, pass, pass, yardstick), and both bounds; bound_ms is
-        # that of what the kernel runs (3xTF32)
+        # a tensor-core kernel and its CUDA-core yardstick in turns
+        # (yardstick, kernel, kernel, yardstick), and both bounds; bound_ms
+        # is that of what the kernel runs (3xTF32)
         turns = [time_ms(torch, fn) for fn in (
             yardsticks[name], kernel_call, kernel_call, yardsticks[name])]
         row["turns_ms"][name] = turns
@@ -2425,7 +2487,7 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
     for name, symbol in TC_PASSES.items():
         gaps = row["float64_gap"][name]
         log(f"flash {label} {name} against the CUDA-core yardstick "
-            f"{symbol} in turns (yardstick, pass, pass, yardstick): "
+            f"{symbol} in turns (yardstick, kernel, kernel, yardstick): "
             + ", ".join(f"{t:.4f}" for t in row["turns_ms"][name])
             + f" ms, bounds {row['bound_ms'][name]:.4f} ms (3xTF32 at "
             f"{TF32_OPS_PER_S / 3e12:.0f} TFLOP/s) and "
@@ -2433,8 +2495,8 @@ def flash_shape_row(torch, dev, fkern, fref, label, shape):
             f" max |diff| to the yardstick {row['vs_yardstick'][name]:.3g},"
             f" the yardstick's to the plain version "
             f"{row['yardstick_err'][name]:.3g}; against float64 on the same"
-            f" inputs, relative to each gradient's largest magnitude: the "
-            f"pass {gaps['pass']:.3g} (held within {FLASH_F64_REL}), the "
+            f" inputs, relative to each output's largest magnitude: the "
+            f"kernel {gaps['pass']:.3g} (held within {FLASH_F64_REL}), the "
             f"yardstick {gaps['yardstick']:.3g}, the plain version "
             f"{gaps['plain']:.3g}")
     log(f"flash {label} head sum (device time): "
@@ -2672,7 +2734,10 @@ def restart_phase(train):
 
 def flash_entries(rows, windows, launches, err):
     """The four flash kernels' lines: one training step's launches (each
-    kernel once per layer), each priced at its window's shape."""
+    kernel once per layer), each priced at its window's shape, with the
+    time of one launch at each shape; the three tensor-core kernels (the
+    forward, dQ, dK/dV) also with their CUDA-core float32 bound and the
+    CUDA-core kernel each replaced, timed in turns with it."""
     count = {"local": sum(n for w, n in windows.items() if w),
              "global": windows.get(0, 0)}
     tot = lambda key, name: sum(rows[lb][key][name] * n
@@ -2715,14 +2780,17 @@ def flash_entries(rows, windows, launches, err):
             "launches": launches[name], "max_abs_err": err[name],
             "ms": tot("ms", name), "plain_ms": tot("plain_ms", name),
             "bound_ms": tot("bound_ms", name), "bound_by": bound_by,
-            "library_ms": lib_ms, "per": note}
+            "library_ms": lib_ms, "per": note,
+            "per_launch_ms": {lb: rows[lb]["ms"][name] for lb in count}}
         if name in TC_PASSES:
-            # the pass runs 3xTF32 on the tensor cores: bound_ms is at a
+            # the kernel runs 3xTF32 on the tensor cores: bound_ms is at a
             # third of the dense TF32 peak; beside it the CUDA-core float32
             # bound and the CUDA-core kernel it replaced (the yardstick
-            # symbol), timed in turns with the pass on the same inputs
+            # symbol), timed in turns with the kernel on the same inputs
             entry["bound_cuda_core_ms"] = tot("bound_cuda_core_ms", name)
             entry["yardstick_ms"] = tot("yardstick_ms", name)
+            entry["yardstick_per_launch_ms"] = {
+                lb: rows[lb]["yardstick_ms"][name] for lb in count}
             entry["per"] += (
                 "; bound_ms counts 3 TF32 tensor-core products per float32 "
                 "product at the dense TF32 peak, bound_cuda_core_ms the "

@@ -8,9 +8,9 @@
 // GQA, flash_bwd_sum().
 //
 // q is (B, S, H, D), k and v are (B, S, KV, D), contiguous; head h reads
-// kv head h / (H / KV). With q pre-scaled by 1/sqrt(D), the forward is an
-// online softmax over key tiles: a running max m, a running denominator l
-// and a float32 accumulator; masked logits are -1e30 (not -inf), the
+// kv head h / (H / KV). The forward is an online softmax over key tiles of
+// the logits q k / sqrt(D): a running max m, a running denominator l and a
+// float32 accumulator; masked logits are -1e30 (not -inf), the
 // denominator is clamped at 1e-37, and the mask is the JAX kernel's:
 //   ok = (causal ? qpos >= kpos : true) || kpos < prefix
 //   if window > 0: ok &&= (qpos - kpos < window) || kpos < prefix.
@@ -45,45 +45,72 @@
 // per unmasked (query, key, column) in the forward, and 10 in the backward
 // (S, dP, dQ in the first launch; S, dP, dV, dK in the second); the bytes
 // (q, k, v, o and their gradients, each once) are a few tens of MB, a few
-// microseconds at 3.35 TB/s. So it is bound by operations: 67 TFLOP/s of
-// CUDA-core float32 for the forward, the tensor cores for the backward.
+// microseconds at 3.35 TB/s. So it is bound by operations, on the tensor
+// cores: every float32 product is three TF32 products (below), a third of
+// the dense TF32 peak, 165 TFLOP/s, against 67 for float32 FMAs on the
+// CUDA cores.
 //
-// Forward (float32 FMAs on the CUDA cores; TF32 keeps 10 mantissa bits
-// and would miss the JAX kernel's rtol 2e-4): the Pallas blocks (512 x
-// 512, rep heads folded into a query tile) need megabytes of VMEM; here a
-// block owns 64 query rows of one head (8 warps x 8 rows) and streams key
-// tiles of 32 rows through dynamic shared memory (up to 137 KB at D = 256,
-// set with cudaFuncSetAttribute). In the logit product lane j of a warp
-// owns key j of the tile, so the row max and row sum of the online softmax
-// are warp shuffles; in the value product lane l owns columns l, l + 32,
-// ..., so each shared-memory load of a value feeds 8 rows. Keys are stored
-// transposed with rows padded to 33 floats, so that lanes reading
-// consecutive keys, and lanes reading consecutive columns of one key, hit
-// different banks. Head dims are padded with zeros to 32 * CT (CT = 1, 2,
-// 4 or 8 columns per lane), so D may be anything up to 256. Rows past S (a
-// ragged last tile) are masked and never stored. bf16 inputs are widened to
-// float32 in shared memory and the output is rounded to bf16 once, as the
-// JAX kernel casts its f32 accumulator. With one block per SM nothing hides
-// the latency of a tile's loads, so where D % 4 == 0 and the rows are
-// aligned they move in 16-byte loads (8-byte for bf16), several issued
-// before the first is stored; otherwise element by element.
-//
-// The two backward passes run on the tensor cores at float32 accuracy:
-// every product is 3xTF32 (mma_tf32x3.cuh: x = hi + lo, each rounded as
+// All three kernels on the tensor cores keep float32 accuracy: every
+// product is 3xTF32 (mma_tf32x3.cuh: x = hi + lo, each rounded as
 // cvt.rna.tf32.f32 does; lo hi + hi lo + hi hi into float32 accumulators,
-// the small terms first). The tensor cores truncate when they add into an
-// accumulator, so an accumulator that takes every query or key of a long
-// sequence drifts by the same sign at each add (at the global layer's
+// the small terms first; one TF32 product keeps 10 mantissa bits and would
+// miss the JAX kernel's rtol 2e-4). The tensor cores truncate when they add
+// into an accumulator, so an accumulator that takes every query or key of a
+// long sequence drifts by the same sign at each add (at the global layer's
 // 2,048 queries, about 2.7e-5 of the largest gradient); each tile
 // therefore sums into fresh fragments, which join the running sums by
 // float32 adds that round to nearest. chip_smoke.py (phase 12) holds each
-// pass, the CUDA-core kernel it replaced and the plain version against a
-// float64 evaluation of the same inputs, the pass within 1e-5 of each
-// gradient's largest magnitude. Rows of the tiles are padded to DV + 4
-// floats (4 mod 32 banks), so that the fragment loads (8 rows x 4 columns,
-// or 4 row pairs x 8 columns) hit 32 distinct banks. Q is not pre-scaled
-// (cp.async copies bytes as they are): the logits and the gradient that
-// takes them are scaled by 1/sqrt(D) instead.
+// kernel, the CUDA-core kernel it replaced and the plain version against a
+// float64 evaluation of the same inputs, the kernel within 1e-5 of each
+// output's largest magnitude. Rows of the tiles are padded by 16 bytes (DV
+// + 4 floats, DV + 8 bf16: 4 mod 32 banks), so that the fragment loads (8
+// rows x 4 columns, or 4 row pairs x 8 columns) hit 32 distinct banks. Q is
+// not pre-scaled (cp.async copies bytes as they are): the logits, and the
+// gradients that take them, are scaled by 1/sqrt(D) after the product.
+//
+// Forward (flash_fwd_kernel): a block owns 64 query rows of one head (the
+// Pallas blocks, 512 x 512 with the rep heads folded into a query tile,
+// need megabytes of VMEM) with 8 warps, two for each 16 rows; Q stays in
+// shared memory, and K and V stream through two cp.async stages, the next
+// live key tile of 32 rows loading while this one multiplies. K needs no
+// transposed copy: the B fragment (t, g) of K^T is K[g][t]. Per live tile,
+// warp (rows, column half):
+//   1. S = Q K^T over its half of the columns (mma.sync m16n8k8): one split
+//      of its 16-row Q fragment feeds the four 8-key fragments; the half
+//      sums meet in a 16 KB exchange, and both warps of the rows add them
+//      in the same order, the dQ pass's step 1 sum for sum, so that the
+//      forward's logits are those the backward recomputes;
+//   2. the online softmax on the scaled, masked logits: each row's 32
+//      logits lie in the 4 lanes of a quad, so its max and sum are two
+//      shuffles, and both warps of the rows form the same m, l and P;
+//   3. O = O alpha + P V over its half of the columns (at D = 256, 16 8-
+//      column blocks, 64 accumulators a thread). P never leaves registers:
+//      with the reduction pair k = t, t + 4 of a step taken as keys 2t, 2t
+//      + 1, S's accumulator fragment is lane for lane P V's A fragment,
+//      split once per tile. Each 8-column block sums the tile's keys into
+//      a fresh fragment (64 more registers: the 16 blocks' sums are
+//      independent chains) and joins O by a float32 multiply-add.
+// A warp skips a tile wholly masked for its rows (its partner does too),
+// and tiles with no masked pair skip the per-element mask. Shared memory
+// at D = 256: Q 66,560 bytes, the two stages 133,120, the exchange 16,384:
+// 216,064, so one block of 8 warps per SM; ptxas (-O3, sm_90a): 225
+// registers at D = 256, no spills. With 16 rows per warp and all D columns
+// (4 warps a block: the only height whose Q and two stages fit at D = 256)
+// a warp held 128 accumulators, ptxas spilled, and one warp per
+// scheduler left the kernel slower than the CUDA-core one. Storing Q split
+// (hi and lo, 133 KB) would leave no room for two stages of K and V, so
+// each warp splits its Q fragment again for every key tile. bf16 inputs
+// take the same kernel: the tiles stay bf16 in shared memory (half the
+// bytes) and widen in the fragment loads; a bf16 value is exact in TF32,
+// so its lo part is zero: Q K^T takes one product (hi hi), P V two. The
+// output is rounded to bf16 once, as the JAX kernel casts its f32
+// accumulator. Where D % 4 != 0 or a row is not 16-byte (bf16: 8-byte)
+// aligned, tiles move element by element (bf16 by plain loads: cp.async
+// copies 4, 8 or 16 bytes). Head dims are padded with zeros to 32, 64, 128
+// or 256 columns, so D may be anything up to 256; rows past S (a ragged
+// last tile) are zero, masked and never stored.
+//
+// The two backward passes run on the tensor cores as the forward does.
 //
 // dK/dV (flash_bwd_dkv_kernel): a block owns 32 keys of one query head (8
 // warps); per live tile of 32 queries:
@@ -105,7 +132,7 @@
 // query tile while this one multiplies; K and V stay for the block. Shared
 // memory at D = 256: K and V 66,560 bytes, the two stages 133,632, the
 // exchange 16,384: 216,576 of the 227 KB a block may have, so one block of
-// 8 warps per SM. ptxas (-O3, sm_90a): 232 registers at D = 256, no
+// 8 warps per SM. ptxas (-O3, sm_90a): 204 registers at D = 256, no
 // spills.
 //
 // dQ (flash_bwd_dq_kernel) is the same design with the roles of queries
@@ -128,30 +155,31 @@
 // bit (a lane's float32 FMAs over its columns, then a warp sum), formed
 // while the first key tile lands. Shared memory at D = 256: Q and dO
 // 66,560 bytes, lse and delta 256, the two stages 133,120, the exchange
-// 16,384: 216,320, one block of 8 warps per SM. ptxas (-O3, sm_90a): 159
+// 16,384: 216,320, one block of 8 warps per SM. ptxas (-O3, sm_90a): 141
 // registers at D = 256, no spills. 32-query blocks also visit fewer masked
 // pairs than the 64-query blocks of the CUDA-core kernel.
 //
-// What bounds the backward passes now: mma.sync and what feeds it.
-// mma.sync does not reach the 495 TFLOP/s of dense TF32 that wgmma does,
-// and every float32 product costs three of them. The work that feeds them
-// (the split, 5 integer and float operations per element; shared-memory
-// loads; exp) issues from the same warps, and with 2 warps per scheduler
-// and three barriers per tile it overlaps the tensor pipe little; in the
-// dQ pass step 1 splits the block's resident Q and dO fragments again for
-// every key tile (kept split, they would not fit in registers or shared
-// memory). At the global layer's shape dK/dV runs at about 3.7x its 3xTF32
-// bound on an H100, dQ at about 4.3x (chip_smoke.py, phase 12). wgmma
-// (which reads both operands from shared memory, so the split operands
-// would have to be stored there, and dO and Q K-major for dK/dV) is later
-// work.
+// What bounds the three tensor-core kernels now: mma.sync and what feeds
+// it. mma.sync does not reach the 495 TFLOP/s of dense TF32 that wgmma
+// does, and every float32 product costs three of them. The work that feeds
+// them (the split, 5 integer and float operations per element; shared-
+// memory loads; exp) issues from the same warps, and with 2 warps per
+// scheduler and two or three barriers per tile it overlaps the tensor pipe
+// little; the forward and the dQ pass split the block's resident Q (and
+// dO) fragments again for every key tile, and the four row groups of a
+// forward block each split the same K and V elements. At the global
+// layer's shape dK/dV runs at about 3.7x its 3xTF32 bound on an H100, dQ
+// at about 4.3x (chip_smoke.py, phase 12); the forward's factor is in
+// PERF.md. wgmma (which reads both operands from shared memory, so the
+// split operands would have to be stored there, and dO and Q K-major for
+// dK/dV) is later work.
 //
-// The CUDA-core dQ and dK/dV kernels these replaced stay in the library as
-// flash_bwd_dq_simt() and flash_bwd_dkv_simt(), yardsticks for timing; no
-// wrapper calls them.
+// The CUDA-core forward, dQ and dK/dV kernels these replaced stay in the
+// library as flash_fwd_simt(), flash_bwd_dq_simt() and
+// flash_bwd_dkv_simt(), yardsticks for timing; no wrapper calls them.
 //
-// Later work (not done here): wgmma for the backward passes, and TMA with
-// a ring of key tiles for the forward.
+// Later work (not done here): wgmma for the three kernels, and a split of
+// K and V shared by the forward's row groups.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,7 +194,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBq = 64;          // query rows of a forward block (and
-                                 // of the CUDA-core dQ yardstick's)
+                                 // of the CUDA-core yardsticks')
 constexpr int kRows = kBq / kWarps;   // 8 query rows per warp
 constexpr int kBk = 32;          // key rows of a tile (one per lane)
 constexpr int kBq2 = 32;         // query rows of a dK/dV step, a dQ block
@@ -207,13 +235,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The JAX kernel's mask, plus the ragged edge (positions past S).
+// The JAX kernel's mask, plus the ragged edge (positions past S):
+// ok = (causal ? qp >= kp : true) || kp < prefix, and with a window also
+// (qp - kp < window || kp < prefix); that is ((causal ? qp >= kp : true)
+// && (window > 0 ? qp - kp < window : true)) || kp < prefix, written with
+// bitwise operations so that it compiles to predicates, not branches.
 __device__ __forceinline__ bool pair_ok(int qp, int kp, const Geo& g) {
-  if (qp >= g.S || kp >= g.S) return false;
-  bool ok = g.causal ? (qp >= kp) : true;
-  ok = ok || (kp < g.prefix);
-  if (g.window > 0) ok = ok && ((qp - kp < g.window) || (kp < g.prefix));
-  return ok;
+  const bool near = (g.window <= 0) | (qp - kp < g.window);
+  const bool seen = !g.causal | (qp >= kp);
+  return (qp < g.S) & (kp < g.S) & ((seen & near) | (kp < g.prefix));
 }
 
 // False only when every pair of [q0, q0+nq) x [k0, k0+nk) is masked.
@@ -341,7 +371,7 @@ __device__ __forceinline__ void load_keys_t(float* dst, const T* src,
   }
 }
 
-__host__ __device__ inline size_t fwd_smem_floats(int dv) {
+__host__ __device__ inline size_t fwd_simt_smem_floats(int dv) {
   return static_cast<size_t>(kBq) * dv + static_cast<size_t>(dv) * kKs +
          static_cast<size_t>(kBk) * dv + kBq * kBk;
 }
@@ -354,35 +384,52 @@ __host__ __device__ inline size_t dkv_simt_smem_floats(int dv) {
          2 * static_cast<size_t>(kBq2) * dv + 2 * kBk * kPs + 2 * kBq2;
 }
 
-// The tensor-core passes (flash_bwd_dkv_kernel, flash_bwd_dq_kernel). The
-// K, V, Q and dO tiles keep rows of dv + 4 floats, a stride of 4 mod 32
-// banks, so that the fragment loads (8 rows x 4 columns, or 4 row pairs x 8
-// columns) hit 32 distinct banks.
-__host__ __device__ constexpr int dkv_row(int dv) { return dv + 4; }
+// The tensor-core kernels (the forward, flash_bwd_dkv_kernel,
+// flash_bwd_dq_kernel). Their tiles keep rows of dv elements and 16 bytes
+// of padding (dv + 4 floats, dv + 8 bf16), a stride of 4 mod 32 banks, so
+// that the fragment loads (8 rows x 4 columns, or 4 row pairs x 8 columns)
+// hit 32 distinct banks (two bf16 lanes of one word share its bank).
+template <typename T = float>
+__host__ __device__ constexpr int tile_row(int dv) {
+  return dv + 16 / static_cast<int>(sizeof(T));
+}
 // The exchange between the two products of a query tile: its 2 x 4
 // fragments (16 keys x 8 queries each) x 4 slots x 32 lanes, 16 bytes each
 constexpr int kXFloats = 4 * kBk * kBq2;
 // K and V; two stages of Q, dO and the rows' lse and delta; the exchange.
 __host__ __device__ inline size_t dkv_smem_floats(int dv) {
-  return 2 * static_cast<size_t>(kBk) * dkv_row(dv) +
-         2 * (2 * static_cast<size_t>(kBq2) * dkv_row(dv) + 2 * kBq2) +
+  return 2 * static_cast<size_t>(kBk) * tile_row(dv) +
+         2 * (2 * static_cast<size_t>(kBq2) * tile_row(dv) + 2 * kBq2) +
          kXFloats;
 }
 // The tensor-core dQ pass: Q and dO and the rows' lse and delta; two
 // stages of K and V; the exchange.
 __host__ __device__ inline size_t dq_smem_floats(int dv) {
-  return 2 * static_cast<size_t>(kBq2) * dkv_row(dv) + 2 * kBq2 +
-         2 * (2 * static_cast<size_t>(kBk) * dkv_row(dv)) + kXFloats;
+  return 2 * static_cast<size_t>(kBq2) * tile_row(dv) + 2 * kBq2 +
+         2 * (2 * static_cast<size_t>(kBk) * tile_row(dv)) + kXFloats;
+}
+// The tensor-core forward's exchange: each warp's half sums of S, 16 rows x
+// 32 keys, for the warp that owns the other column half of its rows
+constexpr int kFwdXFloats = kWarps * 16 * kBk;
+// The tensor-core forward, in bytes: Q; two stages of K and V; the exchange.
+template <typename T>
+__host__ __device__ inline size_t fwd_smem_bytes(int dv) {
+  return (kBq + 2 * 2 * static_cast<size_t>(kBk)) * tile_row<T>(dv) *
+             sizeof(T) +
+         kFwdXFloats * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (H, B, ceil(S / 64)), the last query tiles first
+// forward, the CUDA-core version (the first design): float32 FMAs. Kept as a
+// yardstick for the tensor-core kernel below (C symbol flash_fwd_simt); the
+// wrappers never call it. Grid (H, B, ceil(S / 64)), the last query tiles
+// first.
 // ---------------------------------------------------------------------------
 template <typename T, int CT>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Geo g) {
+flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, Geo g) {
   constexpr int DV = 32 * CT;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;               // kBq x DV, pre-scaled
@@ -760,13 +807,21 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
 // it writes the head's partial sums (B, S, H, D), and flash_bwd_sum_heads
 // adds the rep heads of each kv head in order.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+// Copy 16, 8 or 4 bytes from device to shared memory, or zero-fill them
+// (ok = false: no byte is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0));
 }
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
@@ -783,40 +838,50 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
-// Start copying rows [t0, t0 + ROWS) of head h of a (B, S, nh, D) float32
-// tensor into dst (rows of dkv_row(DV) floats); zeros past S and past D.
-// 16-byte copies where g.vec, else one per element.
-template <int ROWS, int DV>
-__device__ __forceinline__ void async_rows(float* dst, const float* src,
+// Start copying rows [t0, t0 + ROWS) of head h of a (B, S, nh, D) tensor
+// into dst (rows of tile_row<T>(DV) elements) with NT threads; zeros past S
+// and past D. Where g.vec, one copy per 4 elements (16 bytes of float32, 8
+// of bf16); else one per element: cp.async for float32, a plain load and
+// store for bf16 (cp.async copies 4, 8 or 16 bytes).
+template <int ROWS, int DV, int NT = kThreads, typename T>
+__device__ __forceinline__ void async_rows(T* dst, const T* src,
                                            const Geo& g, int b, int t0, int h,
                                            int nh) {
-  constexpr int kRow = dkv_row(DV);
+  constexpr int kRow = tile_row<T>(DV);
   if (g.vec) {
-    static_assert(ROWS * DV % (4 * kThreads) == 0, "uneven tile");
+    // thread i copies columns c .. c + 3 of rows r, r + kStep, ...: one
+    // address computed, then stepped by kStep rows
+    constexpr int kStep = NT / (DV / 4);
+    static_assert(ROWS * DV % (4 * NT) == 0 && NT % (DV / 4) == 0,
+                  "uneven tile");
+    const int r = threadIdx.x / (DV / 4), c = (threadIdx.x % (DV / 4)) * 4;
+    const size_t step = static_cast<size_t>(kStep) * nh * g.D;
+    const T* from =
+        src + ((static_cast<size_t>(b) * g.S + t0 + r) * nh + h) * g.D + c;
 #pragma unroll
-    for (int i = 0; i < ROWS * DV / 4 / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (DV / 4), c = (idx % (DV / 4)) * 4, t = t0 + r;
-      const bool ok = t < g.S && c < g.D;
-      cp_async16(dst + r * kRow + c,
-                 ok ? src + ((static_cast<size_t>(b) * g.S + t) * nh + h) *
-                                g.D + c
-                    : src,
-                 ok);
+    for (int i = 0; i < ROWS / kStep; ++i, from += step) {
+      const bool ok = c < g.D && t0 + r + i * kStep < g.S;
+      T* to = dst + (r + i * kStep) * kRow + c;
+      if constexpr (sizeof(T) == 4)
+        cp_async16(to, ok ? from : src, ok);
+      else
+        cp_async8(to, ok ? from : src, ok);
     }
     return;
   }
-  static_assert(ROWS * DV % kThreads == 0, "uneven tile");
+  static_assert(ROWS * DV % NT == 0, "uneven tile");
 #pragma unroll 4
-  for (int i = 0; i < ROWS * DV / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+  for (int i = 0; i < ROWS * DV / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
     const int r = idx / DV, c = idx % DV, t = t0 + r;
     const bool ok = t < g.S && c < g.D;
-    cp_async4(dst + r * kRow + c,
-              ok ? src + ((static_cast<size_t>(b) * g.S + t) * nh + h) * g.D +
-                       c
-                 : src,
-              ok);
+    const T* from =
+        ok ? src + ((static_cast<size_t>(b) * g.S + t) * nh + h) * g.D + c
+           : src;
+    if constexpr (sizeof(T) == 4)
+      cp_async4(dst + r * kRow + c, from, ok);
+    else
+      dst[r * kRow + c] = ok ? *from : from_f<T>(0.f);
   }
 }
 
@@ -886,7 +951,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using tf32x3::FragA;
   using tf32x3::FragB;
   constexpr int DV = 32 * CT;
-  constexpr int kRow = dkv_row(DV);
+  constexpr int kRow = tile_row(DV);
   // dV += P^T dO and dK += dS^T Q: the block's 2 x DV / 8 output tiles of
   // 16 x 8 per matrix, kWN warps along the columns, kWM along the keys
   constexpr int kWN = DV / 8 < kWarps ? DV / 8 : kWarps;
@@ -1072,11 +1137,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // queries and keys swapped; grid (H, B, ceil(S / 32)), the last query tiles
 // (the most key tiles under a causal mask) first.
 // ---------------------------------------------------------------------------
-// The first key tile at or after kt that is live for the query tile at q0
-// (n when none is); the same on every thread of the block.
-__device__ __forceinline__ int next_live_key(int kt, int n, int q0,
+// The first key tile at or after kt that is live for the nq queries from
+// q0 (n when none is); the same on every thread of the block.
+__device__ __forceinline__ int next_live_key(int kt, int n, int q0, int nq,
                                              const Geo& g) {
-  while (kt < n && !tile_live(q0, kBq2, kt * kBk, kBk, g)) ++kt;
+  while (kt < n && !tile_live(q0, nq, kt * kBk, kBk, g)) ++kt;
   return kt;
 }
 
@@ -1089,7 +1154,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ delta, Geo g) {
   using tf32x3::FragA;
   constexpr int DV = 32 * CT;
-  constexpr int kRow = dkv_row(DV);
+  constexpr int kRow = tile_row(DV);
   // dQ += dS K: the block's 2 x DV / 8 output tiles of 16 x 8, kWN warps
   // along the columns, kWM along the queries
   constexpr int kWN = DV / 8 < kWarps ? DV / 8 : kWarps;
@@ -1132,7 +1197,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               ok);
   }
   cp_async_commit();
-  int kt = next_live_key(0, n_ktiles, q0, g);
+  int kt = next_live_key(0, n_ktiles, q0, kBq2, g);
   if (kt < n_ktiles) load_tile(0, kt);
   cp_async_commit();
   cp_async_wait_prior();
@@ -1180,7 +1245,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   while (kt < n_ktiles) {
     cp_async_wait_all();
     __syncthreads();   // tile kt landed; the previous tile is consumed
-    const int nxt = next_live_key(kt + 1, n_ktiles, q0, g);
+    const int nxt = next_live_key(kt + 1, n_ktiles, q0, kBq2, g);
     if (nxt < n_ktiles) load_tile(st ^ 1, nxt);
     cp_async_commit();
     const int k0 = kt * kBk;
@@ -1272,6 +1337,228 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 }
 
+// ---------------------------------------------------------------------------
+// forward on the tensor cores (3xTF32 mma.sync, float32 accuracy): grid (H,
+// B, ceil(S / 64)), the last query tiles (the most key tiles under a causal
+// mask) first; 8 warps, two for each 16 query rows.
+// ---------------------------------------------------------------------------
+// True when no pair of [q0, q0 + nq) x [k0, k0 + nk) is masked and every
+// key lies before S (queries past S may lie in the range: they are never
+// stored). False may also mean "not known" (a prefix key among others).
+__device__ __forceinline__ bool tile_full(int q0, int nq, int k0, int nk,
+                                          const Geo& g) {
+  const int klast = k0 + nk - 1;
+  if (klast >= g.S) return false;
+  if (klast < g.prefix) return true;
+  if (g.causal && klast > q0) return false;
+  if (g.window > 0 && q0 + nq - 1 - k0 >= g.window) return false;
+  return true;
+}
+
+// An operand element as a split TF32 pair: float32 splits in two; a bf16
+// value is exact in TF32 (8 significand bits), so its lo part is 0.
+__device__ __forceinline__ tf32x3::Split split_of(float x) {
+  return tf32x3::split(x);
+}
+__device__ __forceinline__ tf32x3::Split split_of(__nv_bfloat16 x) {
+  return {__float_as_uint(__bfloat162float(x)), 0u};
+}
+
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Geo g) {
+  using tf32x3::FragA;
+  using tf32x3::FragB;
+  constexpr int DV = 32 * CT;
+  constexpr int kRow = tile_row<T>(DV);
+  constexpr int kNT = DV / 16;              // 8-column blocks of a half
+  // bf16 operands are exact in TF32: Q K^T takes one product (hi hi), P V
+  // two (P's lo and hi against V's hi); float32 takes three each
+  constexpr bool kLo = sizeof(T) == 4;
+  static_assert(kBq == 64 && kBk == 32 && kWarps == 8,
+                "the warp roles below assume 64 x 32 tiles and 8 warps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);   // kBq x kRow, this block's Q
+  T* stages = qs + kBq * kRow;              // 2 x [K | V], kBk x kRow each
+  // the exchange, warp w's half sums of n-tile n at xs + (4 w + n) * 32 +
+  // lane
+  float4* xs = reinterpret_cast<float4*>(stages + 4 * kBk * kRow);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBq, h = blockIdx.x,
+            b = blockIdx.y;
+  const int kvh = h / g.rep;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  // warp (rg, ch) owns query rows 16 rg + [0, 16) and column half ch: the
+  // two warps of a row group form the same S, softmax and P, and each
+  // multiplies P by its half of V's columns
+  const int rg = warp >> 1, ch = warp & 1;
+  const int r0 = q0 + 16 * rg;              // the warp's first query row
+  const int n_ktiles = (g.S + kBk - 1) / kBk;
+
+  // one key tile's K and V into stage s
+  auto load_tile = [&](int s, int kt) {
+    T* ks = stages + s * 2 * kBk * kRow;
+    async_rows<kBk, DV>(ks, k, g, b, kt * kBk, kvh, g.KV);
+    async_rows<kBk, DV>(ks + kBk * kRow, v, g, b, kt * kBk, kvh, g.KV);
+  };
+
+  async_rows<kBq, DV>(qs, q, g, b, q0, h, g.H);
+  int kt = next_live_key(0, n_ktiles, q0, kBq, g);
+  if (kt < n_ktiles) load_tile(0, kt);
+  cp_async_commit();
+
+  // O of rows gq and gq + 8 (elements e / 2), columns DV / 2 ch + 8 j + 2
+  // tq + e % 2, with the rows' running max m and denominator l
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const T* qa = qs + (16 * rg + gq) * kRow + tq + ch * (DV / 2);
+
+  int st = 0;
+  while (kt < n_ktiles) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed (and Q); the previous tile is consumed
+    const int nxt = next_live_key(kt + 1, n_ktiles, q0, kBq, g);
+    if (nxt < n_ktiles) load_tile(st ^ 1, nxt);
+    cp_async_commit();
+    const int k0 = kt * kBk;
+    const T* ks = stages + st * 2 * kBk * kRow;
+    const T* vs = ks + kBk * kRow;
+    kt = nxt;
+    st ^= 1;
+    // a tile wholly masked for this warp's rows changes nothing (see the
+    // note on skipped tiles at the top), and rows past S are never stored;
+    // the same for both warps of a row group
+    const bool live = r0 < g.S && tile_live(r0, 16, k0, kBk, g);
+
+    // 1. this column half's sums of S = Q K^T for the 16 rows x the tile's
+    //    32 keys (n-tile n: keys 8 n + [0, 8)), into their own
+    //    accumulators. K's B fragment (t, g) of K^T is K[g][t].
+    float s[4][4];
+    if (live) {
+      float big[4][4] = {}, small[4][4] = {};
+#pragma unroll
+      for (int c = 0; c < DV / 2; c += 8) {
+        const FragA af = {{split_of(qa[c]), split_of(qa[8 * kRow + c]),
+                           split_of(qa[c + 4]),
+                           split_of(qa[8 * kRow + c + 4])}};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const T* bp = ks + (8 * n + gq) * kRow + tq + ch * (DV / 2) + c;
+          const FragB bf = {{split_of(bp[0]), split_of(bp[4])}};
+          tf32x3::mma3<kLo, kLo>(big[n], small[n], af, bf);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = big[n][e] + small[n][e];
+        xs[(4 * warp + n) * 32 + lane] =
+            make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+    }
+    __syncthreads();   // both halves of every row group's S are in
+    if (!live) continue;
+
+    // 2. S, the two halves joined by a float32 add (the dQ pass's step 1,
+    //    sum for sum, so that these logits are the ones the backward
+    //    recomputes); scaled after the product, masked to -1e30; the online
+    //    softmax. A row's 32 logits lie in the 4 lanes of a quad, so its
+    //    max and sum are two shuffles.
+    const bool full = tile_full(r0, 16, k0, kBk, g);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 other = xs[(4 * (warp ^ 1) + n) * 32 + lane];
+      const float os[4] = {other.x, other.y, other.z, other.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = (s[n][e] + os[e]) * g.scale;
+        if (!full && !pair_ok(r0 + gq + 8 * (e >> 1),
+                              k0 + 8 * n + 2 * tq + (e & 1), g))
+          sv = kNegInf;
+        s[n][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    // P stays in registers: with the reduction pair k = t, t + 4 of a step
+    // taken as keys 2t, 2t + 1, S's accumulator fragment of n-tile n is
+    // lane for lane the A fragment (c0, c2, c1, c3) of step n of P V
+    FragA pa[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[n][e] - mx[e >> 1]);
+        rs[e >> 1] += p[e];
+      }
+      pa[n] = {{tf32x3::split(p[0]), tf32x3::split(p[2]),
+                tf32x3::split(p[1]), tf32x3::split(p[3])}};
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+    }
+
+    // 3. O = O alpha + P V over this column half, 8 columns at a time. The
+    //    tensor cores truncate when they add into an accumulator, so each
+    //    block of columns sums the tile's keys into a fresh fragment (the
+    //    three products of a step in order into one accumulator, as the dQ
+    //    pass's dS K does), which joins the running O by a float32
+    //    multiply-add (round to nearest). The 16 blocks' sums are
+    //    independent chains, one step of each in turn. V's B fragment for
+    //    keys 2t, 2t + 1 at column g is row-major.
+    float t[kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const T* vp =
+            vs + (8 * kk + 2 * tq) * kRow + ch * (DV / 2) + 8 * j + gq;
+        const FragB vf = {{split_of(vp[0]), split_of(vp[kRow])}};
+        tf32x3::mma3<true, kLo>(t[j], t[j], pa[kk], vf);
+      }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], t[j][e]);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + gq + 8 * r;
+    if (qp >= g.S) continue;
+    const float denom = fmaxf(l[r], 1e-37f);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const int c = ch * (DV / 2) + 8 * j + 2 * tq + (e & 1);
+        if (c < g.D) o[q_index(g, b, qp, h, c)] = from_f<T>(acc[j][e] / denom);
+      }
+    if (ch == 0 && tq == 0)
+      lse[(static_cast<size_t>(b) * g.H + h) * g.S + qp] = m[r] + logf(denom);
+  }
+}
+
 // backward, launch 3 (rep > 1 only): dK and dV of each kv head, the sum of
 // its rep query heads' partials in head order from 0.f, the plain
 // sequential adds bit for bit. A streaming pass, bound by device memory
@@ -1338,14 +1625,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-template <typename T, int CT>
+template <typename T, int CT, bool kSimt>
 int launch_fwd(const T* q, const T* k, const T* v, T* o, float* lse,
                const Geo& g, cudaStream_t st) {
-  const size_t smem = fwd_smem_floats(32 * CT) * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, CT>, smem);
+  const int dv = 32 * CT;
+  const size_t smem = kSimt ? fwd_simt_smem_floats(dv) * sizeof(float)
+                            : fwd_smem_bytes<T>(dv);
+  auto kernel =
+      kSimt ? flash_fwd_simt_kernel<T, CT> : flash_fwd_kernel<T, CT>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(g.H, g.B, (g.S + kBq - 1) / kBq);
-  flash_fwd_kernel<T, CT><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, g);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, o, lse, g);
   return cudaGetLastError();
 }
 
@@ -1412,25 +1703,30 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // Bytes of dynamic shared memory one block needs at head dim d:
-// which = 0 forward, 1 backward dQ, 2 backward dK/dV, 3 and 4 the CUDA-core
-// yardsticks of dQ and dK/dV.
+// which = 0 forward (float32), 1 backward dQ, 2 backward dK/dV, 3 and 4 the
+// CUDA-core yardsticks of dQ and dK/dV, 5 the forward in bf16.
 long long flash_smem_bytes(int which, int d) {
   const int ct = columns_per_lane(d);
-  if (ct == 0 || which < 0 || which > 4) return -1;
+  if (ct == 0 || which < 0 || which > 5) return -1;
   const int dv = 32 * ct;
-  const size_t f[5] = {fwd_smem_floats(dv), dq_smem_floats(dv),
-                       dkv_smem_floats(dv), dq_simt_smem_floats(dv),
-                       dkv_simt_smem_floats(dv)};
-  return static_cast<long long>(f[which] * sizeof(float));
+  const size_t bytes[6] = {
+      fwd_smem_bytes<float>(dv), dq_smem_floats(dv) * sizeof(float),
+      dkv_smem_floats(dv) * sizeof(float),
+      dq_simt_smem_floats(dv) * sizeof(float),
+      dkv_simt_smem_floats(dv) * sizeof(float),
+      fwd_smem_bytes<__nv_bfloat16>(dv)};
+  return static_cast<long long>(bytes[which]);
 }
 
 // o (B, S, H, D) in q's dtype and lse (B, H, S) float32 from q (B, S, H, D)
 // and k, v (B, S, KV, D), all contiguous; bf16 = 0 for float32, 1 for
-// bfloat16 inputs and output; D <= 256, H % KV == 0. Returns cudaSuccess or
-// the error of the attribute call or the launch (cudaGetLastError()).
-int flash_fwd(const void* q, const void* k, const void* v, void* o,
-              void* lse, int bf16, int b, int s, int h, int kv, int d,
-              int causal, int window, int prefix, void* stream) {
+// bfloat16 inputs and output; D <= 256, H % KV == 0. simt = 0 runs the
+// tensor-core kernel (the one the wrappers call), 1 the CUDA-core
+// yardstick. Returns cudaSuccess or the error of the attribute call or the
+// launch (cudaGetLastError()).
+static int fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bf16, int b, int s, int h, int kv, int d,
+               int causal, int window, int prefix, void* stream, bool simt) {
   const size_t row_align = bf16 ? 8 : 16;
   const Geo g = make_geo(b, s, h, kv, d, causal, window, prefix,
                          aligned(q, row_align) && aligned(k, row_align) &&
@@ -1438,9 +1734,11 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define REPRO_FWD(T, CT)                                                     \
-  return launch_fwd<T, CT>(static_cast<const T*>(q), static_cast<const T*>(k), \
-                           static_cast<const T*>(v), static_cast<T*>(o), l,  \
-                           g, st)
+  return simt ? launch_fwd<T, CT, true>(ARGS(T))                             \
+              : launch_fwd<T, CT, false>(ARGS(T))
+#define ARGS(T)                                                              \
+  static_cast<const T*>(q), static_cast<const T*>(k),                        \
+      static_cast<const T*>(v), static_cast<T*>(o), l, g, st
   switch (columns_per_lane(d) * (bf16 ? -1 : 1)) {
     case 1: REPRO_FWD(float, 1);
     case 2: REPRO_FWD(float, 2);
@@ -1452,7 +1750,24 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     case -8: REPRO_FWD(__nv_bfloat16, 8);
     default: return cudaErrorInvalidValue;
   }
+#undef ARGS
 #undef REPRO_FWD
+}
+
+int flash_fwd(const void* q, const void* k, const void* v, void* o,
+              void* lse, int bf16, int b, int s, int h, int kv, int d,
+              int causal, int window, int prefix, void* stream) {
+  return fwd(q, k, v, o, lse, bf16, b, s, h, kv, d, causal, window, prefix,
+             stream, false);
+}
+
+// The same arguments and result through the CUDA-core kernel it replaced, for
+// timing the tensor-core kernel against it; no wrapper calls it.
+int flash_fwd_simt(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int bf16, int b, int s, int h, int kv, int d,
+                   int causal, int window, int prefix, void* stream) {
+  return fwd(q, k, v, o, lse, bf16, b, s, h, kv, d, causal, window, prefix,
+             stream, true);
 }
 
 // Backward, launch 1: dq (B, S, H, D) and delta (B, H, S) from q, k, v,

@@ -22,8 +22,8 @@
 // The reduction index k of one step may be permuted at will, as long as A
 // and B agree: a caller can load the pair k = t, t + 4 from any two rows.
 //
-// Used by the dQ and dK/dV passes of flash_attention.cu and by the four
-// contractions of ssd_scan.cu.
+// Used by the forward and the dQ and dK/dV passes of flash_attention.cu and
+// by the four contractions of ssd_scan.cu.
 #pragma once
 
 #include <stdint.h>
@@ -80,13 +80,18 @@ __device__ __forceinline__ FragB frag_b(float b0, float b1) {
 
 // small += lo(a) hi(b) + hi(a) lo(b); big += hi(a) hi(b). Two accumulators,
 // so that consecutive steps of one product do not wait on each other's
-// result; the caller adds small into big once, at the end.
+// result; the caller adds small into big once, at the end. An operand that
+// is exact in TF32 (a bf16 value: 8 significand bits) has lo = 0, and with
+// kALo or kBLo false the product of its zero lo part is skipped.
+template <bool kALo = true, bool kBLo = true>
 __device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
                                      const FragA& a, const FragB& b) {
-  mma(small, a.x[0].lo, a.x[1].lo, a.x[2].lo, a.x[3].lo, b.x[0].hi,
-      b.x[1].hi);
-  mma(small, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b.x[0].lo,
-      b.x[1].lo);
+  if (kALo)
+    mma(small, a.x[0].lo, a.x[1].lo, a.x[2].lo, a.x[3].lo, b.x[0].hi,
+        b.x[1].hi);
+  if (kBLo)
+    mma(small, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b.x[0].lo,
+        b.x[1].lo);
   mma(big, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b.x[0].hi, b.x[1].hi);
 }
 

@@ -96,7 +96,13 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (b, s, h, d), k and v (b, s, kv, d), contiguous float32 or
     bfloat16 on one CUDA device, d <= 256. Returns the output (b, s, h, d)
-    in q's dtype and the per-row log-sum-exp (b, h, s) in float32."""
+    in q's dtype and the per-row log-sum-exp (b, h, s) in float32.
+
+    One kernel for both dtypes, on the tensor cores: float32 products as
+    3xTF32 (float32 accuracy); bfloat16 inputs are exact in TF32, so the
+    kernel skips their zero lo parts (one product for the logits, two for
+    P V). The CUDA-core kernel it replaced stays in the library as
+    ``flash_fwd_simt``, a yardstick that no wrapper calls."""
     b, s, h, kv, d = _check_inputs(q, k, v, (torch.float32, torch.bfloat16),
                                    window, prefix_len)
     o = torch.empty_like(q)
@@ -109,9 +115,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                            int(causal), window, prefix_len,
                            runtime.stream_of(q))
     if rc != 0:
-        runtime.check(lib, rc, f"flash_fwd (d={d}: "
-                               f"{lib.flash_smem_bytes(0, d)} bytes of "
-                               "shared memory per block)")
+        smem = lib.flash_smem_bytes(5 if q.dtype == torch.bfloat16 else 0, d)
+        runtime.check(lib, rc, f"flash_fwd (d={d}: {smem} bytes of shared "
+                               "memory per block)")
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
 

@@ -1,6 +1,6 @@
-"""The 3xTF32 split that the flash backward passes (dQ and dK/dV) run on
-Hopper's tensor cores (``src/repro_torch/csrc/mma_tf32x3.cuh``), emulated
-in PyTorch on the CPU.
+"""The 3xTF32 split that the flash kernels (the forward and the dQ and
+dK/dV passes) run on Hopper's tensor cores
+(``src/repro_torch/csrc/mma_tf32x3.cuh``), emulated in PyTorch on the CPU.
 
 A float32 x is split into hi = cvt.rna.tf32.f32(x) and lo =
 cvt.rna.tf32.f32(x - hi); each product a b is lo(a) hi(b) + hi(a) lo(b) +
@@ -19,7 +19,12 @@ Tolerances:
   product; the kernels' own bound against the plain version on the card is
   1e-3), and one-product TF32, the control, at least 10x farther;
 - against ``jax.grad`` of the JAX package's reference: rtol 1e-4, atol
-  1e-5, as ``tests/test_torch_flash.py`` holds the port's gradients.
+  1e-5, as ``tests/test_torch_flash.py`` holds the port's gradients;
+- the forward (its tiles, the split, per-tile O fragments joined by
+  float32 multiply-adds, logits scaled after the product) against the
+  plain version and JAX's ``flash_attention_pallas`` in interpret mode:
+  rtol 2e-4, atol 2e-5, the JAX kernel test's bound, which one-product
+  TF32, the control, misses.
 """
 import math
 
@@ -29,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
 from repro_torch.kernels.flash_attention import ref as t_ref
 
@@ -36,6 +43,18 @@ from repro_torch.kernels.flash_attention import ref as t_ref
 SHAPE = (1, 128, 4, 1, 64, True, 40, 0)
 SPLIT_REL = 1e-5
 CONTROL_FACTOR = 10
+FWD = dict(rtol=2e-4, atol=2e-5)
+# the forward's cases: a ragged S for its 64-query blocks and 32-key tiles
+# (rows past S, a part-filled warp), GQA, a window, a prefix, both, no
+# causal mask, and head dims the kernel pads (16, 40)
+FWD_CASES = [
+    (1, 100, 4, 1, 64, True, 0, 0),
+    (1, 100, 2, 2, 40, True, 30, 5),
+    (2, 77, 4, 2, 32, False, 20, 0),
+    (1, 128, 4, 2, 16, True, 0, 24),
+    (1, 160, 2, 1, 128, True, 48, 0),
+]
+FWD_BQ, FWD_BK, FWD_ROWS = 64, 32, 16   # block rows, key tile, warp rows
 
 
 def to_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +144,125 @@ def dq_on_tensor_cores(q, k, v, o, lse, dout, causal, window, prefix, mm):
             ds = p * (dp - delta[bi, hd][:, None])
             dq[bi, :, hd] = mm(ds, kh) * scale
     return dq
+
+
+def _padded_dim(d):
+    """The kernel's column count: D padded with zeros to 32, 64, 128 or
+    256."""
+    return next(w for w in (32, 64, 128, 256) if d <= w)
+
+
+def _tile_live(q0, nq, k0, nk, s, causal, window, prefix):
+    """The kernel's tile_live: false only when every pair is masked."""
+    if k0 < prefix:
+        return True
+    qlast, klast = min(q0 + nq, s) - 1, min(k0 + nk, s) - 1
+    if causal and k0 > qlast:
+        return False
+    return not (window > 0 and q0 - klast >= window)
+
+
+def fwd_on_tensor_cores(q, k, v, causal, window, prefix, mm):
+    """The forward kernel's arithmetic: per head, blocks of FWD_BQ query
+    rows visit the live key tiles of FWD_BK keys in order; each warp's
+    FWD_ROWS rows skip the tiles wholly masked for them. Per tile: S = Q K^T
+    over the padded columns in two halves joined by a float32 add, scaled by
+    1/sqrt(d) after the product, masked to -1e30; the online softmax; P V
+    into a fresh tile sum that joins the running O as O alpha + tile. Every
+    product goes through ``mm``. Returns o (b, s, h, d) and lse (b, h,
+    s)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    dv = _padded_dim(d)
+    pad = lambda t: torch.nn.functional.pad(t, (0, dv - d))
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    scale = torch.tensor(1.0) / torch.sqrt(torch.tensor(float(d)))
+    neg = torch.tensor(-1e30)
+    o = torch.zeros((b, s, h, dv))
+    lse = torch.zeros((b, h, s))
+    for bi in range(b):
+        for hd in range(h):
+            kh, vh = kp[bi, :, hd // rep], vp[bi, :, hd // rep]
+            for q0 in range(0, s, FWD_BQ):
+                tiles = [k0 for k0 in range(0, s, FWD_BK) if _tile_live(
+                    q0, FWD_BQ, k0, FWD_BK, s, causal, window, prefix)]
+                for r0 in range(q0, min(q0 + FWD_BQ, s), FWD_ROWS):
+                    rows = torch.arange(r0, min(r0 + FWD_ROWS, s))
+                    qh = qp[bi, rows, hd]
+                    m = torch.full((len(rows),), -1e30)
+                    l = torch.zeros(len(rows))
+                    acc = torch.zeros((len(rows), dv))
+                    for k0 in tiles:
+                        if not _tile_live(r0, FWD_ROWS, k0, FWD_BK, s,
+                                          causal, window, prefix):
+                            continue
+                        keys = torch.arange(k0, min(k0 + FWD_BK, s))
+                        kt, vt = kh[keys], vh[keys]
+                        half = dv // 2
+                        sc = (mm(qh[:, :half], kt[:, :half].T)
+                              + mm(qh[:, half:], kt[:, half:].T)) * scale
+                        ok = (rows[:, None] >= keys[None, :]) if causal \
+                            else torch.ones((len(rows), len(keys)),
+                                            dtype=torch.bool)
+                        ok = ok | (keys[None, :] < prefix)
+                        if window > 0:
+                            ok = ok & (((rows[:, None] - keys[None, :])
+                                        < window) | (keys[None, :] < prefix))
+                        sc = torch.where(ok, sc, neg)
+                        mx = torch.maximum(m, sc.max(-1).values)
+                        alpha = torch.exp(m - mx)
+                        p = torch.exp(sc - mx[:, None])
+                        l = l * alpha + p.sum(-1)
+                        m = mx
+                        acc = acc * alpha[:, None] + mm(p, vt)
+                    denom = torch.clamp(l, min=1e-37)
+                    o[bi, rows, hd] = acc / denom[:, None]
+                    lse[bi, hd, rows] = m + torch.log(denom)
+    return o[..., :d], lse
+
+
+def _fwd_inputs(shape, seed):
+    b, s, h, kv, d = shape[:5]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def _fwd_ids(shape):
+    return "b{}s{}h{}kv{}d{}c{}w{}p{}".format(*[int(x) for x in shape])
+
+
+@pytest.mark.parametrize("shape", FWD_CASES, ids=_fwd_ids)
+def test_fwd_split_products_match_the_plain_version(shape):
+    """The forward's arithmetic on split operands lies within the JAX
+    kernel test's rtol 2e-4, atol 2e-5 of the float32 plain version, o and
+    the log-sum-exp both; one-product TF32, the control, does not."""
+    mask = shape[5:]
+    q, k, v = map(torch.from_numpy, _fwd_inputs(shape, seed=sum(shape[:5])))
+    want = t_ref.flash_attention_ref(q, k, v, *mask)
+    b, s, h = shape[:3]
+    want_lse = torch.logsumexp(t_ref._logits(q, k, *mask), -1).reshape(
+        b, h, s)
+    got, lse = fwd_on_tensor_cores(q, k, v, *mask, mm=mm_3xtf32)
+    torch.testing.assert_close(got, want, **FWD)
+    torch.testing.assert_close(lse, want_lse, **FWD)
+    control, _ = fwd_on_tensor_cores(q, k, v, *mask, mm=mm_tf32)
+    assert not torch.allclose(control, want, **FWD), \
+        (control - want).abs().max().item()
+
+
+@pytest.mark.parametrize("shape", FWD_CASES, ids=_fwd_ids)
+def test_fwd_split_products_match_jax_pallas(shape):
+    """The same arithmetic against the JAX package's Pallas kernel in
+    interpret mode (one block over the whole sequence: its blocks must
+    divide S) within rtol 2e-4, atol 2e-5."""
+    mask = shape[5:]
+    arrays = _fwd_inputs(shape, seed=sum(shape[:5]) + 1)
+    want = flash_attention_pallas(*arrays, *mask, interpret=True)
+    got, _ = fwd_on_tensor_cores(*map(torch.from_numpy, arrays), *mask,
+                                 mm=mm_3xtf32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
 
 
 def _inputs(seed=0):

@@ -102,7 +102,23 @@ package. Phases, each of which raises on failure:
 11. mamba2-370m at full width (48 layers) with ``ssd_backend="cuda"``: 48
     SSD launches per prefill, its prefill logits against the chunked
     route, and the request's time;
-12. the flash-attention kernels against their plain versions: the
+12. the MoE path: moonshot-v1-16b-a3b at full width (48 layers, d_model
+    2048, 64 experts top-6 of d_ff 1408, 2 shared experts, vocab 163840,
+    random weights from seed 0): first at 2 layers (full width), its
+    prefill and 16 decode steps' logits on ``exact-cuda`` bit-identical to
+    ``exact-torch``; then ``repro_torch.launch.serve``'s set-up, which
+    programs each layer at w4a4 on ``exact-cuda`` as it is drawn (the
+    float32 expert stacks, 106 GB, never exist at once), and the static
+    loop (batch 8, prompt 512, 16 new tokens): 199 PIM launches per layer
+    and forward step (4 attention, 3 shared, 3 x 64 expert), all on the
+    wgmma route in prefill and on the small-M route in decode, no other
+    kernel; prefill and decode times, tokens/s, programming time, peak
+    memory, the weight planes one decode step reads and their bytes
+    bound, a profile of one request by stage (B1 by route, quantize +
+    nibbles, plane padding, the (E, T, ·) glue, the combine, attention,
+    the router); then the PIM kernel at the path's ten shapes (M = 4096
+    and 8) bit for bit and timed as for hymba;
+13. the flash-attention kernels against their plain versions: the
     forward on the JAX kernel test's cases in float32 and bfloat16 (within
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
     three backward kernels (dQ, dK/dV per query head, the head sum) at
@@ -123,7 +139,7 @@ package. Phases, each of which raises on failure:
     3xTF32 bound and its CUDA-core float32 bound; and the backward's three
     passes summed against SDPA's backward (its forward + backward minus
     its forward);
-13. the training path: gemma3-1b at full width (26 layers, d_model 1152,
+14. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
     gradient norm and every gradient leaf against the ``"jnp"`` route on
@@ -133,7 +149,7 @@ package. Phases, each of which raises on failure:
     ``TRAIN_STEPS`` timed: 26 launches of each flash kernel per step, no
     other kernel), one step with int8 gradient compression, and a profile
     of one step by stage;
-14. checkpoint and restart on the card at a reduced gemma3-1b: a run
+15. checkpoint and restart on the card at a reduced gemma3-1b: a run
     resumed from a step-6 checkpoint against the unbroken run.
 
 Each path's launch counts are set to 0 just before its requests and read
@@ -1503,33 +1519,45 @@ def logit_gap(torch, got, want, vocab, what, tol=None):
 
 
 def with_substrate(planned, substrate):
-    """The planned tree with every plan re-stamped to ``substrate``."""
-    import dataclasses
+    """The planned tree with every plan re-stamped to ``substrate`` (an
+    expert stack's shared config sits on its ``dense`` plan)."""
     if isinstance(planned, dict):
         return {k: with_substrate(v, substrate) for k, v in planned.items()}
     if isinstance(planned, list):
-        return [dataclasses.replace(p, cfg=dataclasses.replace(
-            p.cfg, substrate=substrate)) for p in planned]
+        return [restamp(p, substrate) for p in planned]
     return planned
+
+
+def restamp(plan, substrate):
+    import dataclasses
+    if hasattr(plan, "dense"):
+        return dataclasses.replace(plan, dense=restamp(plan.dense, substrate))
+    return dataclasses.replace(plan, cfg=dataclasses.replace(
+        plan.cfg, substrate=substrate))
+
+
+def layer_plans(planned):
+    """Every plan of a planned layer tree (the per-layer lists)."""
+    if isinstance(planned, dict):
+        return [p for v in planned.values() for p in layer_plans(v)]
+    return list(planned) if isinstance(planned, list) else []
 
 
 def lm_plan_shapes(planned):
     """(M, K, N) as the PIM kernel sees them -> launches per request
-    (one prefill of B * S rows, LM_GEN decode steps of B rows)."""
+    (one prefill of B * S rows, LM_GEN decode steps of B rows); an expert
+    stack launches once per expert."""
     shapes = Counter()
-    for blk in ("attn", "mlp"):
-        for plans in planned["layers"][blk].values():
-            if not isinstance(plans, list):
-                continue
-            for plan in plans:
-                k, n = plan.planes.shape[1:]
-                shapes[(LM_BATCH * LM_PROMPT, k, n)] += 1
-                shapes[(LM_BATCH, k, n)] += LM_GEN
+    for plan in layer_plans(planned["layers"]):
+        k, n = getattr(plan, "dense", plan).planes.shape[-2:]
+        count = getattr(plan, "num_experts", 1)
+        shapes[(LM_BATCH * LM_PROMPT, k, n)] += count
+        shapes[(LM_BATCH, k, n)] += LM_GEN * count
     return shapes
 
 
-def b1_by_phase(rows):
-    """B1's time per hymba request split into prefill (the wgmma route,
+def b1_by_phase(rows, what="hymba"):
+    """B1's time per ``what`` request split into prefill (the wgmma route,
     beside the mma.sync yardstick, the wgmma route on K-major planes, the
     two library calls and the bound) and decode (small-M route, with the
     tiled yardstick at the same shapes), each the per-shape time times the
@@ -1558,7 +1586,7 @@ def b1_by_phase(rows):
                          ("prefill_bound_ops_ms", "fused_bound_ops_ms")):
             if r.get(src) is not None:  # hymba's prefill rows have all
                 split[key] += r[src] * count
-    log(f"B1 per hymba request: prefill {split['prefill_ms']:.3f} ms on "
+    log(f"B1 per {what} request: prefill {split['prefill_ms']:.3f} ms on "
         f"the wgmma route (the mma.sync yardstick "
         f"{split['prefill_mma_sync_ms']:.3f} ms; on K-major planes, no "
         f"transposition, {split['prefill_kmajor_ms']:.3f} ms; torch._int_mm"
@@ -2023,6 +2051,349 @@ def mamba2_path(torch, dev, mods, counters):
     del params, ssd_args
     torch.cuda.empty_cache()
     return numbers
+
+
+# ---------------------------------------------------------------------------
+# The MoE path: moonshot-v1-16b-a3b served at full width on exact-cuda
+# ---------------------------------------------------------------------------
+MOONSHOT = "moonshot-v1-16b-a3b"
+# exact-cuda against exact-torch at full width on this many layers: the
+# plain substrate's float64 products over 64 experts make 48 slow
+MOE_EXACT_LAYERS = 2
+# moonshot's B1 (K, N) as the plans pad them: attention, shared-expert
+# up/gate and down (K 2816 -> 3072), expert up/gate and down (K 1408 ->
+# 1536); every one at the prefill's and the decode step's M
+MOE_KN = {"attention": (2048, 2048), "shared_up": (2048, 2816),
+          "shared_down": (3072, 2048), "expert_up": (2048, 1408),
+          "expert_down": (1536, 2048)}
+
+
+def moe_layer_launches(cfg):
+    """B1 launches per layer and forward step: q, k, v, o; the shared
+    experts' up, gate and down; and up, gate and down of every expert."""
+    return 4 + (3 if cfg.shared_experts else 0) + 3 * cfg.num_experts
+
+
+def moe_exactness(torch, dev, mods, cfg, tokens):
+    """exact-cuda against exact-torch at full width and MOE_EXACT_LAYERS
+    layers: the prefill logits and every decode step's, bit for bit, on
+    the tokens the kernel route generates."""
+    import dataclasses
+    lm, serve_mod, pim = mods["lm"], mods["serve"], mods["pim"]
+    short = dataclasses.replace(cfg, num_layers=MOE_EXACT_LAYERS)
+    planned = serve_mod.plan_params_for_pim(
+        lm.init_lm(short, 0, device=dev),
+        pim.PimConfig(weight_bits=4, act_bits=4, substrate="exact-cuda"))
+    plain = with_substrate(planned, "exact-torch")
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(planned, short, {"tokens": tokens},
+                               LM_PROMPT + LM_GEN)
+    want, ref_cache = lm.prefill(plain, short, {"tokens": tokens},
+                                 LM_PROMPT + LM_GEN)
+    if not torch.equal(logits, want):
+        raise AssertionError("moonshot exact-cuda prefill logits differ "
+                             "from exact-torch")
+    tok = logits.argmax(-1)[:, None]
+    for g in range(LM_GEN):
+        logits, cache = lm.decode_step(planned, short, cache, tok,
+                                       LM_PROMPT + g)
+        want, ref_cache = lm.decode_step(plain, short, ref_cache, tok,
+                                         LM_PROMPT + g)
+        if not torch.equal(logits, want):
+            raise AssertionError(f"moonshot decode step {g}: exact-cuda "
+                                 "logits differ from exact-torch")
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    del planned, plain, cache, ref_cache
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("moonshot logits not finite")
+    log(f"moonshot at full width and {MOE_EXACT_LAYERS} layers (exact-torch"
+        " at 48 layers is slow on the card): prefill logits and all "
+        f"{LM_GEN} decode steps' logits on exact-cuda bit-identical to "
+        f"exact-torch ({seconds:.1f} s for both routes)")
+    return {"layers": MOE_EXACT_LAYERS, "decode_steps": LM_GEN,
+            "bit_identical": True, "seconds": seconds}
+
+
+MOE_RANGES = (  # (module key, attribute, range name) wrapped while profiling
+    ("pim", "_quantize_activations", "quantize+nibbles"),
+    ("pim", "_pad_act_planes", "pad activation planes"),
+    ("attention", "_sdpa", "attention"),
+    ("moe", "_route", "router"),
+    ("moe", "_combine", "combine"),
+    ("moe", "_moe_pim", "expert FFN"),
+)
+MOE_KERNELS = {"B1, wgmma route (prefill)": "pim_matmul_wgmma_kernel",
+               "B1, small-M route (decode)": "pim_matmul_small_m_kernel"}
+
+
+def moe_profile(torch, mods, run, what):
+    """Device time of ``run`` by stage: B1 by route (its kernels by name);
+    quantize + nibbles, the activation-plane padding, attention, the
+    router and the combine (the kernels launched inside each range); the
+    (E, T, ·) glue: the expert FFN's range less the quantize, padding and
+    combine inside it (silu, products, the stacking of expert outputs,
+    the router-weight scatter; the profiler does not count the PIM
+    kernel, launched through ctypes, in any range, so B1 is not in it);
+    other: the rest of the busy time (norms,
+    residual adds, embedding and unembedding, the KV cache, the greedy
+    pick). A request holds about 25 host-side events per expert matmul,
+    millions in all, so stages are read from one prefill and one decode
+    step, and the whole request is profiled on the device alone
+    (:func:`moe_request_profile`)."""
+    from bisect import bisect_right
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(fn, label):
+        def wrapper(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    saved = [(mods[m], attr, getattr(mods[m], attr))
+             for m, attr, _ in MOE_RANGES]
+    for (mod, attr, fn), (_, _, label) in zip(saved, MOE_RANGES):
+        setattr(mod, attr, ranged(fn, label))
+    try:
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    events = list(prof.events())
+    labels = {label for _, _, label in MOE_RANGES}
+    device = [e for e in device_events(torch, prof) if e.name not in labels]
+    busy, window = busy_and_window(device, events)
+    ranges = {label: [] for label in labels}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name in labels:
+            ranges[e.name].append((e.time_range.start, e.time_range.end,
+                                   e.device_time_total))
+    ffn = sorted(ranges["expert FFN"])
+    starts = [r[0] for r in ffn]
+
+    def inside(label):
+        """Device time of ``label``'s ranges that lie in an expert FFN."""
+        total = 0.0
+        for s0, e0, t in ranges[label]:
+            i = bisect_right(starts, s0) - 1
+            if i >= 0 and e0 <= ffn[i][1]:
+                total += t
+        return total
+
+    stages = {label: sum(e.time_range.elapsed_us() for e in device
+                         if fragment in e.name)
+              for label, fragment in MOE_KERNELS.items()}
+    for label in ("quantize+nibbles", "pad activation planes", "attention",
+                  "router", "combine"):
+        stages[label] = sum(t for _, _, t in ranges[label])
+    stages["(E,T,.) glue"] = sum(t for _, _, t in ffn) - sum(
+        inside(label) for label in ("quantize+nibbles",
+                                    "pad activation planes", "combine"))
+    stages = {k: v / 1e3 for k, v in stages.items()}
+    stages["other"] = busy / 1e3 - sum(stages.values())
+    result = {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+              "device_idle_share": 1.0 - busy / window,
+              "device_events": len(device), "events": len(events),
+              "stages_ms": stages, "profiled_run_s": t1 - t0,
+              "processing_s": time.perf_counter() - t1}
+    log(f"profile of one moonshot {what}: device busy {busy / 1e3:.3f} ms "
+        f"of a {window / 1e3:.3f} ms profiled window (idle share "
+        f"{result['device_idle_share']:.3f}, {len(device)} device events, "
+        f"{len(events)} events, {result['profiled_run_s']:.1f} s profiled "
+        f"and {result['processing_s']:.1f} s to read); by stage: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    return result
+
+
+def busy_and_window(device, events):
+    """Device busy time (the union of the device activities' spans) and
+    the profiled window, in microseconds."""
+    if not device:
+        raise AssertionError("the profiler saw no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window = max(e.time_range.end for e in events) - \
+        min(e.time_range.start for e in events)
+    return busy, window
+
+
+def moe_request_profile(torch, run):
+    """One whole request profiled on the device alone (no host-side
+    events): busy time, the idle share over the window from its first
+    device activity to its last, and B1's device time and launches by
+    route."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = device_events(torch, prof)
+    busy, window = busy_and_window(device, device)
+    b1 = {label: [e.time_range.elapsed_us() for e in device
+                  if fragment in e.name]
+          for label, fragment in MOE_KERNELS.items()}
+    result = {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+              "device_idle_share": 1.0 - busy / window,
+              "device_events": len(device),
+              "b1_ms": {k: sum(v) / 1e3 for k, v in b1.items()},
+              "b1_kernels": {k: len(v) for k, v in b1.items()}}
+    log(f"device-only profile of one moonshot request: busy "
+        f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window (first to "
+        f"last device activity), idle share "
+        f"{result['device_idle_share']:.4f}, {len(device)} device events; "
+        "B1 " + ", ".join(f"{k} {result['b1_ms'][k]:.3f} ms over "
+                          f"{result['b1_kernels'][k]} kernels" for k in b1))
+    return result
+
+
+def moe_phase_launches(torch, mods, planned, cfg, tokens, counters):
+    """B1 launches by route of one prefill and of one decode step alone,
+    held to the route chooser on the path's shapes (at batch 8 x prompt
+    512 all prefill launches take the wgmma route, all decode launches the
+    small-M route); nothing else may launch."""
+    lm, kern = mods["lm"], mods["pim_kern"]
+    out = {}
+    reset_counts(*counters)
+    logits, cache = lm.prefill(planned, cfg, {"tokens": tokens},
+                               LM_PROMPT + LM_GEN)
+    torch.cuda.synchronize()
+    out["prefill"] = route_counts(kern, "pim_matmul_fused")
+    others = {k: v for k, v in read_counts(*counters).items()
+              if v and k != "pim_matmul_fused"}
+    reset_counts(*counters)
+    lm.decode_step(planned, cfg, cache, logits.argmax(-1)[:, None],
+                   LM_PROMPT)
+    torch.cuda.synchronize()
+    out["decode_step"] = route_counts(kern, "pim_matmul_fused")
+    others.update({k: v for k, v in read_counts(*counters).items()
+                   if v and k != "pim_matmul_fused"})
+    shapes = lm_plan_shapes(planned)
+    want = {"prefill": expected_routes(kern, Counter({
+                s: c for s, c in shapes.items()
+                if s[0] == LM_BATCH * LM_PROMPT}), 1),
+            "decode_step": expected_routes(kern, Counter({
+                s: c // LM_GEN for s, c in shapes.items()
+                if s[0] == LM_BATCH}), 1)}
+    per_step = cfg.num_layers * moe_layer_launches(cfg)
+    if out != want or others or any(
+            sum(r.values()) != per_step for r in out.values()):
+        raise AssertionError(f"moonshot B1 launches by phase {out}, other "
+                             f"kernels {others}; expected {want}, "
+                             f"{per_step} per forward step")
+    return out
+
+
+def moonshot_path(torch, dev, mods, counters):
+    """(e) moonshot-v1-16b-a3b at full width (48 layers, d_model 2048, 64
+    experts top-6 of d_ff 1408, 2 shared experts, vocab 163840), random
+    weights from seed 0: exact-cuda against exact-torch at 2 layers, then
+    serving's set-up (each layer programmed at w4a4 on exact-cuda as it is
+    drawn) and the static loop at batch 8, prompt 512, 16 new tokens:
+    launches by route, times, memory, a profile by stage."""
+    serve_mod, kern = mods["serve"], mods["pim_kern"]
+    cfg = mods["configs"].get_config(MOONSHOT)
+    tokens = lm_tokens(torch, dev, cfg.vocab_size)
+    out = {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "experts": cfg.num_experts,
+                      "top_k": cfg.experts_per_token,
+                      "expert_d_ff": cfg.moe_d_ff,
+                      "shared_experts": cfg.shared_experts,
+                      "vocab": cfg.vocab_size, "batch": LM_BATCH,
+                      "prompt": LM_PROMPT, "gen": LM_GEN, "bits": "w4a4"}}
+    out["exactness"] = moe_exactness(torch, dev, mods, cfg, tokens)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, planned, substrate, _, _ = serve_mod._setup(
+        MOONSHOT, None, None, True, 4, False, "exact-cuda", None,
+        device=dev)
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+    out["setup_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["resident_bytes"] = torch.cuda.memory_allocated()
+    plans = layer_plans(planned["layers"])
+    out["step_plane_bytes"] = sum(getattr(p, "dense", p).planes.numel()
+                                  for p in plans)
+    out["decode_step_bytes_bound_ms"] = out["step_plane_bytes"] \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"moonshot set-up (init + programming, layer by layer, on "
+        f"{substrate}): {out['program_s']:.1f} s, resident "
+        f"{out['resident_bytes'] / 2 ** 30:.3f} GiB, set-up peak "
+        f"{out['setup_peak_bytes'] / 2 ** 30:.3f} GiB; weight planes read "
+        f"per decode step {out['step_plane_bytes'] / 1e9:.3f} GB (bytes "
+        f"bound {out['decode_step_bytes_bound_ms']:.3f} ms)")
+
+    (generated, _, _, logits), numbers = lm_serve_requests(
+        torch, serve_mod, planned, cfg, tokens, counters)
+    out.update(numbers)
+    per_step = cfg.num_layers * moe_layer_launches(cfg)
+    want = {"pim_matmul_fused": per_step * (1 + LM_GEN) * LM_REQUESTS}
+    got = numbers["launches"]
+    if any(got[k] != v for k, v in want.items()) or any(
+            got[k] for k in got if k not in want):
+        raise AssertionError(f"moonshot launches {got}, expected {want} "
+                             "and no other kernel")
+    out["launches_by_route"] = route_counts(kern, "pim_matmul_fused")
+    out["shapes"] = lm_plan_shapes(planned)
+    want_routes = expected_routes(kern, out["shapes"], LM_REQUESTS)
+    if out["launches_by_route"] != want_routes:
+        raise AssertionError(f"moonshot routes {out['launches_by_route']},"
+                             f" expected {want_routes}")
+    out["launches_by_phase"] = moe_phase_launches(torch, mods, planned, cfg,
+                                                  tokens, counters)
+    log(f"moonshot path: {LM_REQUESTS} requests of batch {LM_BATCH}, "
+        f"prompt {LM_PROMPT}, {LM_GEN} new tokens, finite logits; "
+        f"pim_matmul_fused per prefill {out['launches_by_phase']['prefill']}"
+        f", per decode step {out['launches_by_phase']['decode_step']} "
+        f"({moe_layer_launches(cfg)} per layer), no other kernel; by route "
+        f"over the requests {out['launches_by_route']}")
+    log(f"moonshot serving: prefill median {out['prefill_ms_median']:.3f} "
+        f"ms ({', '.join(f'{t:.3f}' for t in out['prefill_ms'])}), decode "
+        f"median {out['decode_ms_per_token_median']:.3f} ms/token "
+        f"({', '.join(f'{t:.3f}' for t in out['decode_ms_per_token'])}), "
+        f"{out['tokens_per_s']:.2f} tokens/s, programming "
+        f"{out['program_s']:.1f} s, peak device memory "
+        f"{out['peak_bytes'] / 2 ** 30:.3f} GiB")
+    lm = mods["lm"]
+    out["profile"] = moe_request_profile(
+        torch, lambda: serve_mod.static_loop(planned, cfg, tokens, LM_GEN))
+    out["prefill_profile"] = moe_profile(
+        torch, mods, lambda: lm.prefill(planned, cfg, {"tokens": tokens},
+                                        LM_PROMPT + LM_GEN), "prefill")
+    _, cache = lm.prefill(planned, cfg, {"tokens": tokens},
+                          LM_PROMPT + LM_GEN)
+    tok = generated[:, :1]
+    out["decode_step_profile"] = moe_profile(
+        torch, mods, lambda: lm.decode_step(planned, cfg, cache, tok,
+                                            LM_PROMPT), "decode step")
+    pre, step = (out["prefill_profile"]["stages_ms"],
+                 out["decode_step_profile"]["stages_ms"])
+    out["request_stages_ms"] = {k: pre[k] + LM_GEN * step[k] for k in pre}
+    log("moonshot device time per request by stage (one prefill + "
+        f"{LM_GEN} x one decode step): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in out["request_stages_ms"].items()))
+    del planned, plans, generated, logits, cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def ssd_entry(hymba, err):
@@ -2853,7 +3224,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ssd_scan as skern
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train
-    from repro_torch.models import attention, cnn, lm, ssm
+    from repro_torch.models import attention, cnn, lm, moe, ssm
 
     # every plain version that runs on the card here (the SSD scan's
     # chunked form, the LM's float matmuls) runs in full float32, not TF32
@@ -2937,6 +3308,29 @@ def main() -> int:
     kernels.append(ssd_entry(hymba, ssd_err))
     entry = serve_entry_phase(torch, serve_mod, configs, counters)
     mamba2 = mamba2_path(torch, dev, mods, counters)
+    mods["moe"] = moe
+    moonshot = moonshot_path(torch, dev, mods, counters)
+    moe_err = lm_kernel_checks(torch, dev, kern, ref, moonshot["shapes"])
+    moe_rows = shape_numbers(torch, dev, kern, ref, moonshot["shapes"],
+                             with_bias=False)
+    moonshot["b1_by_phase"] = b1_by_phase(moe_rows, "moonshot")
+    b1 = moonshot["b1_by_phase"]
+    kernels.append(kernel_entry(
+        "pim_matmul_fused", "fused", moe_rows, moonshot["launches"],
+        {"pim_matmul_fused": moe_err}, path="moonshot-v1-16b-a3b pim",
+        routes=moonshot["launches_by_route"],
+        per=(f"one moonshot-v1-16b-a3b request (batch {LM_BATCH}, prompt "
+             f"{LM_PROMPT}, {LM_GEN} new tokens, w4a4; "
+             f"{moe_layer_launches(configs.get_config(MOONSHOT))} launches "
+             "per layer and step, 48 layers): sum over the prefill's "
+             f"launches (wgmma route, device time: {b1['prefill_ms']:.3f} "
+             f"ms, the mma.sync yardstick {b1['prefill_mma_sync_ms']:.3f} "
+             f"ms, bound {b1['prefill_bound_ms']:.3f} ms) and the decode "
+             "steps' (small-M route, device time with cold weights: "
+             f"{b1['decode_ms']:.3f} ms, the tiled yardstick "
+             f"{b1['decode_tiled_ms']:.3f} ms, bound "
+             f"{b1['decode_bound_ms']:.3f} ms); library_ms covers the "
+             "prefill shapes (torch._int_mm takes M > 16)")))
     mods.update({"train": train, "flash_kern": fkern, "tree": tree})
     training = train_path(torch, dev, mods, counters)
     kernels += flash_entries(flash_rows, training["config"]["windows"],
@@ -2959,6 +3353,7 @@ def main() -> int:
              "studies": studies, "ssd_shapes": ssd_rows,
              "hymba": listed(hymba), "hymba_shapes": lm_rows,
              "serve_entry": entry, "mamba2": mamba2,
+             "moonshot": listed(moonshot), "moonshot_shapes": moe_rows,
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "kernels": kernels},
             indent=1, default=str))

@@ -75,10 +75,15 @@ def _field_names(obj: Any):
 
 
 def plan_from_reference(plan: Any, device=None) -> pim.Plan:
-    """A reference ``DensePlan`` or ``DepthwisePlan`` (or a mapping of its
-    fields) -> the port's plan of the same kind, fields unchanged."""
+    """A reference ``DensePlan``, ``DepthwisePlan`` or
+    ``ExpertStackedPlan`` (or a mapping of its fields) -> the port's plan
+    of the same kind, fields unchanged."""
     get = plan.get if isinstance(plan, Mapping) else \
         (lambda name, default=None: getattr(plan, name, default))
+    if get("dense") is not None:
+        return pim.ExpertStackedPlan(
+            dense=plan_from_reference(get("dense"), device),
+            num_experts=int(get("num_experts")))
     cfg = config_from_reference(get("cfg"))
     values = tensor_from_numpy(get("values"), device)
     scale = tensor_from_numpy(get("scale"), device)
@@ -100,25 +105,38 @@ def plans_from_reference(plans: Mapping[str, Any], device=None
             for name, p in plans.items()}
 
 
+_PLAN_ARRAYS = ("values", "scale", "planes", "padded_scale")
+
+
+def _layer_plan(dense: Any, i: int, arrays: Dict[str, np.ndarray]) -> dict:
+    """Layer ``i``'s fields of a vmapped reference ``DensePlan``."""
+    return dict({f: arrays[f][i] for f in _PLAN_ARRAYS}, bits=dense.bits,
+                k=dense.k, n=dense.n, cfg=dense.cfg)
+
+
 def planned_params_from_reference(tree: Any, device=None) -> Any:
     """The reference's ``plan_params_for_pim`` tree -> the port's.
 
     There, each planned projection is one vmapped ``DensePlan`` whose
     array fields carry a leading layer axis while ``bits``, ``k``, ``n``
-    and ``cfg`` are shared pytree aux data; here it becomes a list of
-    per-layer plans (what ``repro_torch.launch.serve.plan_params_for_pim``
-    builds). Every other leaf converts as in
-    :func:`params_from_reference`."""
+    and ``cfg`` are shared pytree aux data, and each expert stack one
+    ``ExpertStackedPlan`` whose ``dense`` fields carry (L, E, ...) axes;
+    here each becomes a list of per-layer plans (what
+    ``repro_torch.launch.serve.plan_params_for_pim`` builds). Every other
+    leaf converts as in :func:`params_from_reference`."""
     if isinstance(tree, Mapping):
         return {k: planned_params_from_reference(v, device)
                 for k, v in tree.items()}
-    if hasattr(tree, "planes"):          # a (vmapped) plan
-        fields = ("values", "scale", "planes", "padded_scale")
-        arrays = {f: np.asarray(getattr(tree, f)) for f in fields}
-        return [plan_from_reference(
-            dict({f: arrays[f][i] for f in fields}, bits=tree.bits,
-                 k=tree.k, n=tree.n, cfg=tree.cfg), device)
-            for i in range(arrays["values"].shape[0])]
+    dense = getattr(tree, "dense", None)
+    if dense is not None or hasattr(tree, "planes"):   # a (vmapped) plan
+        source = tree if dense is None else dense
+        arrays = {f: np.asarray(getattr(source, f)) for f in _PLAN_ARRAYS}
+        layers = [_layer_plan(source, i, arrays)
+                  for i in range(arrays["values"].shape[0])]
+        if dense is not None:
+            layers = [{"dense": d, "num_experts": tree.num_experts}
+                      for d in layers]
+        return [plan_from_reference(p, device) for p in layers]
     return tensor_from_numpy(tree, device)
 
 

@@ -20,8 +20,13 @@ substrate runs. Dispatch lives in :mod:`repro_torch.engine`.
      transmission noise, a shared auto-ranged ADC and integer code
      accumulation; the two are bit-identical with ``rng=None``.
 
-ABFT verification and expert-stacked plans of the reference come with
-later slices of the port.
+  6. MoE expert stacks are programmed as one :class:`ExpertStackedPlan`
+     (every :class:`DensePlan` field stacked on a leading expert axis, the
+     reference layout); the engine drives each expert's array with that
+     expert's own math.
+
+ABFT verification (``verify != "off"``) is not ported yet and raises
+(ROADMAP A9), for expert stacks too.
 """
 from __future__ import annotations
 
@@ -76,8 +81,9 @@ class PimConfig:
     def __post_init__(self):
         if self.verify != "off":
             raise NotImplementedError(
-                "ABFT verification (verify != 'off') arrives with the "
-                "port's reliability slice")
+                "ABFT verification (verify != 'off'), for dense plans and "
+                "expert stacks alike, arrives with the port's reliability "
+                "slice (ROADMAP A9)")
 
     @property
     def weight_planes(self) -> int:
@@ -146,6 +152,55 @@ class DensePlan(Plan):
 
 
 @dataclasses.dataclass
+class ExpertStackedPlan(Plan):
+    """An (E, K, N) MoE expert stack programmed as E stationary arrays:
+    ``dense`` is a :class:`DensePlan` whose tensor fields carry a leading
+    expert axis (``values`` (E, K, N), ``scale`` (E, 1, N), ``planes``
+    (E, Pw, Kp, Np), ``padded_scale`` (E, 1, Np)) while ``bits``, ``k``,
+    ``n`` and ``cfg`` are shared: the reference's vmapped layout, so
+    plans convert between the two packages. :meth:`expert` gives expert
+    ``e``'s plan as views, its planes the contiguous (Pw, Kp, Np) block
+    the kernel takes without a copy."""
+
+    dense: DensePlan             # fields stacked over a leading expert axis
+    num_experts: int = 0
+
+    @property
+    def cfg(self) -> PimConfig:  # type: ignore[override]
+        return self.dense.cfg
+
+    @property
+    def bits(self) -> int:
+        return self.dense.bits
+
+    @property
+    def shape(self):
+        return (self.num_experts, self.dense.k, self.dense.n)
+
+    def dequantized(self) -> torch.Tensor:
+        return self.dense.dequantized()
+
+    def expert(self, e: int) -> DensePlan:
+        """Expert ``e``'s plan: views of the stacked fields."""
+        d = self.dense
+        return dataclasses.replace(d, values=d.values[e], scale=d.scale[e],
+                                   planes=d.planes[e],
+                                   padded_scale=d.padded_scale[e])
+
+    def experts(self, lo: int, hi: int) -> "ExpertStackedPlan":
+        """The stack of experts ``lo`` to ``hi - 1`` (views)."""
+        d = self.dense
+        return ExpertStackedPlan(
+            dense=dataclasses.replace(
+                d, values=d.values[lo:hi], scale=d.scale[lo:hi],
+                planes=d.planes[lo:hi], padded_scale=d.padded_scale[lo:hi]),
+            num_experts=hi - lo)
+
+    def to(self, device) -> "ExpertStackedPlan":
+        return dataclasses.replace(self, dense=self.dense.to(device))
+
+
+@dataclasses.dataclass
 class DepthwisePlan(Plan):
     """Per-channel planned weights for depthwise convolutions: each
     channel's (kh*kw,) filter is its own stationary column."""
@@ -168,19 +223,24 @@ class DepthwisePlan(Plan):
 def plan_from_qtensor(w_q: QTensor, cfg: PimConfig = DEFAULT_PIM
                       ) -> DensePlan:
     """Plan already-quantized (K, N) codes: nibble planes pre-padded to the
-    kernel tile multiples and to a WDM-chunk boundary."""
+    kernel tile multiples and to a WDM-chunk boundary. Codes (E, K, N)
+    with scales (E, 1, N) give the fields of an expert stack, each expert
+    planned as a (K, N) matrix would be."""
     if cfg.weight_bits != w_q.bits:
         # adopted codes define the weight width; the stamped cfg must agree
         cfg = dataclasses.replace(cfg, weight_bits=w_q.bits)
-    k, n = w_q.values.shape
-    planes = to_nibbles(w_q.values, w_q.bits)              # (Pw, K, N)
+    lead = tuple(w_q.values.shape[:-2])
+    k, n = w_q.values.shape[-2:]
+    planes = to_nibbles(w_q.values, w_q.bits)        # (Pw, *lead, K, N)
+    if lead:
+        planes = planes.movedim(0, -3)               # (*lead, Pw, K, N)
     _, bn, bk = kernel_tiles(1, k, n)
     pad_k, pad_n = (-k) % bk, (-n) % bn
     chunk = min(cfg.wdm_chunk, k) if cfg.wdm_chunk > 0 else k
     pad_k += (-(k + pad_k)) % chunk
     if pad_k or pad_n:
         planes = F.pad(planes, (0, pad_n, 0, pad_k))
-    padded_scale = F.pad(torch.broadcast_to(w_q.scale, (1, n)),
+    padded_scale = F.pad(torch.broadcast_to(w_q.scale, lead + (1, n)),
                          (0, pad_n)).contiguous()
     return DensePlan(values=w_q.values, scale=w_q.scale,
                      planes=planes.contiguous(), padded_scale=padded_scale,
@@ -195,6 +255,21 @@ def prepare_weights(w: torch.Tensor, cfg: PimConfig = DEFAULT_PIM
         raise ValueError(f"prepare_weights expects (K, N), got {w.shape}")
     return plan_from_qtensor(quantize(w, bits=cfg.weight_bits, axis=(0,)),
                              cfg)
+
+
+def prepare_expert_weights(w: torch.Tensor, cfg: PimConfig = DEFAULT_PIM
+                           ) -> ExpertStackedPlan:
+    """Program an (E, K, N) expert stack: one stationary array per expert,
+    each quantized per output column, decomposed and padded as
+    :func:`prepare_weights` does a (K, N) matrix (the reference vmaps
+    ``prepare_weights``; the same per-column arithmetic runs here on the
+    whole stack at once)."""
+    if w.dim() != 3:
+        raise ValueError(
+            f"prepare_expert_weights expects (E, K, N), got {w.shape}")
+    dense = plan_from_qtensor(quantize(w, bits=cfg.weight_bits, axis=(1,)),
+                              cfg)
+    return ExpertStackedPlan(dense=dense, num_experts=w.shape[0])
 
 
 def prepare_depthwise_weights(w: torch.Tensor, cfg: PimConfig = DEFAULT_PIM
@@ -226,7 +301,9 @@ def _check_widths(cfg: PimConfig) -> None:
 
 def _quantize_activations(x2: torch.Tensor, cfg: PimConfig):
     """Dynamic per-row activation quantization + nibble decomposition.
-    Returns (QTensor, planes (Pa, M, K))."""
+    Returns (QTensor, planes (Pa, M, K)): the ``act`` that the matmul
+    functions below take instead of quantizing ``x2`` themselves (the
+    engine quantizes a row block once for every expert it meets)."""
     a_q = quantize(x2, bits=cfg.act_bits, axis=(1,))
     return a_q, to_nibbles(a_q.values, cfg.act_bits)
 
@@ -252,12 +329,12 @@ def _pad_bias(bias: Optional[torch.Tensor], plan: DensePlan
 
 
 def exact_torch_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
-                         bias: Optional[torch.Tensor] = None
+                         bias: Optional[torch.Tensor] = None, act=None
                          ) -> torch.Tensor:
     """``exact-torch`` substrate: the plain integer plane products +
     shift-and-add, dequantized in two float32 steps (counterpart of
     ``exact_jnp_matmul2d``)."""
-    a_q, a_planes = _quantize_activations(x2, cfg)
+    a_q, a_planes = act or _quantize_activations(x2, cfg)
     w_planes = plan.planes[:, :plan.k, :plan.n]
     acc = pim_matmul_ref(a_planes, w_planes)
     out = acc.to(torch.float32) * a_q.scale * plan.scale
@@ -267,12 +344,12 @@ def exact_torch_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
 
 
 def exact_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
-                        bias: Optional[torch.Tensor] = None
+                        bias: Optional[torch.Tensor] = None, act=None
                         ) -> torch.Tensor:
     """``exact-cuda`` substrate: the hand-written kernel with the fused
     dequant epilogue (counterpart of ``exact_pallas_matmul2d``). On CPU
     tensors the same call runs the kernel's plain version."""
-    a_q, a_planes = _quantize_activations(x2, cfg)
+    a_q, a_planes = act or _quantize_activations(x2, cfg)
     out = pim_ops.pim_matmul_fused(_pad_act_planes(a_planes, plan),
                                    plan.planes, a_q.scale,
                                    plan.padded_scale,
@@ -329,12 +406,12 @@ def _resolve_analog_sigma(cfg: PimConfig, rng: Optional[torch.Generator]
 
 
 def _analog_inputs(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
-                   rng: Optional[torch.Generator]):
+                   rng: Optional[torch.Generator], act=None):
     """Shared analog-substrate prep: dynamic activation quantization (the
     planes unpadded, (Pa, M, K)), the WDM chunk length, the
     effective noise sigma (0 without an rng) and the noise seed, a host
     int drawn from ``rng`` (a CPU ``torch.Generator``; no device sync)."""
-    a_q, a_planes = _quantize_activations(x2, cfg)
+    a_q, a_planes = act or _quantize_activations(x2, cfg)
     # wdm_chunk <= 0 means one chunk spans all of K, as in programming
     chunk = min(cfg.wdm_chunk, plan.k) if cfg.wdm_chunk > 0 else plan.k
     sigma = _resolve_analog_sigma(cfg, rng)
@@ -347,11 +424,13 @@ def _analog_inputs(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
 
 def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
                     bias: Optional[torch.Tensor] = None,
-                    rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                    rng: Optional[torch.Generator] = None, act=None
+                    ) -> torch.Tensor:
     """``analog`` substrate: the plain readout model (the kernel's plain
     version, folded over chunk blocks); the bias is added after the
     slice."""
-    a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng)
+    a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng,
+                                                       act)
     out = analog_readout_fused_ref(
         _pad_act_planes(a_planes, plan), plan.planes, a_q.scale,
         plan.padded_scale, chunk, cfg.adc_bits, sigma=sigma,
@@ -363,7 +442,7 @@ def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
 
 def analog_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
                          bias: Optional[torch.Tensor] = None,
-                         rng: Optional[torch.Generator] = None
+                         rng: Optional[torch.Generator] = None, act=None
                          ) -> torch.Tensor:
     """``analog-cuda`` substrate: the two-pass hand-written kernel, bias
     fused (counterpart of ``analog_pallas_matmul2d``). Bit-identical to
@@ -372,7 +451,8 @@ def analog_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
     planes go in unpadded: the kernels take them zero beyond their K, so
     the plan's K padding costs no copy and no work. On CPU tensors the
     same call runs the plain version."""
-    a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng)
+    a_q, a_planes, chunk, sigma, seed = _analog_inputs(x2, plan, cfg, rng,
+                                                       act)
     out = analog_ops.analog_matmul_fused(
         a_planes, plan.planes, a_q.scale, plan.padded_scale, seed,
         _pad_bias(bias, plan), chunk=chunk, adc_bits=cfg.adc_bits,

@@ -17,20 +17,23 @@ import torch
 from repro_torch.core import pim
 from repro_torch.engine.substrates import get_substrate
 
-_PROGRAM_KINDS = ("dense", "depthwise")
+_PROGRAM_KINDS = ("dense", "depthwise", "experts")
 
 
 def program(w: torch.Tensor, cfg: pim.PimConfig = pim.DEFAULT_PIM, *,
             kind: str = "dense", substrate: Optional[str] = None
             ) -> pim.Plan:
     """Program float weights — (K, N) for ``kind="dense"``, (K=kh*kw, C)
-    for ``kind="depthwise"`` — into a plan on a named substrate
-    (``substrate`` overrides ``cfg``'s). The plan lives where ``w`` does."""
+    for ``kind="depthwise"``, (E, K, N) for ``kind="experts"`` — into a
+    plan on a named substrate (``substrate`` overrides ``cfg``'s). The
+    plan lives where ``w`` does."""
     sub = get_substrate(substrate or cfg.resolved_substrate)
     if kind == "dense":
         return sub.program(w, cfg)
     if kind == "depthwise":
         return sub.program_depthwise(w, cfg)
+    if kind == "experts":
+        return sub.program_experts(w, cfg)
     raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                      f"{_PROGRAM_KINDS}")
 
@@ -38,12 +41,21 @@ def program(w: torch.Tensor, cfg: pim.PimConfig = pim.DEFAULT_PIM, *,
 def matmul(x: torch.Tensor, plan: pim.Plan, *,
            cfg: Optional[pim.PimConfig] = None,
            bias: Optional[torch.Tensor] = None,
-           rng: Optional[torch.Generator] = None) -> torch.Tensor:
+           rng: Optional[torch.Generator] = None,
+           paired: bool = False) -> torch.Tensor:
     """Drive activations past a programmed plan — no mode flags.
 
     The route is the plan's recorded substrate, overridable with an
-    explicit ``cfg``. Dense plans take x (..., K) -> (..., N), depthwise
-    plans x (..., K, C) -> (..., C); ``bias`` is an optional (N,) dense
+    explicit ``cfg``. Shapes follow the plan type:
+
+      DensePlan          x (..., K)    -> (..., N)
+      DepthwisePlan      x (..., K, C) -> (..., C)
+      ExpertStackedPlan  x (..., K)    -> (E, ..., N)   broadcast, or with
+                         ``paired=True``
+                         x (E, ..., K) -> (E, ..., N)   expert e sees x[e]
+
+    ``paired`` is never inferred from shapes, and on any other plan it
+    raises ``ValueError``. ``bias`` is an optional (N,) dense
     bias, fused into the kernel epilogue on ``exact-cuda`` and
     ``analog-cuda``. ``rng`` is an optional CPU ``torch.Generator`` that
     keys the analog substrates' transmission noise (the other substrates
@@ -64,4 +76,4 @@ def matmul(x: torch.Tensor, plan: pim.Plan, *,
             "into the plan at programming time — build the override with "
             "dataclasses.replace(plan.cfg, ...) to change only the route")
     sub = get_substrate(cfg.resolved_substrate)
-    return sub.matmul(x, plan, cfg=cfg, bias=bias, rng=rng)
+    return sub.matmul(x, plan, cfg=cfg, bias=bias, rng=rng, paired=paired)

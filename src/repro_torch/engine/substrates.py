@@ -25,7 +25,11 @@ Registered substrates:
   ``emulate``      weight-quantization-only float matmul.
 
 ``rng`` is an optional CPU ``torch.Generator``; only the analog
-substrates read it (transmission noise).
+substrates read it (transmission noise). An expert stack draws one seed
+per expert from it (in expert order) and gives each expert a generator of
+its own seeded with it, so expert ``e``'s noise depends only on ``rng``'s
+state and ``e``; the reference splits a JAX key per expert instead, and
+noise bits do not carry over between the packages anyway.
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ class Substrate:
     # whether matmul runs the int32 bit-sliced datapath (operand-width
     # guarded); float-only routes like ``emulate`` set this False
     integer_datapath: bool = True
+    # whether ``_dense2d`` takes ``act=`` (the rows' codes, scales and
+    # planes from ``pim._quantize_activations``) instead of quantizing
+    shares_activation_codes: bool = False
 
     # -- programming ------------------------------------------------------
     def stamp(self, cfg: pim.PimConfig) -> pim.PimConfig:
@@ -68,16 +75,32 @@ class Substrate:
         """Program (K=kh*kw, C) depthwise filters, one column per channel."""
         return pim.prepare_depthwise_weights(w, self.stamp(cfg))
 
+    def program_experts(self, w: torch.Tensor,
+                        cfg: pim.PimConfig = pim.DEFAULT_PIM
+                        ) -> pim.ExpertStackedPlan:
+        """Program an (E, K, N) expert stack, one array per expert."""
+        return pim.prepare_expert_weights(w, self.stamp(cfg))
+
     # -- execution --------------------------------------------------------
     def matmul(self, x: torch.Tensor, plan: pim.Plan, *,
                cfg: Optional[pim.PimConfig] = None,
                bias: Optional[torch.Tensor] = None,
-               rng: Optional[torch.Generator] = None) -> torch.Tensor:
+               rng: Optional[torch.Generator] = None,
+               paired: bool = False) -> torch.Tensor:
         """Dense plans take x (..., K) -> (..., N); depthwise plans take
-        x (..., K, C) -> (..., C)."""
+        x (..., K, C) -> (..., C). Expert stacks broadcast x (..., K) to
+        every expert -> (E, ..., N); with ``paired=True`` x carries a
+        leading (E, ...) axis and expert e sees only x[e] (the MoE
+        down-projection)."""
         cfg = plan.cfg if cfg is None else cfg
         if self.integer_datapath:
             pim._check_widths(cfg)
+        if isinstance(plan, pim.ExpertStackedPlan):
+            return self._experts(x, plan, cfg, bias, rng, paired)
+        if paired:
+            raise ValueError(
+                "paired=True is only meaningful for ExpertStackedPlan, "
+                f"got {type(plan).__name__}")
         if isinstance(plan, pim.DepthwisePlan):
             if bias is not None:
                 raise ValueError(
@@ -98,6 +121,47 @@ class Substrate:
         out = self._dense2d(x.reshape(-1, k), plan, cfg, bias, rng)
         return out.reshape(orig_shape[:-1] + (plan.n,))
 
+    def _experts(self, x: torch.Tensor, plan: pim.ExpertStackedPlan,
+                 cfg: pim.PimConfig, bias: Optional[torch.Tensor],
+                 rng: Optional[torch.Generator], paired: bool
+                 ) -> torch.Tensor:
+        """Each expert's own dense math, expert by expert (so the analog
+        auto-range is per expert, as under the reference's vmap). Where
+        the substrate quantizes activations, all rows are quantized in
+        one pass and each expert takes its rows' codes: per-row codes do
+        not depend on the other rows, so broadcast rows serve every
+        expert and paired rows equal a per-expert quantization."""
+        e, k, n = plan.shape
+        if paired and (x.dim() < 2 or x.shape[0] != e):
+            raise ValueError(f"paired expert input needs a leading ({e}, "
+                             f"...) axis, got {tuple(x.shape)}")
+        if x.shape[-1] != k:
+            raise ValueError(f"contraction mismatch {x.shape[-1]} vs plan "
+                             f"{k}")
+        lead = tuple(x.shape[1:-1] if paired else x.shape[:-1])
+        x2 = x.reshape(-1, k)
+        rows = x2.shape[0] // e if paired else x2.shape[0]
+        gens = [None] * e
+        if rng is not None:
+            seeds = torch.randint(0, 2 ** 31 - 1, (e,), generator=rng,
+                                  device="cpu").tolist()
+            gens = [torch.Generator().manual_seed(s) for s in seeds]
+        act = pim._quantize_activations(x2, cfg) \
+            if self.shares_activation_codes else None
+        outs = []
+        for i in range(e):
+            sel = slice(i * rows, (i + 1) * rows) if paired else slice(None)
+            shared = {}
+            if act is not None:
+                a_q, a_planes = act
+                shared["act"] = act if not paired else (
+                    dataclasses.replace(a_q, values=a_q.values[sel],
+                                        scale=a_q.scale[sel]),
+                    a_planes[:, sel].contiguous())
+            outs.append(self._dense2d(x2[sel], plan.expert(i), cfg, bias,
+                                      gens[i], **shared))
+        return torch.stack(outs).reshape((e,) + lead + (n,))
+
     def _dense2d(self, x2: torch.Tensor, plan: pim.DensePlan,
                  cfg: pim.PimConfig, bias: Optional[torch.Tensor],
                  rng: Optional[torch.Generator]) -> torch.Tensor:
@@ -115,9 +179,10 @@ class ExactCudaSubstrate(Substrate):
 
     name = pim.EXACT_CUDA
     is_exact = True
+    shares_activation_codes = True
 
-    def _dense2d(self, x2, plan, cfg, bias, rng):
-        return pim.exact_cuda_matmul2d(x2, plan, cfg, bias)
+    def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
+        return pim.exact_cuda_matmul2d(x2, plan, cfg, bias, act)
 
 
 class ExactTorchSubstrate(Substrate):
@@ -125,9 +190,10 @@ class ExactTorchSubstrate(Substrate):
 
     name = pim.EXACT_TORCH
     is_exact = True
+    shares_activation_codes = True
 
-    def _dense2d(self, x2, plan, cfg, bias, rng):
-        return pim.exact_torch_matmul2d(x2, plan, cfg, bias)
+    def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
+        return pim.exact_torch_matmul2d(x2, plan, cfg, bias, act)
 
 
 class AnalogSubstrate(Substrate):
@@ -136,9 +202,10 @@ class AnalogSubstrate(Substrate):
 
     name = pim.ANALOG
     is_exact = False
+    shares_activation_codes = True
 
-    def _dense2d(self, x2, plan, cfg, bias, rng):
-        return pim.analog_matmul2d(x2, plan, cfg, bias, rng)
+    def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
+        return pim.analog_matmul2d(x2, plan, cfg, bias, rng, act)
 
 
 class AnalogCudaSubstrate(Substrate):
@@ -148,9 +215,10 @@ class AnalogCudaSubstrate(Substrate):
 
     name = pim.ANALOG_CUDA
     is_exact = False
+    shares_activation_codes = True
 
-    def _dense2d(self, x2, plan, cfg, bias, rng):
-        return pim.analog_cuda_matmul2d(x2, plan, cfg, bias, rng)
+    def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
+        return pim.analog_cuda_matmul2d(x2, plan, cfg, bias, rng, act)
 
 
 class EmulateSubstrate(Substrate):

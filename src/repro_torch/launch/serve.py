@@ -2,10 +2,12 @@
 one batch of prompts, prefill, then lock-step greedy decode, with
 optional OPIMA-PIM weight execution.
 
-With ``--pim``, the attention (q/k/v/o) and MLP (up/gate/down)
-projections of every layer are *programmed once* into planned 'OPCM'
-form through :mod:`repro_torch.engine` (4-bit cells by default,
-nibble-decomposed and pre-padded), one ``DensePlan`` per layer, and the
+With ``--pim``, the attention (q/k/v/o), MLP and shared-expert
+(up/gate/down) projections of every layer are *programmed once* into
+planned 'OPCM' form through :mod:`repro_torch.engine` (4-bit cells by
+default, nibble-decomposed and pre-padded), one ``DensePlan`` per layer,
+and every MoE expert stack into one ``ExpertStackedPlan`` per layer; the
+weights are programmed layer by layer as they are drawn. The
 serving matmuls drive activations past them on the substrate named by
 ``--pim-substrate`` (default ``exact-cuda``, the hand-written kernel; the
 JAX names are accepted). Weights the engine does not cover (SSM
@@ -20,6 +22,8 @@ Not ported yet, and raising: ``--continuous`` and the compile cache
 Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --batch 8 --prompt-len 512 --gen 16 --pim
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --batch 8 --prompt-len 512 --gen 16 --pim
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from repro_torch.core.perfmodel import network_perf, total_power_w
 from repro_torch.core.pim import PimConfig
 from repro_torch.core.workloads import DenseSpec
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.lm import decode_step, init_lm, prefill
+from repro_torch.models.lm import (decode_step, init_lm, layer_trees,
+                                   prefill, stack_layers)
 from repro_torch.quant.quantize import fake_quantize
 
 # Weight suffixes the PIM deployment touches (layers.py naming
@@ -54,11 +59,14 @@ _PLANNED_BLOCKS = ("attn", "xattn", "mlp", "moe")
 
 
 def _will_plan(keys: Sequence[str], name: str, x) -> bool:
+    """Whether a leaf of one layer's tree (no layer axis) is programmed:
+    the (K, N) projections and (E, K, N) expert stacks of the planned
+    blocks."""
     if not any(k in _PLANNED_BLOCKS for k in keys):
         return False
     ndim = x.dim() if torch.is_tensor(x) else 0
-    return ((name.endswith(_PLANNED_PROJ_SUFFIXES) and ndim == 3) or
-            (name.endswith(_EXPERT_STACK_SUFFIXES) and ndim == 4))
+    return ((name.endswith(_PLANNED_PROJ_SUFFIXES) and ndim == 2) or
+            (name.endswith(_EXPERT_STACK_SUFFIXES) and ndim == 3))
 
 
 def _quantizable(name: str, x) -> bool:
@@ -66,54 +74,64 @@ def _quantizable(name: str, x) -> bool:
             name.endswith(PIM_WEIGHT_SUFFIXES))
 
 
-def plan_params_for_pim(params, cfg: PimConfig):
-    """Program the deployable weights into planned 'OPCM' form.
+def _quantize_leaf(name: str, v, cfg: PimConfig):
+    """A leaf fake-quantized per output column if it is quantizable; a
+    dict with every quantizable leaf so."""
+    if isinstance(v, dict):
+        return {k: _quantize_leaf(k, x, cfg) for k, x in v.items()}
+    if _quantizable(name, v):
+        return fake_quantize(v, cfg.weight_bits, axis=(v.dim() - 2,))
+    return v
 
-    Each layer-stacked (L, K, N) projection of the attention and MLP
-    blocks becomes a list of L :class:`~repro_torch.core.pim.DensePlan`,
-    one per layer, programmed from the original float weights on the
-    substrate ``cfg`` names (quantize + nibble-decompose + kernel pre-pad,
-    once). ``lm.layer_trees`` takes the list's entries per layer and
-    ``layers.proj`` dispatches each plan onto the engine. Every other
-    ``PIM_WEIGHT_SUFFIXES`` leaf of two or more dimensions (SSM
-    projections, embedding tables) is fake-quantized per output column,
-    with the JAX package's predicates."""
+
+def plan_layer(layer, cfg: PimConfig):
+    """One layer's parameters (no layer axis) in planned 'OPCM' form: each
+    (K, N) projection of the attention, MLP and shared-expert blocks
+    becomes a :class:`~repro_torch.core.pim.DensePlan`, each (E, K, N)
+    MoE expert stack an :class:`~repro_torch.core.pim.ExpertStackedPlan`,
+    programmed from the float weights on the substrate ``cfg`` names.
+    Every other ``PIM_WEIGHT_SUFFIXES`` leaf of two or more dimensions
+    (SSM projections) is fake-quantized per output column; the router
+    stays float. The JAX package's predicates."""
     sub = engine.get_substrate(cfg.resolved_substrate)
 
-    def plan_stack(v):
-        return [sub.program(v[i], cfg) for i in range(v.shape[0])]
-
-    def walk(tree, keys, plan):
+    def walk(tree, keys):
         out = {}
         for k, v in tree.items():
             path = keys + [k]
             if isinstance(v, dict):
-                out[k] = walk(v, path, plan)
+                out[k] = walk(v, path)
             elif _will_plan(path, k, v):
-                if v.dim() == 4:
-                    raise NotImplementedError(
-                        f"{'/'.join(path)}: expert-stacked plans are not "
-                        "ported yet (ROADMAP A2/A6)")
-                # programmed from the float weights, never fake-quantized
-                out[k] = plan_stack(v) if plan else v
-            elif _quantizable(k, v):
-                out[k] = fake_quantize(v, cfg.weight_bits,
-                                       axis=(v.dim() - 2,))
+                out[k] = (sub.program_experts(v, cfg) if v.dim() == 3
+                          else sub.program(v, cfg))
             else:
-                out[k] = v
+                out[k] = _quantize_leaf(k, v, cfg)
         return out
 
-    out = walk(params, [], plan=False)
-    for layers_key in ("layers", "enc_layers"):
-        if layers_key not in params:
-            continue
-        layers = dict(out[layers_key])
-        for blk in _PLANNED_BLOCKS:
-            if blk in layers:
-                layers[blk] = walk(params[layers_key][blk],
-                                   [layers_key, blk], plan=True)
-        out[layers_key] = layers
-    return out
+    return walk(layer, [])
+
+
+def plan_params_for_pim(params, cfg: PimConfig):
+    """Program the deployable weights into planned 'OPCM' form.
+
+    Each layer of the stacked layer tree goes through :func:`plan_layer`,
+    so every (L, K, N) projection becomes a list of L plans and every
+    (L, E, K, N) expert stack a list of L expert-stacked plans
+    (``lm.layer_trees`` takes the lists' entries per layer,
+    ``layers.proj`` and ``moe.moe_apply`` dispatch them onto the engine).
+    Quantize + nibble-decompose + kernel pre-pad happen here, once. The
+    embedding tables are fake-quantized per output column. Serving's
+    set-up does the same one layer at a time as the weights are drawn
+    (``lm.init_lm(..., layer_fn=)``), bit for bit."""
+    def plan_layers(layers):
+        n = layers
+        while isinstance(n, dict):        # the leading axis of any leaf
+            n = next(iter(n.values()))
+        return stack_layers([plan_layer(lp, cfg)
+                             for lp in layer_trees(layers, len(n))])
+
+    return {k: plan_layers(v) if k in ("layers", "enc_layers")
+            else _quantize_leaf(k, v, cfg) for k, v in params.items()}
 
 
 def opima_lm_estimate(cfg: ModelConfig, batch: int, prompt: int, gen: int,
@@ -200,7 +218,9 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
            compile_cache_dir: Optional[str] = None, abft: str = "off",
            device=None):
     """Serve bring-up: config reduction, parameter init (random, seed 0)
-    and, with ``pim``, weight programming. Returns
+    and, with ``pim``, weight programming, layer by layer as the weights
+    are drawn (equal to ``plan_params_for_pim`` of ``init_lm``'s params,
+    bit for bit). Returns
     ``(cfg, params, substrate, pim_cfg, mesh)``; ``mesh`` is always None
     in the port."""
     _not_ported(plan_dir, mesh_spec, compile_cache_dir)
@@ -209,12 +229,17 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
     if layers or d_model:
         cfg = cfg.reduced(num_layers=layers or 2, d_model=d_model or 64,
                           vocab=min(cfg.vocab_size, 512))
-    params = init_lm(cfg, 0, device=device)
     substrate = _resolve_substrate(pim_substrate, pim_emulate)
     pim_cfg = PimConfig(weight_bits=pim_bits, act_bits=pim_bits,
                         substrate=substrate, verify=abft)
-    if pim:
-        params = plan_params_for_pim(params, pim_cfg)
+    if not pim:
+        return cfg, init_lm(cfg, 0, device=device), substrate, pim_cfg, None
+    # each layer is programmed as soon as it is drawn and its floats are
+    # dropped: a MoE model's float32 expert stacks need not fit the card
+    params = init_lm(cfg, 0, device=device,
+                     layer_fn=lambda layer: plan_layer(layer, pim_cfg))
+    params = {k: v if k == "layers" else _quantize_leaf(k, v, pim_cfg)
+              for k, v in params.items()}
     return cfg, params, substrate, pim_cfg, None
 
 

@@ -48,13 +48,20 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy. The target logit is taken with
+    """Mean next-token cross-entropy, plus the MoE router losses for MoE
+    configs (``1e-2 * lb + 1e-3 * z``, with ``moe_lb`` among the metrics),
+    as in the JAX package. The target logit is taken with
     ``torch.gather``: the JAX package contracts a one-hot over the vocab
     (shard-friendly there), which gives the same value, one product by 1
     plus exact zeros, but would add a (B*S, V) float32 tensor here."""
-    logits, _ = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch)
     nll = cross_entropy(logits, batch["targets"])
-    return nll, {"loss": nll}
+    metrics = {"loss": nll}
+    loss = nll
+    if cfg.is_moe:
+        loss = loss + 1e-2 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+        metrics["moe_lb"] = aux["moe_lb_loss"]
+    return loss, metrics
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor

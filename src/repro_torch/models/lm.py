@@ -1,11 +1,13 @@
-"""The LM stack for the dense, SSM and hybrid architectures (counterpart
-of ``repro/models/lm.py``).
+"""The LM stack for the dense, MoE, SSM and hybrid architectures
+(counterpart of ``repro/models/lm.py``).
 
 One parameterized decoder covering dense GQA/MQA attention (qk-norm, QKV
-bias, sliding windows, RoPE), Mamba2 SSD layers and hymba-style parallel
-attention + SSM blocks. Layer parameters are stacked along a leading
-layer axis, as in the JAX package, and the layers run as a Python loop
-over it (:func:`layer_trees` splits every stacked leaf once per call with
+bias, sliding windows, RoPE), gated MLPs or MoE FFNs (top-k routed
+experts, optional shared experts: :mod:`repro_torch.models.moe`), Mamba2
+SSD layers and hymba-style parallel attention + SSM blocks. Layer
+parameters are stacked along a leading layer axis, as in the JAX
+package, and the layers run as a Python loop over it
+(:func:`layer_trees` splits every stacked leaf once per call with
 ``torch.unbind``; a leaf that is a list, such as the per-layer plans of
 ``plan_params_for_pim``, gives its entries). Per-layer sliding windows
 are Python ints, so ``forward`` with ``attn_backend="cuda"`` reaches the
@@ -14,12 +16,12 @@ traced window array never does. ``prefill`` passes no backend, as in the
 JAX package. ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``), the counterpart of ``jax.checkpoint``.
 
-Not ported yet, and raising: MoE FFNs (ROADMAP A6, ``models/moe.py``),
-the encoder-decoder with cross-attention (whisper) and the VLM prefix
-(paligemma), and chunked prefill (ROADMAP A7).
+Not ported yet, and raising: the encoder-decoder with cross-attention
+(whisper) and the VLM prefix (paligemma), and chunked prefill (ROADMAP
+A7).
 
 API:
-  init_lm(cfg, gen, device)                   -> params
+  init_lm(cfg, gen, device[, layer_fn])       -> params
   forward(params, cfg, batch)                 -> logits, aux
   prefill(params, cfg, batch, max_len)        -> logits, cache
   decode_step(params, cfg, cache, token, idx) -> logits, cache
@@ -32,9 +34,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pim import Plan
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.layers import (Params, embed, embedding_init,
                                        mlp_apply, mlp_init, rms_norm,
                                        unembed)
@@ -42,10 +46,6 @@ from repro_torch.models.layers import (Params, embed, embedding_init,
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the JAX LM stack the port does not have."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP A6, "
-            "models/moe.py)")
     if cfg.encoder_layers > 0:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder with cross-attention is not "
@@ -71,24 +71,41 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
         p["ssm"] = ssm_mod.ssm_init(
             gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
             cfg.ssm_head_dim, cfg.ssm_groups, device=device)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or cfg.is_moe:
         p["ln2_d"] = torch.zeros((cfg.d_model,), device=device)
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
-                            device=device)
+        if cfg.is_moe:
+            p["moe"] = moe_init(gen, cfg.d_model, cfg.num_experts,
+                                cfg.moe_d_ff,
+                                shared_experts=cfg.shared_experts,
+                                shared_d_ff=cfg.moe_d_ff, device=device)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                gated=cfg.gated_mlp, device=device)
     return p
 
 
-def _stack_trees(trees: List[Any]) -> Any:
+def stack_layers(trees: List[Any]) -> Any:
+    """Per-layer trees -> one tree: tensors stacked along a new leading
+    layer axis, plans gathered into a per-layer list (the form
+    ``launch.serve.plan_params_for_pim`` gives)."""
     if isinstance(trees[0], dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+        return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], Plan):
+        return list(trees)
     return torch.stack(trees)
 
 
 def init_lm(cfg: ModelConfig, gen: Union[int, torch.Generator],
-            device=None) -> Params:
+            device=None, layer_fn=None) -> Params:
     """Random parameters from ``gen`` (a ``torch.Generator`` on
     ``device``, or an int seed for one), layers stacked along a leading
-    axis. ``device=None`` means CUDA."""
+    axis. ``device=None`` means CUDA. The numbers are drawn in a fixed
+    order: the embedding, the layers in order, the unembedding.
+
+    ``layer_fn``, if given, maps each layer's tree as soon as it is drawn
+    (serving programs it into plans there), so only one layer's float
+    weights exist at a time; the result equals mapping every layer of the
+    stacked tree afterwards, bit for bit."""
     check_supported(cfg)
     device = resolve_device(device)
     if not isinstance(gen, torch.Generator):
@@ -98,8 +115,11 @@ def init_lm(cfg: ModelConfig, gen: Union[int, torch.Generator],
                                    device=device),
         "final_norm_d": torch.zeros((cfg.d_model,), device=device),
     }
-    params["layers"] = _stack_trees([_init_layer(cfg, gen, device)
-                                     for _ in range(cfg.num_layers)])
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = _init_layer(cfg, gen, device)
+        layers.append(layer if layer_fn is None else layer_fn(layer))
+    params["layers"] = stack_layers(layers)
     if not cfg.tie_embeddings:
         params["unembed_vd"] = embedding_init(gen, cfg.padded_vocab,
                                               cfg.d_model, device=device)
@@ -144,11 +164,22 @@ def _mix(outs: List[torch.Tensor]) -> torch.Tensor:
     return outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1])
 
 
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
+         aux: Optional[dict]) -> torch.Tensor:
+    """The layer's feed-forward block: MoE (router losses into ``aux``)
+    or the MLP."""
+    if cfg.is_moe:
+        return moe_apply(p["moe"], x, cfg.experts_per_token, aux)
+    return mlp_apply(p["mlp"], x, cfg.activation)
+
+
 # ---------------------------------------------------------------------------
 # forward (training)
 # ---------------------------------------------------------------------------
 def _decoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   positions: torch.Tensor, window: int) -> torch.Tensor:
+                   positions: torch.Tensor, window: int
+                   ) -> Tuple[torch.Tensor, dict]:
+    aux: dict = {}
     h = rms_norm(x, p["ln1_d"], cfg.norm_eps)
     outs = []
     if cfg.block_type in ("attn", "hybrid"):
@@ -165,8 +196,8 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     x = x + _mix(outs)
     if "ln2_d" in p:
         h = rms_norm(x, p["ln2_d"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.activation)
-    return x
+        x = x + _ffn(cfg, p, h, aux)
+    return x, aux
 
 
 def _embed_inputs(params: Params, batch: Dict[str, Any]
@@ -181,19 +212,23 @@ def _embed_inputs(params: Params, batch: Dict[str, Any]
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, dict]:
     """Training forward. batch: tokens (B, S). Returns (logits (B, S, V),
-    aux); aux holds the MoE losses of the JAX package, 0 here."""
+    aux); aux holds the MoE router losses summed over the layers (0.0
+    without MoE layers), as in the JAX package."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, batch)
     layers = layer_trees(params["layers"], cfg.num_layers)
+    lb, z = 0.0, 0.0
     for lp, window in zip(layers, _windows(cfg)):
         if cfg.remat:
-            x = checkpoint(_decoder_layer, cfg, lp, x, positions, window,
-                           use_reentrant=False)
+            x, aux = checkpoint(_decoder_layer, cfg, lp, x, positions,
+                                window, use_reentrant=False)
         else:
-            x = _decoder_layer(cfg, lp, x, positions, window)
+            x, aux = _decoder_layer(cfg, lp, x, positions, window)
+        lb = lb + aux.get("moe_lb_loss", 0.0)
+        z = z + aux.get("moe_z_loss", 0.0)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
     logits = _vocab_mask(cfg, unembed(_table(params, cfg), x))
-    return logits, {"moe_lb_loss": 0.0, "moe_z_loss": 0.0}
+    return logits, {"moe_lb_loss": lb, "moe_z_loss": z}
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +297,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         x = x + _mix(outs)
         if "ln2_d" in lp:
             h = rms_norm(x, lp["ln2_d"], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+            x = x + _ffn(cfg, lp, h, None)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
     if logits_index is None:
         x_last = x[:, -1:, :]
@@ -317,7 +352,7 @@ def decode_step(params: Params, cfg: ModelConfig,
         x = x + _mix(outs)
         if "ln2_d" in lp:
             h = rms_norm(x, lp["ln2_d"], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+            x = x + _ffn(cfg, lp, h, None)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
     logits = _vocab_mask(cfg, unembed(_table(params, cfg), x))[:, 0]
     return logits, cache

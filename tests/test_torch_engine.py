@@ -161,7 +161,7 @@ def test_registry_and_aliases():
     with pytest.raises(ValueError, match="unknown PIM substrate"):
         engine.get_substrate("nope")
     with pytest.raises(ValueError, match="unknown plan kind"):
-        engine.program(torch.zeros(4, 4), kind="experts")
+        engine.program(torch.zeros(4, 4), kind="nope")
 
     class Doubling(engine.Substrate):
         name = "test-doubling"

@@ -313,8 +313,7 @@ def test_token_stop_mask():
     assert not bool(t_lm.token_stop_mask(toks, []).any())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-medium",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced(num_layers=2, d_model=64, vocab=128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -118,7 +118,32 @@ package. Phases, each of which raises on failure:
     nibbles, plane padding, the (E, T, ·) glue, the combine, attention,
     the router); then the PIM kernel at the path's ten shapes (M = 4096
     and 8) bit for bit and timed as for hymba;
-13. the flash-attention kernels against their plain versions: the
+13. plan persistence: qwen3-4b at full width (36 layers, d_model 2560,
+    32 heads on 8 KV heads, head_dim 128, d_ff 9728, vocab 151936,
+    qk-norm, tied embeddings; random weights from seed 0) through
+    ``repro_torch.launch.serve.serve(..., pim=True, plan_dir=)`` into a
+    fresh temporary directory: the set-up draws the weights for their
+    digest, programs them at w4a4 on ``exact-cuda`` and saves the plans
+    (about 9 GB; a lack of disk space fails the phase), then serves batch
+    8 x prompt 512 with 16 greedy tokens (7 x 36 PIM launches per forward
+    step); the set-up's parts timed (digest, programming, save, sha256);
+14. continuous batching: ``serve_continuous(qwen3-4b, ...)`` through the
+    same directory (its set-up restores the plans: digest, load and the
+    load's sha256 share timed) with 8 slots and 32 Poisson requests at
+    0.5 per step (seed 0), prompts 128-512, 4-16 new tokens: launches by
+    route (whole prefill on the wgmma route, decode at M = 8 on the
+    small-M route, none other), tokens/s, TTFT and latency percentiles
+    (virtual steps and wall), prefill ms per admitted request, decode ms
+    per step; the restored plans' static request equal to phase 13's bit
+    for bit (prefill logits and tokens); on the restored plans
+    ``sync_every`` 4 = 1, chunked prefill (64) = whole and a prefix-cache
+    hit = a miss (shared prefix 128) on the trace's first 6 requests,
+    four requests' streams = ``static_generate`` at the slots' shapes,
+    and at 2 layers ``exact-cuda`` = ``exact-torch`` for the whole trace
+    (token streams and stop reasons); one fused decode window profiled
+    (idle share); then the PIM kernel at the path's ten shapes (M = 512
+    and 8) bit for bit and timed as for hymba; the directory is deleted;
+15. the flash-attention kernels against their plain versions: the
     forward on the JAX kernel test's cases in float32 and bfloat16 (within
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
     three backward kernels (dQ, dK/dV per query head, the head sum) at
@@ -139,7 +164,7 @@ package. Phases, each of which raises on failure:
     3xTF32 bound and its CUDA-core float32 bound; and the backward's three
     passes summed against SDPA's backward (its forward + backward minus
     its forward);
-14. the training path: gemma3-1b at full width (26 layers, d_model 1152,
+16. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
     gradient norm and every gradient leaf against the ``"jnp"`` route on
@@ -149,7 +174,7 @@ package. Phases, each of which raises on failure:
     ``TRAIN_STEPS`` timed: 26 launches of each flash kernel per step, no
     other kernel), one step with int8 gradient compression, and a profile
     of one step by stage;
-15. checkpoint and restart on the card at a reduced gemma3-1b: a run
+17. checkpoint and restart on the card at a reduced gemma3-1b: a run
     resumed from a step-6 checkpoint against the unbroken run.
 
 Each path's launch counts are set to 0 just before its requests and read
@@ -165,9 +190,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -2396,6 +2423,398 @@ def moonshot_path(torch, dev, mods, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Plan persistence and continuous batching: qwen3-4b at full width
+# ---------------------------------------------------------------------------
+QWEN3 = "qwen3-4b"
+# the continuous path: slots, a Poisson trace (prompts 128-512, 4-16 new
+# tokens: serve_continuous's quarter-to-full ranges) and its variants
+CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 32, 0.5
+CONT_CHUNK, CONT_PREFIX_CACHE, CONT_SHARED_PREFIX = 64, 16, 128
+CONT_WINDOW = 4            # sync_every of the fused-window variant
+CONT_VARIANT_REQUESTS = 6  # the trace's first requests, for variants
+CONT_STATIC_CHECKS = 4     # requests held to their static streams
+CONT_EXACT_LAYERS = 2      # exact-cuda against exact-torch at this depth
+
+
+class patched:
+    """Replace module or class attributes for a block, restoring them."""
+
+    def __init__(self, *swaps):
+        self.swaps = swaps
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in self.swaps]
+        for obj, name, value in self.swaps:
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+        return False
+
+
+def timed(store, key, fn, keep=None):
+    """``fn`` that adds its wall seconds to ``store[key]`` (and, with
+    ``keep``, stores its last result at ``store[keep]``); calls from
+    several threads add up."""
+    import threading
+    lock = threading.Lock()
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            with lock:
+                store[key] = store.get(key, 0.0) + time.perf_counter() - t0
+        if keep is not None:
+            store[keep] = out
+        return out
+    return wrapper
+
+
+def qwen3_launches(cfg):
+    """B1 launches per forward step: q, k, v, o, gate, up, down."""
+    return 7 * cfg.num_layers
+
+
+def persist_timers(t, mods):
+    """Swaps that time serving's set-up and its parts into ``t``: the
+    set-up (keeping its result, whose params are the plans), the weights'
+    digest, programming, the plan directory's load and save, and every
+    sha256 of a stored leaf."""
+    serve_mod, engine, ckpt = mods["serve"], mods["engine"], mods["ckpt"]
+    return ((serve_mod, "_setup", timed(t, "setup_s", serve_mod._setup,
+                                        keep="setup")),
+            (serve_mod, "_params_digest", timed(t, "digest_s",
+                                                serve_mod._params_digest)),
+            (serve_mod, "_program", timed(t, "program_s",
+                                          serve_mod._program)),
+            (engine, "load_plans", timed(t, "load_s", engine.load_plans)),
+            (engine, "save_plans", timed(t, "save_s", engine.save_plans)),
+            (ckpt, "payload_sha256", timed(t, "sha256_s",
+                                           ckpt.payload_sha256)))
+
+
+def qwen3_program_phase(torch, dev, mods, counters, plan_dir):
+    """(f) ``serve(qwen3-4b, ..., plan_dir=)`` at full width into a fresh
+    directory: it draws the weights (for their digest), programs them at
+    w4a4 on exact-cuda, saves the plans, and serves batch 8 x prompt 512
+    with 16 greedy tokens. Returns the numbers, the prefill logits and the
+    tokens (the programmed plans are dropped)."""
+    serve_mod = mods["serve"]
+    cfg = mods["configs"].get_config(QWEN3)
+    usage = shutil.disk_usage(plan_dir)
+    log(f"plan directory {plan_dir}: {usage.free / 1e9:.1f} GB free")
+    t = {}
+    with patched(*persist_timers(t, mods),
+                 (serve_mod, "static_loop", timed(
+                     t, "loop_s", serve_mod.static_loop, keep="loop"))):
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        res = serve_mod.serve(QWEN3, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                              gen=LM_GEN, pim=True, plan_dir=plan_dir)
+        torch.cuda.synchronize()
+        t["serve_s"] = time.perf_counter() - t0
+        launches = read_counts(*counters)
+    want = qwen3_launches(cfg) * (1 + LM_GEN)
+    if launches["pim_matmul_fused"] != want or any(
+            v for k, v in launches.items() if k != "pim_matmul_fused"):
+        raise AssertionError(f"qwen3 programming run: launches {launches}, "
+                             f"expected {want} pim_matmul_fused")
+    if "program_s" not in t or "save_s" not in t:
+        raise AssertionError("qwen3: serve(plan_dir=) into a fresh "
+                             f"directory must program and save: {sorted(t)}")
+    _, _, _, logits = t.pop("loop")
+    t.pop("setup")
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError("qwen3 prefill logits not finite")
+    size = sum(f.stat().st_size for f in Path(plan_dir).rglob("*")
+               if f.is_file())
+    out = {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "heads": cfg.num_heads,
+                      "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab_size, "batch": LM_BATCH,
+                      "prompt": LM_PROMPT, "gen": LM_GEN, "bits": "w4a4"},
+           "plan_dir_bytes": size, "disk_free_bytes": usage.free,
+           "launches": launches, "launches_per_request": want,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms_per_token": res["decode_s_per_token"] * 1e3,
+           "tokens_per_s": res["tokens_per_s"], **t}
+    log(f"qwen3 serve(plan_dir=) programming run: set-up {t['setup_s']:.1f}"
+        f" s (the weights' digest {t['digest_s']:.1f} s, programming "
+        f"{t['program_s']:.1f} s, save {t['save_s']:.1f} s, its sha256 "
+        f"{t['sha256_s']:.1f} s); plan directory {size / 1e9:.3f} GB; "
+        f"prefill {out['prefill_ms']:.1f} ms, decode "
+        f"{out['decode_ms_per_token']:.1f} ms/token, "
+        f"{out['tokens_per_s']:.1f} tokens/s; {want} pim_matmul_fused "
+        "launches")
+    return out, logits, res["generated"], cfg
+
+
+def qwen3_phases(torch, dev, mods, counters):
+    """(f) and (g) over one fresh plan directory, deleted afterwards."""
+    plan_dir = tempfile.mkdtemp(prefix="qwen3_plans_")
+    try:
+        program, logits, generated, cfg = qwen3_program_phase(
+            torch, dev, mods, counters, plan_dir)
+        cont = qwen3_continuous_phase(torch, dev, mods, counters, plan_dir,
+                                      cfg, (logits, generated))
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return program, cont
+
+
+def qwen3_trace(serving, cfg, shared=0):
+    return serving.poisson_trace(
+        n=CONT_REQUESTS, rate=CONT_RATE,
+        prompt_lens=list(range(LM_PROMPT // 4, LM_PROMPT + 1)),
+        gen_lens=list(range(LM_GEN // 4, LM_GEN + 1)), vocab=cfg.vocab_size,
+        seed=0, shared_prefix_len=shared)
+
+
+def streams(completions):
+    """request id -> (tokens, stop reason)."""
+    import numpy as np
+    return {c.request_id: (np.asarray(c.tokens).tolist(), c.stop_reason)
+            for c in completions}
+
+
+def entry_streams(res):
+    import numpy as np
+    return {r["id"]: (np.asarray(r["tokens"]).tolist(), r["stop_reason"])
+            for r in res["requests"]}
+
+
+def qwen3_window_profile(torch, serving, params, cfg, trace):
+    """One fused decode window (sync_every = CONT_WINDOW) over 8 occupied
+    slots, profiled on the device: busy time and the idle share between
+    its first and last device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = serving.ServingEngine(params, cfg, num_slots=CONT_SLOTS,
+                                prompt_pad=LM_PROMPT,
+                                max_len=LM_PROMPT + LM_GEN,
+                                sync_every=CONT_WINDOW)
+    state = eng.init_state()
+    for r in trace[:CONT_SLOTS]:
+        state, _ = eng.insert(eng.prefill(r.tokens), state,
+                              max_new_tokens=LM_GEN, request_id=r.request_id)
+    state, _ = eng.generate(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, res = eng.generate(state)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    device = device_events(torch, prof)
+    busy, window = busy_and_window(device, device)
+    out = {"steps": res.steps, "slots": CONT_SLOTS, "wall_ms": wall * 1e3,
+           "device_busy_ms": busy / 1e3, "window_ms": window / 1e3,
+           "device_idle_share": 1.0 - busy / window,
+           "device_events": len(device)}
+    log(f"qwen3 decode window ({res.steps} fused steps, {CONT_SLOTS} slots) "
+        f"profiled: device busy {busy / 1e3:.3f} ms of a "
+        f"{window / 1e3:.3f} ms window, idle share "
+        f"{out['device_idle_share']:.3f}, {len(device)} device events, "
+        f"{wall * 1e3:.1f} ms of host time")
+    return out
+
+
+def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
+                           programmed):
+    """(g) ``serve_continuous(qwen3-4b, ...)`` at full width through the
+    plans (f) saved: the entry point draws the weights for their digest
+    and restores the plans (set-up timed, with the sha256 time of the
+    load's reader threads), then serves 8 slots with 32 Poisson requests at 0.5
+    per step (seed 0), prompts 128-512, 4-16 new tokens: B1 launches by
+    route (whole prefill on the wgmma route, decode at M = 8 on the
+    small-M route), tokens/s, TTFT and latency percentiles, prefill ms
+    per admitted request, decode ms per step. The restored plans' static
+    request (batch 8 x prompt 512, 16 tokens) equals (f)'s bit for bit.
+    Then, on the restored plans, the identities: sync_every 4 = 1,
+    chunked prefill (64) = whole, a prefix-cache hit = a miss (shared
+    prefix 128, chunks of 64), each on the trace's first
+    CONT_VARIANT_REQUESTS requests (a request's tokens never depend on
+    the others), four requests' streams = their static streams at the
+    slots' shapes, and at 2 layers exact-cuda = exact-torch for the whole
+    trace; one fused window profiled."""
+    serving, serve_mod, kern = mods["serving"], mods["serve"], \
+        mods["pim_kern"]
+    Engine = serving.ServingEngine
+    t, p = {}, {}
+    with patched(*persist_timers(p, mods),
+                 (Engine, "prefill_step", timed(t, "prefill_s",
+                                                Engine.prefill_step)),
+                 (Engine, "generate", timed(t, "decode_s",
+                                            Engine.generate))):
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        res = serve_mod.serve_continuous(
+            QWEN3, num_slots=CONT_SLOTS, num_requests=CONT_REQUESTS,
+            prompt_len=LM_PROMPT, gen=LM_GEN, pim=True, plan_dir=plan_dir,
+            arrival_rate=CONT_RATE, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(*counters)
+        routes = route_counts(kern, "pim_matmul_fused")
+    if "load_s" not in p or "program_s" in p or "save_s" in p:
+        raise AssertionError("qwen3: serve_continuous(plan_dir=) must "
+                             f"restore the saved plans: {sorted(p)}")
+    params = p.pop("setup")[1]
+    restore = dict(p, sha256_per_load_s=p["sha256_s"] / p["load_s"])
+    generated, _, _, logits = serve_mod.static_loop(
+        params, cfg, lm_tokens(torch, dev, cfg.vocab_size), LM_GEN)
+    if not torch.equal(logits, programmed[0]) or not torch.equal(
+            generated.cpu(), torch.as_tensor(programmed[1])):
+        raise AssertionError("qwen3: the restored plans' prefill logits or "
+                             "tokens differ from the programmed plans'")
+    log(f"qwen3 restore (serve_continuous(plan_dir=) set-up): "
+        f"{p['setup_s']:.1f} s (the weights' digest {p['digest_s']:.1f} s, "
+        f"load {p['load_s']:.1f} s, its sha256 {p['sha256_s']:.1f} s on "
+        "the reader threads, "
+        f"{restore['sha256_per_load_s']:.3f} thread-seconds per second of "
+        "the load); the restored "
+        f"plans' prefill logits and {LM_GEN} tokens x {LM_BATCH} rows "
+        "bit-identical to the programmed plans'")
+    plans = layer_plans(params["layers"])
+    kn = Counter((q.planes.shape[1], q.planes.shape[2]) for q in plans)
+    # per run: one whole prefill per request (M = the prompt pad), one
+    # decode step of M = slots per step; the warm-up adds one of each
+    shapes, expect = Counter(), Counter()
+    for (k, n), c in kn.items():
+        shapes[(LM_PROMPT, k, n)] += c * res["prefills"]
+        shapes[(CONT_SLOTS, k, n)] += c * res["decode_steps"]
+        expect[kern.small_m_grid(LM_PROMPT, k, n)[0]] += \
+            c * (res["prefills"] + 1)
+        expect[kern.small_m_grid(CONT_SLOTS, k, n)[0]] += \
+            c * (res["decode_steps"] + 1)
+    if routes != dict(expect) or launches["pim_matmul_fused"] != sum(
+            expect.values()) or any(v for k, v in launches.items()
+                                    if k != "pim_matmul_fused"):
+        raise AssertionError(f"qwen3 continuous launches {launches}, by "
+                             f"route {routes}; expected {dict(expect)}")
+    if res["num_requests"] != CONT_REQUESTS or res["prefill_traces"] != 1 \
+            or res["decode_traces"] != 1:
+        raise AssertionError(f"qwen3 continuous metrics {res}")
+    out = {"restore": restore, "entry_s": seconds, "launches": launches,
+           "launches_by_route": routes, "shapes": shapes,
+           "prefill_ms_per_request": t["prefill_s"] * 1e3 / res["prefills"],
+           "decode_ms_per_step": t["decode_s"] * 1e3 / res["decode_steps"],
+           "plan_bytes": sum(q.planes.numel() + q.values.numel()
+                             for q in plans),
+           "metrics": {k: v for k, v in res.items() if k != "requests"}}
+    del plans
+    log(f"qwen3 continuous (serve_continuous, {CONT_SLOTS} slots, "
+        f"{CONT_REQUESTS} requests at {CONT_RATE}/step, sync_every 1): "
+        f"{res['generated_tokens']} tokens in {res['wall_s']:.2f} s, "
+        f"{res['tokens_per_s']:.1f} tokens/s; {res['decode_steps']} decode "
+        f"steps, occupancy {res['mean_slot_occupancy']:.3f}; TTFT "
+        f"p50/p90/p99 {res['ttft_steps_p50']:.1f}/{res['ttft_steps_p90']:.1f}"
+        f"/{res['ttft_steps_p99']:.1f} steps, "
+        f"{res['first_token_wall_s_p50']:.3f}/"
+        f"{res['first_token_wall_s_p90']:.3f}/"
+        f"{res['first_token_wall_s_p99']:.3f} s wall; latency p50/p90/p99 "
+        f"{res['latency_steps_p50']:.1f}/{res['latency_steps_p90']:.1f}/"
+        f"{res['latency_steps_p99']:.1f} steps; prefill "
+        f"{out['prefill_ms_per_request']:.2f} ms per admitted request, "
+        f"decode {out['decode_ms_per_step']:.2f} ms per step; B1 by route "
+        f"{routes}; {seconds:.1f} s with set-up and restore")
+
+    base = entry_streams(res)
+    geometry = dict(num_slots=CONT_SLOTS, prompt_pad=LM_PROMPT,
+                    max_len=LM_PROMPT + LM_GEN)
+    trace = qwen3_trace(serving, cfg)
+    few = trace[:CONT_VARIANT_REQUESTS]
+    failures, checks = [], {}
+
+    def run(p, c, reqs, label, **kw):
+        sched = serving.ContinuousScheduler(p, c, **kw)
+        sched.warmup()
+        v = {}
+        with patched((Engine, "prefill_step", timed(v, "prefill_s",
+                                                    Engine.prefill_step)),
+                     (Engine, "generate", timed(v, "decode_s",
+                                                Engine.generate))):
+            r = sched.run(reqs)
+        m = r.metrics
+        checks[label] = {
+            "tokens_per_s": m["tokens_per_s"], "wall_s": m["wall_s"],
+            "host_syncs": m["host_syncs"], "decode_steps": m["decode_steps"],
+            "prefill_units": m["prefill_units"],
+            "prefill_ms_per_request": v["prefill_s"] * 1e3 / m["prefills"],
+            "decode_ms_per_step": v["decode_s"] * 1e3 / m["decode_steps"],
+            "prefix_cache": m["prefix_cache"]}
+        return r
+
+    def same(label, got, want):
+        want = {k: v for k, v in want.items() if k in got}
+        diff = sorted(k for k in want if got[k] != want[k])
+        checks.setdefault(label, {})["mismatched_requests"] = diff
+        if diff or not want:
+            failures.append(f"{label}: {len(diff)} of {len(want)} requests "
+                            f"differ ({diff[:5]})")
+        log(f"qwen3 check {label}: {len(want) - len(diff)} of {len(want)} "
+            "requests' token streams and stop reasons equal")
+
+    window = run(params, cfg, few, f"sync_every {CONT_WINDOW}",
+                 sync_every=CONT_WINDOW, **geometry)
+    same(f"sync_every {CONT_WINDOW} = 1", streams(window.completions), base)
+    if window.metrics["host_syncs"] >= window.metrics["decode_steps"]:
+        failures.append(f"sync_every {CONT_WINDOW} fused no decode steps")
+    chunked = run(params, cfg, few, f"prefill_chunk {CONT_CHUNK}",
+                  prefill_chunk=CONT_CHUNK, **geometry)
+    same(f"chunked prefill ({CONT_CHUNK}) = whole",
+         streams(chunked.completions), base)
+    shared = qwen3_trace(serving, cfg, CONT_SHARED_PREFIX)[
+        :CONT_VARIANT_REQUESTS]
+    sgeo = dict(geometry, prompt_pad=LM_PROMPT + CONT_SHARED_PREFIX,
+                max_len=LM_PROMPT + CONT_SHARED_PREFIX + LM_GEN)
+    miss = run(params, cfg, shared, "shared prefix, no cache",
+               prefill_chunk=CONT_CHUNK, **sgeo)
+    hit = run(params, cfg, shared,
+              f"shared prefix, prefix cache {CONT_PREFIX_CACHE}",
+              prefill_chunk=CONT_CHUNK, prefix_cache=CONT_PREFIX_CACHE,
+              **sgeo)
+    same("prefix-cache hit = miss", streams(hit.completions),
+         streams(miss.completions))
+    if not hit.metrics["prefix_cache"]["hits"]:
+        failures.append("the prefix cache took no hit")
+    static = {}
+    for r in trace[:CONT_STATIC_CHECKS]:
+        toks = serving.static_generate(
+            params, cfg, r.tokens, r.max_new_tokens,
+            max_len=geometry["max_len"], prompt_pad=LM_PROMPT,
+            rows=CONT_SLOTS).tolist()
+        static[r.request_id] = (toks, "budget")   # no stop tokens here
+    same("continuous = static", {k: base[k] for k in static}, static)
+    out["profile"] = qwen3_window_profile(torch, serving, params, cfg, trace)
+
+    import dataclasses
+    short = dataclasses.replace(cfg, num_layers=CONT_EXACT_LAYERS)
+    planned = serve_mod.plan_params_for_pim(
+        mods["lm"].init_lm(short, 0, device=dev),
+        mods["pim"].PimConfig(weight_bits=4, act_bits=4,
+                              substrate="exact-cuda"))
+    cuda_run = run(planned, short, trace, "2 layers exact-cuda", **geometry)
+    torch_run = run(with_substrate(planned, "exact-torch"), short, trace,
+                    "2 layers exact-torch", **geometry)
+    same(f"{CONT_EXACT_LAYERS} layers exact-cuda = exact-torch",
+         streams(cuda_run.completions), streams(torch_run.completions))
+    del planned, params
+    out["checks"] = checks
+    out["failures"] = failures
+    if failures:
+        raise AssertionError("qwen3 continuous identities: "
+                             + "; ".join(failures))
+    return out
+
+
 def ssd_entry(hymba, err):
     """The SSD kernel's line: one hymba request's 32 launches, each timed
     on the path's own inputs."""
@@ -3222,6 +3641,8 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan as skern
+    from repro_torch import engine, serving
+    from repro_torch.checkpoint import ckpt
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train
     from repro_torch.models import attention, cnn, lm, moe, ssm
@@ -3331,6 +3752,29 @@ def main() -> int:
              f"{b1['decode_tiled_ms']:.3f} ms, bound "
              f"{b1['decode_bound_ms']:.3f} ms); library_ms covers the "
              "prefill shapes (torch._int_mm takes M > 16)")))
+    mods.update({"serving": serving, "engine": engine, "ckpt": ckpt})
+    qwen3, qwen3_cont = qwen3_phases(torch, dev, mods, counters)
+    q_err = lm_kernel_checks(torch, dev, kern, ref, qwen3_cont["shapes"])
+    q_rows = shape_numbers(torch, dev, kern, ref, qwen3_cont["shapes"],
+                           with_bias=False)
+    qwen3_cont["b1_by_phase"] = b1_by_phase(q_rows, "qwen3 continuous")
+    b1 = qwen3_cont["b1_by_phase"]
+    kernels.append(kernel_entry(
+        "pim_matmul_fused", "fused", q_rows, qwen3_cont["launches"],
+        {"pim_matmul_fused": q_err}, path="qwen3-4b continuous pim",
+        routes=qwen3_cont["launches_by_route"],
+        per=(f"one continuous qwen3-4b run ({CONT_REQUESTS} Poisson "
+             f"requests at {CONT_RATE}/step through {CONT_SLOTS} slots, "
+             f"prompts {LM_PROMPT // 4}-{LM_PROMPT}, {LM_GEN // 4}-{LM_GEN} "
+             "new tokens, w4a4; launches include the warm-up's prefill and "
+             "decode step): sum over the whole prefills' launches (wgmma "
+             f"route at M = {LM_PROMPT}, device time "
+             f"{b1['prefill_ms']:.3f} ms, bound {b1['prefill_bound_ms']:.3f}"
+             f" ms) and the decode steps' (small-M route at M = "
+             f"{CONT_SLOTS}, device time with cold weights "
+             f"{b1['decode_ms']:.3f} ms, bound {b1['decode_bound_ms']:.3f} "
+             "ms); library_ms covers the prefill shapes (torch._int_mm "
+             "takes M > 16)")))
     mods.update({"train": train, "flash_kern": fkern, "tree": tree})
     training = train_path(torch, dev, mods, counters)
     kernels += flash_entries(flash_rows, training["config"]["windows"],
@@ -3354,6 +3798,8 @@ def main() -> int:
              "hymba": listed(hymba), "hymba_shapes": lm_rows,
              "serve_entry": entry, "mamba2": mamba2,
              "moonshot": listed(moonshot), "moonshot_shapes": moe_rows,
+             "qwen3_persist": qwen3, "qwen3_continuous": listed(qwen3_cont),
+             "qwen3_shapes": q_rows,
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "kernels": kernels},
             indent=1, default=str))

@@ -17,12 +17,16 @@ key path as the JAX package does (:mod:`repro_torch.tree`).
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
 import shutil
 import tempfile
-from typing import Any, Dict, Optional, Tuple
+import warnings
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +48,11 @@ class CheckpointCorruptionError(RuntimeError):
         self.leaf_name = leaf_name
 
 
-def _payload_sha256(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+def payload_sha256(arr: np.ndarray) -> str:
+    """sha256 of an array's stored bytes (those of ``tobytes()``, hashed
+    in place without the copy)."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(flat).hexdigest()
 
 
 def tree_fingerprint(tree: PyTree) -> str:
@@ -67,6 +74,20 @@ def _to_numpy(x: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 def save_checkpoint(directory: str, step: int, tree: PyTree,
                     extras: Optional[Dict[str, Any]] = None) -> str:
+    return write_checkpoint(
+        directory, step, tree_fingerprint(tree),
+        [functools.partial(_to_numpy, x) for x in leaves(tree)], extras)
+
+
+def write_checkpoint(directory: str, step: int, fingerprint: str,
+                     producers: Sequence[Callable[[], Tuple[np.ndarray,
+                                                            str]]],
+                     extras: Optional[Dict[str, Any]] = None) -> str:
+    """Write one step directory from leaf producers, called one at a time
+    in leaf order (each returns the array to store and the dtype name to
+    record), so the host holds one leaf at a time. ``arrays.npz`` is
+    written member by member as ``np.savez`` writes it (stored, zip64
+    members ``leaf_00000.npy``, ...)."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -74,17 +95,28 @@ def save_checkpoint(directory: str, step: int, tree: PyTree,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    flat = [_to_numpy(x) for x in leaves(tree)]
-    names = [f"leaf_{i:05d}" for i in range(len(flat))]
-    arrays = {n: arr for n, (arr, _) in zip(names, flat)}
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    dtypes, shapes, digests = [], [], []
+    with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
+                         compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf, \
+            ThreadPoolExecutor(max_workers=1) as hasher:
+        for i, produce in enumerate(producers):
+            arr, dtype = produce()
+            arr = np.asanyarray(arr)
+            digest = hasher.submit(payload_sha256, arr)  # while it writes
+            with zf.open(f"leaf_{i:05d}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
+            dtypes.append(dtype)
+            shapes.append(list(arr.shape))
+            digests.append(digest.result())
+            del arr
     manifest = {
         "step": step,
-        "treedef": tree_fingerprint(tree),
-        "num_leaves": len(flat),
-        "dtypes": [dtype for _, dtype in flat],
-        "shapes": [list(arr.shape) for arr, _ in flat],
-        "sha256": [_payload_sha256(arrays[n]) for n in names],
+        "treedef": fingerprint,
+        "num_leaves": len(digests),
+        "dtypes": dtypes,
+        "shapes": shapes,
+        "sha256": digests,
         "extras": extras or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -110,14 +142,29 @@ def latest_step(directory: str) -> Optional[int]:
     return int(name.split("_")[-1])
 
 
+def to_tensor(arr: np.ndarray, dtype_name: str, device=None
+              ) -> torch.Tensor:
+    """A stored leaf -> a tensor on ``device`` (default the CPU; bf16
+    restored from its uint16 bits). A leaf bound for a card is copied to
+    it straight from the array read back; one bound for the CPU gets a
+    host copy of its own."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type == "cpu" or not arr.flags.c_contiguous:
+        arr = np.array(arr, order="C")   # a copy; keeps 0-d arrays 0-d
+    if dtype_name == "bfloat16" and arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    with warnings.catch_warnings():
+        # a read-only array read back from the npz: only read, by the copy
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        t = torch.from_numpy(arr)
+    if dtype_name == "bfloat16" and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
 def _to_tensor(arr: np.ndarray, dtype_name: str,
                like: torch.Tensor) -> torch.Tensor:
-    arr = np.array(arr, order="C")   # a copy; keeps 0-d arrays 0-d
-    if dtype_name == "bfloat16" and arr.dtype == np.uint16:
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device=like.device, dtype=like.dtype)
+    return to_tensor(arr, dtype_name).to(device=like.device, dtype=like.dtype)
 
 
 def restore_checkpoint(directory: str, template: PyTree,
@@ -157,7 +204,7 @@ def restore_checkpoint(directory: str, template: PyTree,
                 f"cannot read {name} from {path}/arrays.npz: {e}",
                 leaf_index=i, leaf_name=name) from e
         if digests is not None:
-            live = _payload_sha256(arr)
+            live = payload_sha256(arr)
             if live != digests[i]:
                 raise CheckpointCorruptionError(
                     f"payload sha256 mismatch for {name} at {path}: "

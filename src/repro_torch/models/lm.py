@@ -17,13 +17,13 @@ JAX package. ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``), the counterpart of ``jax.checkpoint``.
 
 Not ported yet, and raising: the encoder-decoder with cross-attention
-(whisper) and the VLM prefix (paligemma), and chunked prefill (ROADMAP
-A7).
+(whisper) and the VLM prefix (paligemma) (ROADMAP A6).
 
 API:
   init_lm(cfg, gen, device[, layer_fn])       -> params
   forward(params, cfg, batch)                 -> logits, aux
   prefill(params, cfg, batch, max_len)        -> logits, cache
+  prefill_chunk(params, cfg, cache, tok, at)  -> logits, cache
   decode_step(params, cfg, cache, token, idx) -> logits, cache
 """
 from __future__ import annotations
@@ -299,13 +299,27 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             h = rms_norm(x, lp["ln2_d"], cfg.norm_eps)
             x = x + _ffn(cfg, lp, h, None)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
-    if logits_index is None:
-        x_last = x[:, -1:, :]
-    else:
-        j = int(logits_index)
-        x_last = x[:, j:j + 1, :]
-    logits = _vocab_mask(cfg, unembed(_table(params, cfg), x_last))[:, 0]
+    logits = _vocab_mask(cfg, unembed(_table(params, cfg),
+                                      _row(x, logits_index)))[:, 0]
     return logits, cache
+
+
+def _row(x: torch.Tensor, index: Optional[Union[int, torch.Tensor]]
+         ) -> torch.Tensor:
+    """Position ``index`` of (B, S, D) activations as (B, 1, D): the last
+    position by default. A tensor index is read on the device with
+    ``index_select`` (no host sync) into a buffer with the strides of a
+    slice of ``x``: the unembedding's matmul picks its path by layout,
+    and a contiguous row would round differently from the slice an int
+    index gives."""
+    if index is None:
+        return x[:, -1:, :]
+    if torch.is_tensor(index):
+        row = torch.empty_like(x)[:, :1]
+        row.copy_(x.index_select(1, index.reshape(1).to(
+            device=x.device, dtype=torch.int64)))
+        return row
+    return x[:, int(index):int(index) + 1, :]
 
 
 def token_stop_mask(tokens: torch.Tensor, stop_tokens) -> torch.Tensor:
@@ -320,6 +334,46 @@ def token_stop_mask(tokens: torch.Tensor, stop_tokens) -> torch.Tensor:
         return torch.zeros(tokens.shape, dtype=torch.bool,
                            device=tokens.device)
     return (tokens[..., None].to(torch.int32) == stop).any(dim=-1)
+
+
+def prefill_chunk(params: Params, cfg: ModelConfig,
+                  cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                  start: Union[int, torch.Tensor],
+                  logits_index: Optional[Union[int, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked prefill: a block of ``c`` prompt tokens at position offset
+    ``start`` against an existing cache. tokens: (B, c); start: the first
+    token's position, a Python int shared by the batch or a per-row (B,)
+    tensor. The chunk's K/V land at positions start + [0, c), written
+    into the cache in place; each query attends the whole cache under
+    per-position causal validity, so a prompt run chunk by chunk into a
+    compute-dtype scratch cache of the whole prefill's length gives the
+    whole prefill's first token and K/V (masked entries contribute
+    exactly 0.0). Returns (logits (B, V) at in-chunk position
+    ``logits_index``, default the last, and the cache).
+
+    Attention-only decoders: chunk resume carries no state besides the
+    KV cache; SSM, hybrid, encoder and VLM configs raise."""
+    if cfg.block_type != "attn" or cfg.encoder_layers or cfg.vision_tokens:
+        raise NotImplementedError(
+            "chunked prefill supports attention-only decoders "
+            f"(got block_type={cfg.block_type!r})")
+    x = embed(params["embed_vd"], tokens)
+    layers = layer_trees(params["layers"], cfg.num_layers)
+    for i, (lp, window) in enumerate(zip(layers, _windows(cfg))):
+        h = rms_norm(x, lp["ln1_d"], cfg.norm_eps)
+        out, _ = attn.decode_attention(
+            lp["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]}, start,
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rope_theta,
+            window=window, norm_eps=cfg.norm_eps)
+        x = x + out
+        if "ln2_d" in lp:
+            h = rms_norm(x, lp["ln2_d"], cfg.norm_eps)
+            x = x + _ffn(cfg, lp, h, None)
+    x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
+    logits = _vocab_mask(cfg, unembed(_table(params, cfg),
+                                      _row(x, logits_index)))[:, 0]
+    return logits, cache
 
 
 def decode_step(params: Params, cfg: ModelConfig,

@@ -1,7 +1,7 @@
 """Static LM serving in the port (``repro_torch.launch.serve``) against the
 JAX package's: the result key set, the metrics JSON, the OPIMA hardware
 estimate (pure Python on both sides, so equal exactly), what raises as
-not ported, and the import rule (the port and ``chip_smoke.py`` import
+not ported, the CLI in both modes, and the import rule (the port and ``chip_smoke.py`` import
 neither ``jax`` nor ``repro``)."""
 import json
 import os
@@ -81,10 +81,20 @@ def test_opima_lm_estimate_equals_jax(bits):
         assert got == want, arch
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"plan_dir": "plans"}, "A8"), ({"mesh": "1,1"}, "A11"),
-    ({"compile_cache_dir": "cc"}, "A7")])
-def test_unported_serve_options_raise(kwargs, item):
+@pytest.mark.parametrize("continuous,kwargs,item", [
+    (False, {"mesh": "1,1"}, "A11"),
+    (False, {"compile_cache_dir": "cc"}, "path glue item 2"),
+    (True, {"mesh": "1,1"}, "A11"),
+    (True, {"abft": "sample"}, "A9"),
+    (True, {"inject_faults": "faults.json"}, "A9"),
+    (True, {"chaos_check": True}, "A9"),
+    (True, {"sanitize": True}, "A13")])
+def test_unported_serve_options_raise(continuous, kwargs, item):
+    if continuous:
+        with pytest.raises(NotImplementedError, match=item):
+            t_serve.serve_continuous("qwen2.5-3b", device="cpu", layers=1,
+                                     d_model=32, **kwargs)
+        return
     with pytest.raises(NotImplementedError, match=item):
         t_serve.serve("qwen2.5-3b", device="cpu", **SMALL, **kwargs)
 
@@ -115,9 +125,22 @@ def test_cli_static_and_continuous(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "pim_substrate = exact-cuda" in res.stdout
     assert json.loads(out.read_text())["generated_tokens"] == 6
-    res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen2.5-3b",
-                "--continuous", "--device", "cpu"])
-    assert res.returncode != 0 and "A7" in res.stderr
+    out = tmp_path / "c.json"
+    res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen3-4b",
+                "--layers", "1", "--d-model", "32", "--pim", "--continuous",
+                "--num-slots", "2", "--requests", "3", "--prompt-len", "8",
+                "--gen", "3", "--sync-every", "2", "--prefill-chunk", "4",
+                "--device", "cpu", "--plan-dir", str(tmp_path / "plans"),
+                "--metrics-json", str(out)])
+    assert res.returncode == 0, res.stderr
+    assert "continuous: 3 requests through 2 slots" in res.stdout
+    assert "saved programmed plans" in res.stdout
+    assert json.loads(out.read_text())["num_requests"] == 3
+    for flag, item in ((["--abft", "sample"], "A9"), (["--sanitize"], "A13"),
+                       (["--mesh", "1,1"], "A11")):
+        res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen2.5-3b",
+                    "--continuous", "--device", "cpu", *flag])
+        assert res.returncode != 0 and item in res.stderr, flag
 
 
 IMPORT_GUARD = r"""
@@ -153,7 +176,10 @@ NEW_MODULES = (
     "repro_torch.kernels.flash_attention.ref",
     "repro_torch.optim.adamw", "repro_torch.optim.compression",
     "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
-    "repro_torch.data.pipeline", "repro_torch.tree")
+    "repro_torch.data.pipeline", "repro_torch.tree",
+    "repro_torch.engine.persist", "repro_torch.serving.engine",
+    "repro_torch.serving.prefix", "repro_torch.serving.scheduler",
+    "repro_torch.serving.slots", "repro_torch.serving.stream")
 
 
 def test_port_and_chip_smoke_import_no_jax():

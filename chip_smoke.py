@@ -143,7 +143,34 @@ package. Phases, each of which raises on failure:
     (token streams and stop reasons); one fused decode window profiled
     (idle share); then the PIM kernel at the path's ten shapes (M = 512
     and 8) bit for bit and timed as for hymba; the directory is deleted;
-15. the flash-attention kernels against their plain versions: the
+15. ABFT-verified continuous serving (the reliability slice): phase 14's
+    restored plans programmed once more with ``verify="always"`` from
+    their codes (``pim.plan_from_qtensor``; planes unchanged, each plan
+    tagged with its layer stack's path), then phase 14's trace through
+    ``ContinuousScheduler(..., reliability=ReliabilityManager(...))``:
+    verify off, ``sample`` and ``always`` on clean plans (0 violations,
+    checks = verified dispatches x armed tags, every B1 launch with its
+    row-sum epilogue), ``always`` under ``REL_FAULTS`` (bit-flips, a
+    stuck plane with a dark WDM chunk, ADC drift) with the chaos check
+    (``serve.chaos_verdict``: tokens equal the verify-off run's,
+    detections, replays, repairs, degraded mode as the policy implies),
+    and ``sync_every`` 4 on the trace's first 4 requests with a transient
+    fault and no repair, so that fused windows are replayed from the
+    restored cache; every run's token streams and stop reasons equal the
+    verify-off run's; prefill ms per admitted request and decode ms per
+    step at off / sample / always, recovery latencies, B1's row-sum
+    launches by route, each beside the card's name and power limit; then
+    B1 with and without its row-sum epilogue at the verified run's
+    shapes (M = 512 and 8), bit for bit, timed in turns with cold
+    weights;
+16. ABFT on expert stacks and on the analog route, at full width and 2
+    layers: moonshot-v1-16b-a3b with ``REL_MOE_FAULT`` in one expert
+    stack, ``exact-cuda`` and ``exact-torch`` equal in per-tag violation
+    counts and logits, and the golden plans' fallback logits equal; and
+    qwen3-4b on ``analog-cuda`` with ``verify="always"``: a prefill and
+    4 decode steps with no violation, a stuck plane caught by the plane
+    audit;
+17. the flash-attention kernels against their plain versions: the
     forward on the JAX kernel test's cases in float32 and bfloat16 (within
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
     three backward kernels (dQ, dK/dV per query head, the head sum) at
@@ -164,7 +191,7 @@ package. Phases, each of which raises on failure:
     3xTF32 bound and its CUDA-core float32 bound; and the backward's three
     passes summed against SDPA's backward (its forward + backward minus
     its forward);
-16. the training path: gemma3-1b at full width (26 layers, d_model 1152,
+18. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
     gradient norm and every gradient leaf against the ``"jnp"`` route on
@@ -174,7 +201,7 @@ package. Phases, each of which raises on failure:
     ``TRAIN_STEPS`` timed: 26 launches of each flash kernel per step, no
     other kernel), one step with int8 gradient compression, and a profile
     of one step by stage;
-17. checkpoint and restart on the card at a reduced gemma3-1b: a run
+19. checkpoint and restart on the card at a reduced gemma3-1b: a run
     resumed from a step-6 checkpoint against the unbroken run.
 
 Each path's launch counts are set to 0 just before its requests and read
@@ -204,6 +231,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores
+L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
 BATCH = 128
@@ -2556,18 +2584,22 @@ def qwen3_program_phase(torch, dev, mods, counters, plan_dir):
     return out, logits, res["generated"], cfg
 
 
-def qwen3_phases(torch, dev, mods, counters):
-    """(f) and (g) over one fresh plan directory, deleted afterwards."""
+def qwen3_phases(torch, dev, mods, counters, smi):
+    """(f) and (g) over one fresh plan directory, deleted afterwards, then
+    (h) on (g)'s restored plans."""
     plan_dir = tempfile.mkdtemp(prefix="qwen3_plans_")
     try:
         program, logits, generated, cfg = qwen3_program_phase(
             torch, dev, mods, counters, plan_dir)
-        cont = qwen3_continuous_phase(torch, dev, mods, counters, plan_dir,
-                                      cfg, (logits, generated))
+        cont, params, base = qwen3_continuous_phase(
+            torch, dev, mods, counters, plan_dir, cfg, (logits, generated))
     finally:
         shutil.rmtree(plan_dir, ignore_errors=True)
+    rel = qwen3_reliability_phase(torch, dev, mods, counters, cfg, params,
+                                  base, cont, smi)
+    del params
     torch.cuda.empty_cache()
-    return program, cont
+    return program, cont, rel
 
 
 def qwen3_trace(serving, cfg, shared=0):
@@ -2806,12 +2838,432 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
                     "2 layers exact-torch", **geometry)
     same(f"{CONT_EXACT_LAYERS} layers exact-cuda = exact-torch",
          streams(cuda_run.completions), streams(torch_run.completions))
-    del planned, params
+    del planned
     out["checks"] = checks
     out["failures"] = failures
     if failures:
         raise AssertionError("qwen3 continuous identities: "
                              + "; ".join(failures))
+    return out, params, base
+
+
+# the reliability phase's faults (serve --inject-faults's format): a
+# transient bit-flip pair, a sticky stuck plane with a dark WDM chunk and
+# a sticky ADC gain drift, on three of qwen3-4b's layer stacks
+REL_FAULTS = (
+    {"target": "layers/attn/wq_dh", "seed": 1, "bitflips": 2,
+     "sticky": False},
+    {"target": "layers/mlp/wo_hd", "seed": 2, "stuck_planes": 1,
+     "stuck_value": 15, "dropped_chunks": 1, "sticky": True},
+    {"target": "layers/attn/wo_hd", "seed": 3, "adc_gain": 1.1,
+     "sticky": True})
+
+
+REL_WINDOW_REQUESTS = 4   # the trace's first requests, every dispatch replayed
+
+
+def arm_plans(torch, pim, params, verify):
+    """The restored plans programmed once more with ABFT verification:
+    each plan's codes (the drawn weights, quantized once) planned again
+    by ``pim.plan_from_qtensor`` with ``verify`` on and its layer stack's
+    path as tag, as serve's programming stamps them. The planes must come
+    out as they were. Returns the tree and the programming seconds."""
+    import dataclasses
+    from repro_torch.quant.quantize import QTensor
+    t0 = time.perf_counter()
+
+    def walk(tree, keys):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + [k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            tag = "/".join(keys)
+            out = []
+            for p in tree:
+                armed = pim.plan_from_qtensor(
+                    QTensor(values=p.values, scale=p.scale, bits=p.bits),
+                    dataclasses.replace(p.cfg, verify=verify, abft_tag=tag))
+                if not torch.equal(armed.planes, p.planes):
+                    raise AssertionError(f"{tag}: planes programmed again "
+                                         "differ from the restored ones")
+                out.append(armed)
+            return out
+        return tree
+
+    armed = {k: walk(v, [k]) if k == "layers" else v
+             for k, v in params.items()}
+    torch.cuda.synchronize()
+    return armed, time.perf_counter() - t0
+
+
+def qwen3_reliability_phase(torch, dev, mods, counters, cfg, params, base,
+                            cont, smi):
+    """(h) ABFT-verified continuous serving at full width: the restored
+    plans (g) programmed once more with ``verify="always"``, then the
+    continuous trace of (g) (8 slots, 32 Poisson requests at 0.5 per step,
+    seed 0) through ``ContinuousScheduler(..., reliability=)``: verify off,
+    ``sample`` and ``always`` on clean plans, then ``always`` under
+    REL_FAULTS (the default policy: repair after one strike, degrade
+    after three repairs) with the chaos check against the verify-off
+    run's streams; then ``sync_every`` 4 on the trace's first
+    REL_WINDOW_REQUESTS requests with the transient fault alone and no
+    repair, so that windows are replayed. The clean runs go in turns:
+    (g)'s verify-off run (``cont``'s timings), always, sample, and verify
+    off once more. Every run's token streams and
+    stop reasons equal (g)'s verify-off run's. B1's launches with
+    row-sums by route, the checks against the verified dispatches,
+    prefill ms per admitted request and decode ms per step at off /
+    sample / always, recovery latencies."""
+    import numpy as np
+    serving, serve_mod, kern = mods["serving"], mods["serve"], \
+        mods["pim_kern"]
+    pim, relmod = mods["pim"], mods["reliability"]
+    Engine = serving.ServingEngine
+    geometry = dict(num_slots=CONT_SLOTS, prompt_pad=LM_PROMPT,
+                    max_len=LM_PROMPT + LM_GEN)
+    trace = qwen3_trace(serving, cfg)
+    armed, program_s = arm_plans(torch, pim, params, "always")
+    tags = relmod.degrade.armed_tags(armed)
+    record_bytes = sum(t.numel() * t.element_size()
+                       for p in layer_plans(armed["layers"])
+                       for t in p.abft.values())
+    log(f"qwen3 ABFT programming: {program_s:.3f} s for "
+        f"{len(layer_plans(armed['layers']))} plans ({len(tags)} armed "
+        f"tags), checksum records {record_bytes / 1e6:.2f} MB")
+    runs, failures = {}, []
+
+    def run(label, p, reqs, manager=None, sync_every=1):
+        sched = serving.ContinuousScheduler(p, cfg, reliability=manager,
+                                            sync_every=sync_every,
+                                            **geometry)
+        sched.warmup()
+        relmod.FAULT_LOG.clear()      # the warm-up's drain and checks
+        v, windows = {}, []
+
+        def generate(self, state, max_steps=None):
+            before = manager.retries if manager is not None else 0
+            state, res = v_generate(self, state, max_steps)
+            if manager is not None and manager.retries > before \
+                    and res.steps > 1:
+                windows.append(res.steps)
+            return state, res
+        v_generate = timed(v, "decode_s", Engine.generate)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        with patched((Engine, "prefill_step", timed(v, "prefill_s",
+                                                    Engine.prefill_step)),
+                     (Engine, "generate", generate)):
+            r = sched.run(reqs)
+        torch.cuda.synchronize()
+        m = r.metrics
+        got = streams(r.completions)
+        want = {k: base[k] for k in got}
+        diff = sorted(k for k in want if got[k] != want[k])
+        if diff or len(got) != len(reqs):
+            failures.append(f"{label}: {len(diff)} of {len(want)} requests "
+                            f"differ from the verify-off run ({diff[:5]})")
+        out = {"requests": len(reqs), "sync_every": sync_every,
+               "tokens_per_s": m["tokens_per_s"], "wall_s": m["wall_s"],
+               "host_syncs": m["host_syncs"],
+               "decode_steps": m["decode_steps"],
+               "prefills": m["prefills"],
+               "prefill_units": m["prefill_units"],
+               "prefill_ms_per_request": v["prefill_s"] * 1e3
+               / m["prefills"],
+               "decode_ms_per_step": v["decode_s"] * 1e3 / m["decode_steps"],
+               "launches": read_counts(*counters),
+               "launches_by_route": route_counts(kern, "pim_matmul_fused"),
+               "rowsum_launches_by_route": {
+                   k: n for k, n in kern.ROWSUM_LAUNCHES.items() if n},
+               "fallback_traces": m["fallback_traces"],
+               "reliability": m["reliability"],
+               "mismatched_requests": diff, "replayed_windows": windows}
+        runs[label] = out
+        rel = m["reliability"] or {}
+        log(f"qwen3 ABFT run {label}: {len(got) - len(diff)} of {len(got)} "
+            f"requests' streams equal the verify-off run's; prefill "
+            f"{out['prefill_ms_per_request']:.2f} ms per admitted request, "
+            f"decode {out['decode_ms_per_step']:.2f} ms per step, "
+            f"{out['tokens_per_s']:.1f} tokens/s; B1 row-sum launches "
+            f"{out['rowsum_launches_by_route']}; reliability {rel} [{smi}]")
+        return r, out
+
+    # in turns: off ((g)'s run), always, sample, off (the host's speed
+    # drifts between runs)
+    runs["verify off, (g)"] = {key: cont[key] for key in (
+        "prefill_ms_per_request", "decode_ms_per_step")}
+    for mode, plans in (("always", armed),
+                        ("sample", relmod.retarget_plans(armed, "exact-cuda",
+                                                         "sample"))):
+        man = relmod.ReliabilityManager(plans)
+        _, out = run(f"abft {mode}", plans, trace, man)
+        dispatches = out["prefill_units"] + out["host_syncs"]
+        rel = out["reliability"]
+        if rel["checks"] != dispatches * len(tags) or rel["violations"] \
+                or rel["detections"] or rel["retries"]:
+            failures.append(f"abft {mode}: {rel} for {dispatches} verified "
+                            f"dispatches x {len(tags)} armed tags")
+        if sum(out["rowsum_launches_by_route"].values()) != \
+                out["launches"]["pim_matmul_fused"]:
+            failures.append(f"abft {mode}: B1 launches without row-sums")
+    run("verify off, again", params, trace)
+    models = [relmod.FaultModel(**f) for f in REL_FAULTS]
+    t0 = time.perf_counter()
+    man = relmod.ReliabilityManager(armed, models)
+    inject_s = time.perf_counter() - t0
+    log(f"qwen3 fault injection: {len(man.injection_report)} faults in "
+        f"{inject_s:.2f} s ({relmod.summarize(man.injection_report)})")
+    faulty_run, out = run("abft always, faults", armed, trace, man)
+    golden = {k: np.asarray(t) for k, (t, _) in base.items()}
+    try:
+        out["chaos_check"] = serve_mod.chaos_verdict(golden, faulty_run,
+                                                     man)
+    except AssertionError as e:
+        failures.append(str(e))
+    rel = out["reliability"]
+    sticky = any(m.sticky for m in models)
+    if not (rel["detections"] and rel["retries"] and rel["repairs"]) \
+            or rel["degraded"] != sticky:
+        failures.append(f"faults: {rel}, degraded expected {sticky}")
+    out["injection_report"] = man.injection_report
+    out["inject_s"] = inject_s
+    few = trace[:REL_WINDOW_REQUESTS]
+    wman = relmod.ReliabilityManager(
+        armed, models[:1], relmod.ReliabilityPolicy(repair_after=10 ** 6))
+    _, wout = run(f"abft always, transient fault, sync_every {CONT_WINDOW}",
+                  armed, few, wman, sync_every=CONT_WINDOW)
+    if not wout["replayed_windows"]:
+        failures.append("no fused window was replayed")
+    del armed, man, wman, faulty_run
+    torch.cuda.empty_cache()
+    on, sample = runs["abft always"], runs["abft sample"]
+    off = {key: (runs["verify off, (g)"][key]
+                 + runs["verify off, again"][key]) / 2
+           for key in ("prefill_ms_per_request", "decode_ms_per_step")}
+    overhead = {
+        mode: {"prefill": r["prefill_ms_per_request"]
+               / off["prefill_ms_per_request"] - 1.0,
+               "decode": r["decode_ms_per_step"]
+               / off["decode_ms_per_step"] - 1.0}
+        for mode, r in (("sample", sample), ("always", on))}
+    lat = runs["abft always, faults"]["reliability"]["recovery_latency_s"]
+    log(f"qwen3 ABFT overhead against verify off (host clock; off the mean "
+        f"of its two runs, {off['prefill_ms_per_request']:.2f} ms per "
+        f"admitted request and {off['decode_ms_per_step']:.2f} ms per "
+        f"step): sample "
+        f"prefill {overhead['sample']['prefill']:+.3%}, decode "
+        f"{overhead['sample']['decode']:+.3%}; always prefill "
+        f"{overhead['always']['prefill']:+.3%}, decode "
+        f"{overhead['always']['decode']:+.3%}; recovery latency mean "
+        f"{lat['mean'] * 1e3:.1f} ms, max {lat['max'] * 1e3:.1f} ms over "
+        f"{lat['count']} replays [{smi}]")
+    shapes = Counter()     # the always run's launches (no warm-up)
+    for plan in layer_plans(params["layers"]):
+        k, n = plan.planes.shape[1:]
+        shapes[(LM_PROMPT, k, n)] += on["prefill_units"]
+        shapes[(CONT_SLOTS, k, n)] += on["host_syncs"]
+    if on["launches"]["pim_matmul_fused"] != sum(shapes.values()):
+        failures.append(f"abft always: {on['launches']} B1 launches, "
+                        f"{sum(shapes.values())} expected")
+    result = {"program_s": program_s, "armed_tags": tags,
+              "record_bytes": record_bytes, "runs": runs,
+              "overhead": overhead, "shapes": shapes, "card": smi,
+              "launches": {"pim_matmul_fused": sum(shapes.values())},
+              "rowsum_launches_by_route":
+                  runs["abft always"]["rowsum_launches_by_route"],
+              "failures": failures}
+    if failures:
+        raise AssertionError("qwen3 ABFT: " + "; ".join(failures))
+    return result
+
+
+def rowsum_rows(torch, dev, kern, ref, shapes):
+    """B1 with and without its ABFT row-sum epilogue at each (M, K, N) of
+    the verified path, w4a4: both bit for bit against the plain version,
+    then device time in turns (without, with, with, without), the weight
+    planes rotated over enough copies to leave L2 cold, beside the plain
+    version's time (with row-sums), the bound of the function with
+    row-sums and torch._int_mm + epilogue + an int64 row-sum (M > 16)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for (m, k, n), count in sorted(shapes.items(), key=lambda s: -s[0][0]):
+        a = planes(torch, gen, 1, m, k, dev)
+        copies = max(1, math.ceil(2 * L2_BYTES / (k * n)))
+        ws = [planes(torch, gen, 1, k, n, dev) for _ in range(copies)]
+        a_s, w_s, _ = scales(torch, gen, m, n, dev)
+        want, want_rs = ref.pim_matmul_fused_ref(a, ws[0], a_s, w_s,
+                                                 want_rowsum=True)
+        out, rs = kern.pim_matmul_fused_cuda(a, ws[0], a_s, w_s,
+                                             want_rowsum=True)
+        err = max(max_err(torch, out, want), max_err(torch, rs, want_rs),
+                  max_err(torch, kern.pim_matmul_fused_cuda(
+                      a, ws[0], a_s, w_s), want))
+        on = lambda i: kern.pim_matmul_fused_cuda(
+            a, ws[i % copies], a_s, w_s, want_rowsum=True)
+        off = lambda i: kern.pim_matmul_fused_cuda(a, ws[i % copies], a_s,
+                                                   w_s)
+        turns = [device_ms(torch, fn) for fn in (off, on, on, off)]
+        row = {"M": m, "K": k, "N": n, "launches_per_request": count,
+               "route": kern.small_m_grid(m, k, n)[0],
+               "weight_copies": copies, "turns_ms": turns,
+               "rowsum_ms": (turns[1] + turns[2]) / 2,
+               "no_rowsum_ms": (turns[0] + turns[3]) / 2,
+               "max_abs_err": err}
+        row["rowsum_share"] = row["rowsum_ms"] / row["no_rowsum_ms"] - 1.0
+        row["plain_ms"] = time_ms(torch, lambda: ref.pim_matmul_fused_ref(
+            a, ws[0], a_s, w_s, want_rowsum=True))
+        row["bound_ms"], row["bound_by"] = bound(1, 1, m, k, n, 4, 12 * m
+                                                 + 4 * n)
+        row["library_ms"] = None
+        if m > 16:
+            def lib(w=ws[0][0]):
+                acc = torch._int_mm(a[0], w)
+                return acc.float() * a_s * w_s, acc.sum(1)
+            row["library_ms"] = time_ms(torch, lib)
+        rows.append(row)
+        log(f"B1 row-sums at M={m} K={k} N={n} ({row['route']}, "
+            f"x{count}): with {row['rowsum_ms']:.4f} ms, without "
+            f"{row['no_rowsum_ms']:.4f} ms ({row['rowsum_share']:+.2%}; "
+            "turns without, with, with, without: "
+            + ", ".join(f"{t:.4f}" for t in turns)
+            + f"); plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"torch._int_mm + epilogue + row-sum {row['library_ms']}")
+        del a, ws
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rowsum_entry(rows, rel, smi):
+    """B1's line for the ABFT-verified path: the always run's launches
+    (every one with row-sums), its per-shape times summed over them."""
+    tot = lambda key: sum(r[key] * r["launches_per_request"] for r in rows)
+    lib = [r for r in rows if r["library_ms"] is not None]
+    by = Counter()
+    for r in rows:
+        by[r["bound_by"]] += r["bound_ms"] * r["launches_per_request"]
+    return {
+        "name": "pim_matmul_fused", "path": "qwen3-4b continuous pim, "
+        "abft always (want_rowsum)", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES["pim_matmul_fused"],
+        "launches": rel["launches"]["pim_matmul_fused"],
+        "launches_by_route": rel["rowsum_launches_by_route"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": tot("rowsum_ms"), "no_rowsum_ms": tot("no_rowsum_ms"),
+        "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+        "bound_by": by.most_common(1)[0][0],
+        "library_ms": sum(r["library_ms"] * r["launches_per_request"]
+                          for r in lib) if lib else None,
+        "per": (f"one ABFT-verified continuous qwen3-4b run (the trace of "
+                f"the continuous line, verify always; {smi}): sum over the "
+                f"whole prefills' launches (M = {LM_PROMPT}) and the decode "
+                f"steps' (M = {CONT_SLOTS}) of B1 with its row-sum epilogue"
+                ", device time with cold weights; no_rowsum_ms the same "
+                "launches without it; library_ms covers the prefill shapes "
+                "(torch._int_mm + epilogue + row-sum, M > 16)")}
+
+
+REL_MOE_FAULT = {"target": "layers/moe/wi_edf", "seed": 4, "bitflips": 3,
+                 "stuck_planes": 2, "stuck_value": 15, "dropped_chunks": 1}
+REL_ANALOG_LAYERS = 2
+REL_ANALOG_STEPS = 4
+
+
+def reliability_checks(torch, dev, mods):
+    """(i) ABFT on expert stacks and on the analog route, at full width
+    and 2 layers: moonshot-v1-16b-a3b (64 experts) programmed with
+    ``verify="always"`` and REL_MOE_FAULT injected into one expert stack:
+    one prefill (batch 1, 64 tokens) on ``exact-cuda`` and on
+    ``exact-torch`` (the plain version on the card) gives equal per-tag
+    violation counts and equal logits, and the golden plans on the
+    fallback (each exact substrate, verify off) give equal logits; then
+    qwen3-4b programmed on ``analog-cuda`` with ``verify="always"``: a
+    prefill (batch 8 x prompt 512) and REL_ANALOG_STEPS decode steps with
+    no violation, then a stuck plane in ``layers/attn/wq_dh`` caught by
+    the plane audit on the next prefill."""
+    import dataclasses
+    lm, serve_mod, pim, relmod = (mods["lm"], mods["serve"], mods["pim"],
+                                  mods["reliability"])
+    log_ = relmod.FAULT_LOG
+    out = {}
+    cfg = dataclasses.replace(mods["configs"].get_config(MOONSHOT),
+                              num_layers=MOE_EXACT_LAYERS)
+    planned = serve_mod.plan_params_for_pim(
+        lm.init_lm(cfg, 0, device=dev),
+        pim.PimConfig(weight_bits=4, act_bits=4, verify="always"))
+    bad, report = relmod.inject_tree(planned,
+                                     [relmod.FaultModel(**REL_MOE_FAULT)])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                           device=dev)
+    seen = {}
+    for substrate in ("exact-cuda", "exact-torch"):
+        log_.clear()
+        logits, _ = lm.prefill(with_substrate(bad, substrate), cfg,
+                               {"tokens": tokens}, 64)
+        snap = log_.snapshot()
+        fb, _ = lm.prefill(relmod.retarget_plans(planned, substrate), cfg,
+                           {"tokens": tokens}, 64)
+        seen[substrate] = (snap["violation_rows"], snap["total_violations"],
+                           snap["total_checks"], logits, fb)
+    c, t = seen["exact-cuda"], seen["exact-torch"]
+    if c[:3] != t[:3] or not c[1] or not torch.equal(c[3], t[3]) or \
+            not torch.equal(c[4], t[4]):
+        raise AssertionError(f"moonshot ABFT: exact-cuda {c[:3]} vs "
+                             f"exact-torch {t[:3]}, or their logits differ")
+    out["moonshot"] = {"layers": MOE_EXACT_LAYERS, "injected": len(report),
+                       "violation_rows": c[0], "violations": c[1],
+                       "checks": c[2]}
+    log(f"moonshot at full width and {MOE_EXACT_LAYERS} layers, verify "
+        f"always, {len(report)} faults in layers/moe/wi_edf: exact-cuda "
+        f"and exact-torch {c[1]} violations of {c[2]} checks, rows {c[0]},"
+        " logits equal; the golden plans on each fallback substrate give "
+        "equal logits")
+    del planned, bad, seen, c, t
+    torch.cuda.empty_cache()
+
+    qcfg = dataclasses.replace(mods["configs"].get_config(QWEN3),
+                               num_layers=REL_ANALOG_LAYERS)
+    planned = serve_mod.plan_params_for_pim(
+        lm.init_lm(qcfg, 0, device=dev),
+        pim.PimConfig(weight_bits=4, act_bits=4, substrate="analog-cuda",
+                      verify="always"))
+    toks = lm_tokens(torch, dev, qcfg.vocab_size)
+    akern = mods["analog_kern"]
+    log_.clear()
+    akern.reset_launches()
+    logits, cache = lm.prefill(planned, qcfg, {"tokens": toks},
+                               LM_PROMPT + REL_ANALOG_STEPS)
+    tok = logits.argmax(-1)[:, None]
+    for g in range(REL_ANALOG_STEPS):
+        logits, cache = lm.decode_step(planned, qcfg, cache, tok,
+                                       LM_PROMPT + g)
+        tok = logits.argmax(-1)[:, None]
+    clean = log_.snapshot()
+    launches = dict(akern.LAUNCHES)
+    bad, report = relmod.inject_tree(planned, [relmod.FaultModel(
+        target="layers/attn/wq_dh", seed=5, stuck_planes=1,
+        stuck_value=15)])
+    log_.clear()
+    lm.prefill(bad, qcfg, {"tokens": toks}, LM_PROMPT)
+    faulty = log_.snapshot()
+    want_checks = 7 * REL_ANALOG_LAYERS * (1 + REL_ANALOG_STEPS)
+    if clean["total_violations"] or clean["total_checks"] != want_checks \
+            or faulty["violation_rows"].get("layers/attn/wq_dh", 0) < 1 \
+            or set(faulty["violation_rows"]) != {"layers/attn/wq_dh"} \
+            or not all(launches.values()):
+        raise AssertionError(f"qwen3 analog ABFT: clean {clean}, launches "
+                             f"{launches}, faulty {faulty}")
+    out["analog"] = {"layers": REL_ANALOG_LAYERS,
+                     "decode_steps": REL_ANALOG_STEPS, "clean": clean,
+                     "launches": launches, "stuck_plane": report,
+                     "faulty": faulty}
+    log(f"qwen3 at full width and {REL_ANALOG_LAYERS} layers on analog-cuda,"
+        f" verify always: a prefill and {REL_ANALOG_STEPS} decode steps, "
+        f"{clean['total_checks']} checks, no violation (analog launches "
+        f"{launches}); a stuck plane in layers/attn/wq_dh: violation rows "
+        f"{faulty['violation_rows']}")
+    del planned, bad, cache
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3641,7 +4093,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan as skern
-    from repro_torch import engine, serving
+    from repro_torch import engine, reliability, serving
     from repro_torch.checkpoint import ckpt
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train
@@ -3752,8 +4204,10 @@ def main() -> int:
              f"{b1['decode_tiled_ms']:.3f} ms, bound "
              f"{b1['decode_bound_ms']:.3f} ms); library_ms covers the "
              "prefill shapes (torch._int_mm takes M > 16)")))
-    mods.update({"serving": serving, "engine": engine, "ckpt": ckpt})
-    qwen3, qwen3_cont = qwen3_phases(torch, dev, mods, counters)
+    mods.update({"serving": serving, "engine": engine, "ckpt": ckpt,
+                 "reliability": reliability, "analog_kern": akern})
+    qwen3, qwen3_cont, qwen3_rel = qwen3_phases(torch, dev, mods, counters,
+                                                smi)
     q_err = lm_kernel_checks(torch, dev, kern, ref, qwen3_cont["shapes"])
     q_rows = shape_numbers(torch, dev, kern, ref, qwen3_cont["shapes"],
                            with_bias=False)
@@ -3775,6 +4229,9 @@ def main() -> int:
              f"{b1['decode_ms']:.3f} ms, bound {b1['decode_bound_ms']:.3f} "
              "ms); library_ms covers the prefill shapes (torch._int_mm "
              "takes M > 16)")))
+    rel_rows = rowsum_rows(torch, dev, kern, ref, qwen3_rel["shapes"])
+    kernels.append(rowsum_entry(rel_rows, qwen3_rel, smi))
+    rel_checks = reliability_checks(torch, dev, mods)
     mods.update({"train": train, "flash_kern": fkern, "tree": tree})
     training = train_path(torch, dev, mods, counters)
     kernels += flash_entries(flash_rows, training["config"]["windows"],
@@ -3800,6 +4257,8 @@ def main() -> int:
              "moonshot": listed(moonshot), "moonshot_shapes": moe_rows,
              "qwen3_persist": qwen3, "qwen3_continuous": listed(qwen3_cont),
              "qwen3_shapes": q_rows,
+             "qwen3_reliability": listed(qwen3_rel),
+             "rowsum_shapes": rel_rows, "reliability_checks": rel_checks,
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "kernels": kernels},
             indent=1, default=str))

@@ -74,10 +74,18 @@ def _field_names(obj: Any):
     return list(dc_fields)
 
 
+def _abft_from_reference(abft: Any, device) -> Any:
+    """A reference plan's ABFT checksum record (``None`` or a mapping of
+    arrays) with the arrays unchanged."""
+    if abft is None:
+        return None
+    return {name: tensor_from_numpy(v, device) for name, v in abft.items()}
+
+
 def plan_from_reference(plan: Any, device=None) -> pim.Plan:
     """A reference ``DensePlan``, ``DepthwisePlan`` or
     ``ExpertStackedPlan`` (or a mapping of its fields) -> the port's plan
-    of the same kind, fields unchanged."""
+    of the same kind, fields (and the ABFT checksum record) unchanged."""
     get = plan.get if isinstance(plan, Mapping) else \
         (lambda name, default=None: getattr(plan, name, default))
     if get("dense") is not None:
@@ -92,7 +100,8 @@ def plan_from_reference(plan: Any, device=None) -> pim.Plan:
         return pim.DensePlan(
             values=values, scale=scale, planes=planes,
             padded_scale=tensor_from_numpy(get("padded_scale"), device),
-            bits=int(get("bits")), k=int(get("k")), n=int(get("n")), cfg=cfg)
+            bits=int(get("bits")), k=int(get("k")), n=int(get("n")), cfg=cfg,
+            abft=_abft_from_reference(get("abft"), device))
     return pim.DepthwisePlan(values=values, scale=scale, planes=planes,
                              bits=int(get("bits")), cfg=cfg)
 
@@ -108,10 +117,14 @@ def plans_from_reference(plans: Mapping[str, Any], device=None
 _PLAN_ARRAYS = ("values", "scale", "planes", "padded_scale")
 
 
-def _layer_plan(dense: Any, i: int, arrays: Dict[str, np.ndarray]) -> dict:
-    """Layer ``i``'s fields of a vmapped reference ``DensePlan``."""
+def _layer_plan(dense: Any, i: int, arrays: Dict[str, np.ndarray],
+                record: Any) -> dict:
+    """Layer ``i``'s fields (and checksum record) of a vmapped reference
+    ``DensePlan``."""
     return dict({f: arrays[f][i] for f in _PLAN_ARRAYS}, bits=dense.bits,
-                k=dense.k, n=dense.n, cfg=dense.cfg)
+                k=dense.k, n=dense.n, cfg=dense.cfg,
+                abft=None if record is None else
+                {name: v[i] for name, v in record.items()})
 
 
 def planned_params_from_reference(tree: Any, device=None) -> Any:
@@ -131,7 +144,10 @@ def planned_params_from_reference(tree: Any, device=None) -> Any:
     if dense is not None or hasattr(tree, "planes"):   # a (vmapped) plan
         source = tree if dense is None else dense
         arrays = {f: np.asarray(getattr(source, f)) for f in _PLAN_ARRAYS}
-        layers = [_layer_plan(source, i, arrays)
+        record = getattr(source, "abft", None)
+        if record is not None:
+            record = {name: np.asarray(v) for name, v in record.items()}
+        layers = [_layer_plan(source, i, arrays, record)
                   for i in range(arrays["values"].shape[0])]
         if dense is not None:
             layers = [{"dense": d, "num_experts": tree.num_experts}

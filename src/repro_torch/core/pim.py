@@ -25,8 +25,13 @@ substrate runs. Dispatch lives in :mod:`repro_torch.engine`.
      reference layout); the engine drives each expert's array with that
      expert's own math.
 
-ABFT verification (``verify != "off"``) is not ported yet and raises
-(ROADMAP A9), for expert stacks too.
+  7. ABFT verification (``verify != "off"``): programming records the
+     plan's checksum column (:func:`repro_torch.reliability.abft.
+     checksums`, for expert stacks one record per expert), and each
+     verified matmul checks it (B1's int32 row-sums on ``exact-cuda``,
+     the plain row-sums on ``exact-torch``, a tolerance band plus storage
+     audits on the float routes) and reports the count to
+     :mod:`repro_torch.reliability.abft`.
 """
 from __future__ import annotations
 
@@ -39,13 +44,14 @@ import torch.nn.functional as F
 
 from repro_torch.core.cell import DEFAULT_CELL
 from repro_torch.kernels.analog_readout import ops as analog_ops
-from repro_torch.kernels.analog_readout.ref import analog_readout_fused_ref
+from repro_torch.kernels.analog_readout.ref import (analog_readout_fused_ref,
+                                                    inv_half_levels)
 from repro_torch.kernels.pim_matmul import ops as pim_ops
 from repro_torch.kernels.pim_matmul.pim_matmul import kernel_tiles
 from repro_torch.kernels.pim_matmul.ref import (pim_matmul_ref,
-                                                plane_partials, shift_add,
-                                                wrap_int32)
-from repro_torch.quant.nibbles import num_nibbles, to_nibbles
+                                                plane_partials, rowsum_int32,
+                                                shift_add, wrap_int32)
+from repro_torch.quant.nibbles import NIBBLE_BASE, num_nibbles, to_nibbles
 from repro_torch.quant.quantize import QTensor, quantize
 
 # Canonical substrate names (registry keys, see engine/substrates.py).
@@ -75,15 +81,14 @@ class PimConfig:
     substrate: Optional[str] = None  # registry key (JAX names accepted)
     read_noise_sigma: float = 0.0  # relative transmission read noise; if 0
                                    # and an rng is given, the cell-implied one
-    verify: str = "off"           # ABFT checksum policy (reliability slice)
-    abft_tag: Optional[str] = None  # violation-report tag
-
-    def __post_init__(self):
-        if self.verify != "off":
-            raise NotImplementedError(
-                "ABFT verification (verify != 'off'), for dense plans and "
-                "expert stacks alike, arrives with the port's reliability "
-                "slice (ROADMAP A9)")
+    verify: str = "off"           # ABFT checksum policy: "off" | "sample"
+                                  # | "always" (repro_torch.reliability.
+                                  # abft); non-"off" at programming time
+                                  # records the checksum column, at
+                                  # execute time checks it
+    abft_tag: Optional[str] = None  # violation-report tag (the plan's
+                                    # tree path in a serving params tree;
+                                    # repair keys on it)
 
     @property
     def weight_planes(self) -> int:
@@ -139,6 +144,9 @@ class DensePlan(Plan):
     k: int = 0                   # logical contraction dim (planes[:, :k])
     n: int = 0                   # logical output dim (planes[..., :n])
     cfg: PimConfig = DEFAULT_PIM
+    abft: Optional[dict] = None  # ABFT checksum record {"col_i32" (K,),
+                                 # "col_f32" (K,), "scale_sum" ()} from
+                                 # programming with verify != "off"
 
     @property
     def shape(self):
@@ -148,7 +156,14 @@ class DensePlan(Plan):
         return dataclasses.replace(
             self, values=self.values.to(device), scale=self.scale.to(device),
             planes=self.planes.to(device),
-            padded_scale=self.padded_scale.to(device))
+            padded_scale=self.padded_scale.to(device),
+            abft=None if self.abft is None else
+            {k: v.to(device) for k, v in self.abft.items()})
+
+
+def _slice_abft(abft: Optional[dict], sel) -> Optional[dict]:
+    """An expert stack's record cut to ``sel`` of its expert axis."""
+    return None if abft is None else {k: v[sel] for k, v in abft.items()}
 
 
 @dataclasses.dataclass
@@ -185,7 +200,8 @@ class ExpertStackedPlan(Plan):
         d = self.dense
         return dataclasses.replace(d, values=d.values[e], scale=d.scale[e],
                                    planes=d.planes[e],
-                                   padded_scale=d.padded_scale[e])
+                                   padded_scale=d.padded_scale[e],
+                                   abft=_slice_abft(d.abft, e))
 
     def experts(self, lo: int, hi: int) -> "ExpertStackedPlan":
         """The stack of experts ``lo`` to ``hi - 1`` (views)."""
@@ -193,7 +209,8 @@ class ExpertStackedPlan(Plan):
         return ExpertStackedPlan(
             dense=dataclasses.replace(
                 d, values=d.values[lo:hi], scale=d.scale[lo:hi],
-                planes=d.planes[lo:hi], padded_scale=d.padded_scale[lo:hi]),
+                planes=d.planes[lo:hi], padded_scale=d.padded_scale[lo:hi],
+                abft=_slice_abft(d.abft, slice(lo, hi))),
             num_experts=hi - lo)
 
     def to(self, device) -> "ExpertStackedPlan":
@@ -225,7 +242,9 @@ def plan_from_qtensor(w_q: QTensor, cfg: PimConfig = DEFAULT_PIM
     """Plan already-quantized (K, N) codes: nibble planes pre-padded to the
     kernel tile multiples and to a WDM-chunk boundary. Codes (E, K, N)
     with scales (E, 1, N) give the fields of an expert stack, each expert
-    planned as a (K, N) matrix would be."""
+    planned as a (K, N) matrix would be. With ``cfg.verify`` not "off"
+    the plan carries its ABFT checksum record (one per expert); an
+    unknown verify mode raises ``ValueError``."""
     if cfg.weight_bits != w_q.bits:
         # adopted codes define the weight width; the stamped cfg must agree
         cfg = dataclasses.replace(cfg, weight_bits=w_q.bits)
@@ -242,9 +261,18 @@ def plan_from_qtensor(w_q: QTensor, cfg: PimConfig = DEFAULT_PIM
         planes = F.pad(planes, (0, pad_n, 0, pad_k))
     padded_scale = F.pad(torch.broadcast_to(w_q.scale, lead + (1, n)),
                          (0, pad_n)).contiguous()
+    abft = None
+    if cfg.verify != "off":
+        # imported here: the reliability package imports this module
+        from repro_torch.reliability import abft as abft_mod
+        if cfg.verify not in abft_mod.VERIFY_MODES:
+            raise ValueError(f"unknown verify mode {cfg.verify!r}; "
+                             f"expected one of {abft_mod.VERIFY_MODES}")
+        abft = abft_mod.checksums(w_q.values, torch.broadcast_to(
+            w_q.scale, lead + (1, n)))
     return DensePlan(values=w_q.values, scale=w_q.scale,
                      planes=planes.contiguous(), padded_scale=padded_scale,
-                     bits=w_q.bits, k=k, n=n, cfg=cfg)
+                     bits=w_q.bits, k=k, n=n, cfg=cfg, abft=abft)
 
 
 def prepare_weights(w: torch.Tensor, cfg: PimConfig = DEFAULT_PIM
@@ -328,15 +356,82 @@ def _pad_bias(bias: Optional[torch.Tensor], plan: DensePlan
                  (0, pad_n)).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# ABFT verification (repro_torch.reliability.abft does the checksum math;
+# these helpers adapt it to each substrate's intermediates and post the
+# count, which stays on the plan's device)
+# ---------------------------------------------------------------------------
+def _abft_report_exact(rowsum: torch.Tensor, a_values: torch.Tensor,
+                       plan: DensePlan, cfg: PimConfig) -> None:
+    """Exact-substrate check: int32 accumulator row-sums against the
+    checksum-column matvec (bit-exact, wraparound-safe)."""
+    from repro_torch.reliability import abft as abft_mod
+    viol = abft_mod.int_violations(rowsum, a_values, plan.abft, plan.scale,
+                                   mode=cfg.verify, tag=cfg.abft_tag)
+    abft_mod.report(cfg.abft_tag, viol)
+
+
+def _abft_report_float(out: torch.Tensor, expected: torch.Tensor,
+                       extra_tol, plan: DensePlan, cfg: PimConfig) -> None:
+    """Float-substrate check: banded output row-sums plus the exact plane/
+    scale storage audits (which carry the deterministic detection)."""
+    from repro_torch.reliability import abft as abft_mod
+    out = out.to(torch.float32)
+    # 1e-3 relative band absorbs float re-association across N <= 4096
+    tol = extra_tol + 1e-3 * torch.abs(out).sum(dim=1) + 1e-6
+    viol = abft_mod.float_violations(out.sum(dim=1), expected, tol,
+                                     plan.planes, plan.abft, plan.scale,
+                                     k=plan.k, mode=cfg.verify,
+                                     tag=cfg.abft_tag)
+    abft_mod.report(cfg.abft_tag, viol)
+
+
+def _analog_rowsum_tolerance(a_q: QTensor, plan: DensePlan, cfg: PimConfig,
+                             chunk: int, sigma: float) -> torch.Tensor:
+    """Static upper bound on the analog readout's row-sum error: per-ADC
+    rounding (half an LSB at the worst-case full scale chunk*15^2) plus a
+    6-sigma transmission-noise margin, accumulated over chunks and plane
+    pairs, scaled by the live dequantization scales. Deliberately loose:
+    the exact storage audits do the fault detection; this band only flags
+    gross runtime corruption the stores cannot see."""
+    digit_max = float(NIBBLE_BASE - 1)
+    pa = num_nibbles(cfg.act_bits)
+    pw = plan.planes.shape[-3]
+    s16 = float(sum(16 ** d for d in range(pa))
+                * sum(16 ** e for e in range(pw)))
+    kp = plan.planes.shape[-2]
+    n_chunks = max(-(-kp // max(chunk, 1)), 1)
+    lsb_bound = chunk * digit_max ** 2 * inv_half_levels(cfg.adc_bits)
+    per_col = n_chunks * s16 * (0.5 * lsb_bound
+                                + 6.0 * sigma * digit_max ** 2
+                                * chunk ** 0.5)
+    return a_q.scale[:, 0] * torch.abs(plan.scale).sum() * per_col
+
+
+def _abft_report_analog(out: torch.Tensor, a_q: QTensor, plan: DensePlan,
+                        cfg: PimConfig, chunk: int, sigma: float,
+                        bias: Optional[torch.Tensor]) -> None:
+    expected = a_q.scale[:, 0] * (
+        a_q.values.to(torch.float32) @ plan.abft["col_f32"])
+    if bias is not None:
+        expected = expected + bias.to(torch.float32).sum()
+    _abft_report_float(out, expected,
+                       _analog_rowsum_tolerance(a_q, plan, cfg, chunk,
+                                                sigma), plan, cfg)
+
+
 def exact_torch_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
-                         bias: Optional[torch.Tensor] = None, act=None
-                         ) -> torch.Tensor:
+                         bias: Optional[torch.Tensor] = None, act=None,
+                         verify: bool = False) -> torch.Tensor:
     """``exact-torch`` substrate: the plain integer plane products +
     shift-and-add, dequantized in two float32 steps (counterpart of
-    ``exact_jnp_matmul2d``)."""
+    ``exact_jnp_matmul2d``); ``verify`` checks the accumulator's row-sums
+    against the plan's checksum record."""
     a_q, a_planes = act or _quantize_activations(x2, cfg)
     w_planes = plan.planes[:, :plan.k, :plan.n]
     acc = pim_matmul_ref(a_planes, w_planes)
+    if verify:
+        _abft_report_exact(rowsum_int32(acc), a_q.values, plan, cfg)
     out = acc.to(torch.float32) * a_q.scale * plan.scale
     if bias is not None:
         out = out + bias.to(torch.float32).reshape(1, -1)
@@ -344,26 +439,40 @@ def exact_torch_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
 
 
 def exact_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
-                        bias: Optional[torch.Tensor] = None, act=None
-                        ) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None, act=None,
+                        verify: bool = False) -> torch.Tensor:
     """``exact-cuda`` substrate: the hand-written kernel with the fused
-    dequant epilogue (counterpart of ``exact_pallas_matmul2d``). On CPU
-    tensors the same call runs the kernel's plain version."""
+    dequant epilogue (counterpart of ``exact_pallas_matmul2d``). With
+    ``verify`` the same launch also returns the int32 accumulator
+    row-sums (``want_rowsum``; padded columns hold zero planes, so the
+    padded row-sum equals the logical one) for the ABFT check; ``out`` is
+    the same either way. On CPU tensors the same call runs the kernel's
+    plain version."""
     a_q, a_planes = act or _quantize_activations(x2, cfg)
-    out = pim_ops.pim_matmul_fused(_pad_act_planes(a_planes, plan),
+    res = pim_ops.pim_matmul_fused(_pad_act_planes(a_planes, plan),
                                    plan.planes, a_q.scale,
                                    plan.padded_scale,
-                                   bias=_pad_bias(bias, plan))
-    return out[:, :plan.n]
+                                   bias=_pad_bias(bias, plan),
+                                   want_rowsum=verify)
+    if verify:
+        res, rowsum = res
+        _abft_report_exact(rowsum, a_q.values, plan, cfg)
+    return res[:, :plan.n]
 
 
 def emulate_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None,
+                     verify: bool = False) -> torch.Tensor:
     """``emulate`` substrate: float matmul against the dequantized codes —
     weight programming only, no activation quantization."""
     out = x2.to(torch.float32) @ plan.dequantized()
     if bias is not None:
         out = out + bias.to(torch.float32).reshape(1, -1)
+    if verify:
+        expected = x2.to(torch.float32) @ plan.abft["col_f32"]
+        if bias is not None:
+            expected = expected + bias.to(torch.float32).sum()
+        _abft_report_float(out, expected, 0.0, plan, cfg)
     return out
 
 
@@ -424,8 +533,8 @@ def _analog_inputs(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
 
 def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
                     bias: Optional[torch.Tensor] = None,
-                    rng: Optional[torch.Generator] = None, act=None
-                    ) -> torch.Tensor:
+                    rng: Optional[torch.Generator] = None, act=None,
+                    verify: bool = False) -> torch.Tensor:
     """``analog`` substrate: the plain readout model (the kernel's plain
     version, folded over chunk blocks); the bias is added after the
     slice."""
@@ -437,13 +546,15 @@ def analog_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
         seed=seed)[:, :plan.n]
     if bias is not None:
         out = out + bias.to(torch.float32).reshape(1, -1)
+    if verify:
+        _abft_report_analog(out, a_q, plan, cfg, chunk, sigma, bias)
     return out
 
 
 def analog_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
                          bias: Optional[torch.Tensor] = None,
-                         rng: Optional[torch.Generator] = None, act=None
-                         ) -> torch.Tensor:
+                         rng: Optional[torch.Generator] = None, act=None,
+                         verify: bool = False) -> torch.Tensor:
     """``analog-cuda`` substrate: the two-pass hand-written kernel, bias
     fused (counterpart of ``analog_pallas_matmul2d``). Bit-identical to
     :func:`analog_matmul2d` for the same rng state, with or without a
@@ -457,7 +568,10 @@ def analog_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
         a_planes, plan.planes, a_q.scale, plan.padded_scale, seed,
         _pad_bias(bias, plan), chunk=chunk, adc_bits=cfg.adc_bits,
         sigma=sigma)
-    return out[:, :plan.n]
+    out = out[:, :plan.n]
+    if verify:
+        _abft_report_analog(out, a_q, plan, cfg, chunk, sigma, bias)
+    return out
 
 
 # ---------------------------------------------------------------------------

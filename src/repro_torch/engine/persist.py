@@ -24,7 +24,9 @@ CNN's ``{layer name: DensePlan | DepthwisePlan}``) map one to one.
 
 Leaf order and paths are JAX's: dict keys sorted, sequences in order, a
 plan's array children in its pytree order (``DensePlan``: values, scale,
-planes, padded_scale; ``DepthwisePlan``: values, scale, planes;
+planes, padded_scale, then the ABFT checksum record when the plan has
+one, a dict child keyed ``i:4`` whose leaves come in sorted key order:
+col_f32, col_i32, scale_sum; ``DepthwisePlan``: values, scale, planes;
 ``ExpertStackedPlan``: its ``dense`` plan), keyed as JAX renders a
 registered node's children (``i:0``, ``i:1``, ...).
 
@@ -32,8 +34,7 @@ Each plan's ``PimConfig`` is written with the JAX package's field set and
 substrate names (``exact-cuda`` -> ``exact-pallas``, ``exact-torch`` ->
 ``exact-jnp``, ``analog-cuda`` -> ``analog-pallas``) and read back the
 way :func:`repro_torch.convert.config_from_reference` maps them. Not
-ported, and raising: ``mesh=`` (ROADMAP A11) and specs with ABFT
-verification on (``verify != "off"``, A9). Saved shard stamps restore
+ported, and raising: ``mesh=`` (ROADMAP A11). Saved shard stamps restore
 unsharded, with the JAX package's warning.
 """
 from __future__ import annotations
@@ -61,6 +62,8 @@ _JAX_SUBSTRATE = {port: jax for jax, port in pim.SUBSTRATE_ALIASES.items()}
 # array children of each plan class, in its pytree order
 _DENSE_FIELDS = ("values", "scale", "planes", "padded_scale")
 _DEPTHWISE_FIELDS = ("values", "scale", "planes")
+# the dense plan's child slot of its ABFT record (a dict subtree)
+_ABFT_SLOT = len(_DENSE_FIELDS)
 
 
 class PlanCorruptionError(ckpt.CheckpointCorruptionError):
@@ -116,13 +119,23 @@ def _fields(plan: pim.Plan) -> Tuple[str, ...]:
         else _DENSE_FIELDS
 
 
+def _abft_record(plan: pim.Plan) -> Dict[str, torch.Tensor]:
+    """A plan's ABFT checksum record in its flatten order (sorted keys),
+    empty without one."""
+    record = getattr(plan, "abft", None) or {}
+    return {name: record[name] for name in sorted(record)}
+
+
 def _geometry(plan: pim.Plan):
     """What a layer stack's plans must share: everything but the data."""
     dense = getattr(plan, "dense", plan)
+    record = _abft_record(dense)
     return (type(plan), getattr(plan, "num_experts", None), dense.bits,
             getattr(dense, "k", None), getattr(dense, "n", None), dense.cfg,
             tuple(tuple(getattr(dense, f).shape) for f in _fields(dense)),
-            tuple(getattr(dense, f).dtype for f in _fields(dense)))
+            tuple(getattr(dense, f).dtype for f in _fields(dense)),
+            tuple((name, tuple(t.shape), t.dtype)
+                  for name, t in record.items()))
 
 
 def _describe_plans(plans: List[pim.Plan], stacked: bool) -> Dict[str, Any]:
@@ -139,8 +152,14 @@ def _describe_plans(plans: List[pim.Plan], stacked: bool) -> Dict[str, Any]:
     leaves = [_leaf_spec(lead + list(getattr(head, f).shape),
                          getattr(head, f).dtype) for f in _fields(head)]
     if isinstance(head, pim.DensePlan):
-        return {"kind": "dense-plan", "bits": head.bits, "k": head.k,
-                "n": head.n, "cfg": _cfg_spec(head.cfg), "leaves": leaves}
+        out = {"kind": "dense-plan", "bits": head.bits, "k": head.k,
+               "n": head.n, "cfg": _cfg_spec(head.cfg), "leaves": leaves}
+        record = _abft_record(head)
+        if record:
+            # the ABFT checksum record, described key by key
+            out["abft"] = {name: _leaf_spec(lead + list(t.shape), t.dtype)
+                           for name, t in record.items()}
+        return out
     if isinstance(head, pim.DepthwisePlan):
         return {"kind": "depthwise-plan", "bits": head.bits,
                 "cfg": _cfg_spec(head.cfg), "leaves": leaves}
@@ -204,9 +223,9 @@ def _spec_paths(spec: Dict[str, Any], path: tuple = ()) -> List[tuple]:
     if kind == "expert-plan":
         return _spec_paths(spec["dense"], path + (("i", 0),))
     if kind in ("dense-plan", "depthwise-plan"):
-        if spec.get("abft"):
-            _no_abft()
-        return [path + (("i", i),) for i in range(len(spec["leaves"]))]
+        return [path + (("i", i),) for i in range(len(spec["leaves"]))] + [
+            path + (("i", _ABFT_SLOT), ("d", name))
+            for name in sorted(spec.get("abft") or {})]
     if kind == "leaf":
         return [path]
     raise ValueError(f"unknown plan-spec kind {kind!r}")
@@ -237,12 +256,6 @@ def _leaf_path_name(template: Any, index: Optional[int]) -> str:
     return _path_name(_spec_paths(describe_plan_tree(template)), index)
 
 
-def _no_abft():
-    raise NotImplementedError(
-        "plans with ABFT checksum records (verify != 'off') arrive with "
-        "the port's reliability slice (ROADMAP A9)")
-
-
 # ---------------------------------------------------------------------------
 # template
 # ---------------------------------------------------------------------------
@@ -267,14 +280,16 @@ def _plans_from_spec(spec: Dict[str, Any], take, lead: int) -> Any:
         wrap = lambda d: pim.ExpertStackedPlan(
             dense=d, num_experts=spec["num_experts"])
         return [wrap(d) for d in dense] if lead else wrap(dense)
-    if spec.get("abft"):
-        _no_abft()
-    cfg = config_from_reference(spec["cfg"])     # verify != off raises A9
+    cfg = config_from_reference(spec["cfg"])
+    names = sorted(spec.get("abft") or {})
     tensors = [take(leaf) for leaf in spec["leaves"]]
+    tensors += [take(spec["abft"][name]) for name in names]
+    nf = len(spec["leaves"])
     if spec["kind"] == "dense-plan":
         build = lambda f: pim.DensePlan(
             values=f[0], scale=f[1], planes=f[2], padded_scale=f[3],
-            bits=spec["bits"], k=spec["k"], n=spec["n"], cfg=cfg)
+            bits=spec["bits"], k=spec["k"], n=spec["n"], cfg=cfg,
+            abft=dict(zip(names, f[nf:])) if names else None)
     else:
         build = lambda f: pim.DepthwisePlan(
             values=f[0], scale=f[1], planes=f[2], bits=spec["bits"],
@@ -357,9 +372,10 @@ def _producers(tree: Any) -> List:
         head = plans[0]
         if isinstance(head, pim.ExpertStackedPlan):
             return plan_leaves([p.dense for p in plans], stacked)
+        per_plan = [[getattr(p, f) for f in _fields(head)]
+                    + list(_abft_record(p).values()) for p in plans]
         out = []
-        for f in _fields(head):
-            fields = [getattr(p, f) for p in plans]
+        for fields in zip(*per_plan):
             make = (lambda fs=fields: _stacked_array(fs)) if stacked \
                 else (lambda t=fields[0]: _tensor_array(t))
             out.append(leaf(make, fields[0].dtype))

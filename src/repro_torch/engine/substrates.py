@@ -30,6 +30,12 @@ per expert from it (in expert order) and gives each expert a generator of
 its own seeded with it, so expert ``e``'s noise depends only on ``rng``'s
 state and ``e``; the reference splits a JAX key per expert instead, and
 noise bits do not carry over between the packages anyway.
+
+ABFT: a plan programmed with ``verify != "off"`` carries a checksum
+record, and a dispatch whose config keeps verify on checks it
+(:meth:`Substrate._verify`); an expert stack checks each expert against
+its own slice of the record under the stack's one tag, as each lane of
+the reference's vmap posts its own count.
 """
 from __future__ import annotations
 
@@ -149,7 +155,7 @@ class Substrate:
         act = pim._quantize_activations(x2, cfg) \
             if self.shares_activation_codes else None
         outs = []
-        for i in range(e):
+        for i in range(e):   # plan.expert(i) carries its slice of the record
             sel = slice(i * rows, (i + 1) * rows) if paired else slice(None)
             shared = {}
             if act is not None:
@@ -167,6 +173,14 @@ class Substrate:
                  rng: Optional[torch.Generator]) -> torch.Tensor:
         raise NotImplementedError
 
+    @staticmethod
+    def _verify(plan: pim.DensePlan, cfg: pim.PimConfig) -> bool:
+        """Whether this dispatch runs ABFT checksum verification: the
+        plan must carry a checksum record (programmed with ``cfg.verify
+        != "off"``) and the executing config must not have switched it
+        off."""
+        return cfg.verify != "off" and getattr(plan, "abft", None) is not None
+
     def _depthwise(self, x: torch.Tensor, plan: pim.DepthwisePlan,
                    cfg: pim.PimConfig) -> torch.Tensor:
         # depthwise filters (K = kh*kw taps) fit below one WDM chunk, so
@@ -182,7 +196,8 @@ class ExactCudaSubstrate(Substrate):
     shares_activation_codes = True
 
     def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
-        return pim.exact_cuda_matmul2d(x2, plan, cfg, bias, act)
+        return pim.exact_cuda_matmul2d(x2, plan, cfg, bias, act,
+                                   verify=self._verify(plan, cfg))
 
 
 class ExactTorchSubstrate(Substrate):
@@ -193,7 +208,8 @@ class ExactTorchSubstrate(Substrate):
     shares_activation_codes = True
 
     def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
-        return pim.exact_torch_matmul2d(x2, plan, cfg, bias, act)
+        return pim.exact_torch_matmul2d(x2, plan, cfg, bias, act,
+                                   verify=self._verify(plan, cfg))
 
 
 class AnalogSubstrate(Substrate):
@@ -205,7 +221,8 @@ class AnalogSubstrate(Substrate):
     shares_activation_codes = True
 
     def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
-        return pim.analog_matmul2d(x2, plan, cfg, bias, rng, act)
+        return pim.analog_matmul2d(x2, plan, cfg, bias, rng, act,
+                                   verify=self._verify(plan, cfg))
 
 
 class AnalogCudaSubstrate(Substrate):
@@ -218,7 +235,8 @@ class AnalogCudaSubstrate(Substrate):
     shares_activation_codes = True
 
     def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
-        return pim.analog_cuda_matmul2d(x2, plan, cfg, bias, rng, act)
+        return pim.analog_cuda_matmul2d(x2, plan, cfg, bias, rng, act,
+                                        verify=self._verify(plan, cfg))
 
 
 class EmulateSubstrate(Substrate):
@@ -231,7 +249,8 @@ class EmulateSubstrate(Substrate):
     integer_datapath = False
 
     def _dense2d(self, x2, plan, cfg, bias, rng):
-        return pim.emulate_matmul2d(x2, plan, cfg, bias)
+        return pim.emulate_matmul2d(x2, plan, cfg, bias,
+                                    verify=self._verify(plan, cfg))
 
     def _depthwise(self, x, plan, cfg):
         return pim.depthwise_emulate_matmul(x, plan, cfg)

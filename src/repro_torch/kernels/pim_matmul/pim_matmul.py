@@ -39,7 +39,8 @@ and the wgmma route on K-major weight planes.
 
 ``LAUNCHES`` counts successful launches per kernel entry point, and
 ``ROUTE_LAUNCHES`` the same by route, so a run can show that its main path
-went through the kernels.
+went through the kernels; ``ROWSUM_LAUNCHES`` counts the fused entry
+point's launches with the ABFT row-sum epilogue, by route.
 
 ``kernel_tiles`` is the deterministic tile chooser of the JAX package,
 kept unchanged: ``prepare_weights`` pads planes to it at programming time,
@@ -80,6 +81,8 @@ LAUNCHES: Dict[str, int] = {"pim_matmul_fused": 0, "pim_matmul_int": 0}
 # the same launches split by the route they took
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
     name: dict.fromkeys(ROUTES, 0) for name in LAUNCHES}
+# the fused entry point's launches with the ABFT row-sum epilogue, by route
+ROWSUM_LAUNCHES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -141,6 +144,8 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         ROUTE_LAUNCHES[name] = dict.fromkeys(ROUTES, 0)
+    for route in ROUTES:
+        ROWSUM_LAUNCHES[route] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -224,6 +229,8 @@ def pim_matmul_fused_cuda(a_planes: torch.Tensor, w_planes: torch.Tensor,
     runtime.check(lib, rc, "pim_matmul_fused")
     LAUNCHES["pim_matmul_fused"] += 1
     ROUTE_LAUNCHES["pim_matmul_fused"][route] += 1
+    if want_rowsum:
+        ROWSUM_LAUNCHES[route] += 1
     return (out, rowsum) if want_rowsum else out
 
 

@@ -28,10 +28,18 @@ so that a restart restores it instead of programming again. An OPIMA
 hardware latency/energy estimate is reported next to the wall-clock
 numbers; ``--metrics-json PATH`` writes the structured result.
 
-Not ported yet, and raising: ``--mesh`` (ROADMAP A11), ``--abft``,
-``--inject-faults`` and ``--chaos-check`` (A9), ``--sanitize`` (A13), and
-the compile cache (the port has no compiled step functions; ROADMAP path
-glue item 2 would capture decode in a CUDA graph).
+Reliability (continuous mode, :mod:`repro_torch.reliability`):
+``--abft sample|always`` programs every plan with its ABFT checksum
+record, tagged with its tree path; ``--inject-faults SPEC.json``
+corrupts the programmed plans before serving, and the engine's
+degradation machine replays each dispatch that trips a check on the
+golden ``exact-cuda`` fallback; ``--chaos-check`` first serves the trace
+fault-free and asserts the injected run's tokens equal it, with a
+detection for any detectable fault.
+
+Not ported yet, and raising: ``--mesh`` (ROADMAP A11), ``--sanitize``
+(A13), and the compile cache (the port has no compiled step functions;
+ROADMAP path glue item 2 would capture decode in a CUDA graph).
 
 Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
@@ -39,10 +47,14 @@ Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --pim --plan-dir /path/to/plans --continuous --num-slots 8 \
       --requests 32 --prompt-len 512 --gen 16 --sync-every 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+      --layers 2 --d-model 64 --device cpu --pim --continuous \
+      --abft always --inject-faults spec.json --chaos-check
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import time
@@ -101,7 +113,7 @@ def _quantize_leaf(name: str, v, cfg: PimConfig):
     return v
 
 
-def plan_layer(layer, cfg: PimConfig):
+def plan_layer(layer, cfg: PimConfig, prefix: Sequence[str] = ("layers",)):
     """One layer's parameters (no layer axis) in planned 'OPCM' form: each
     (K, N) projection of the attention, MLP and shared-expert blocks
     becomes a :class:`~repro_torch.core.pim.DensePlan`, each (E, K, N)
@@ -109,8 +121,20 @@ def plan_layer(layer, cfg: PimConfig):
     programmed from the float weights on the substrate ``cfg`` names.
     Every other ``PIM_WEIGHT_SUFFIXES`` leaf of two or more dimensions
     (SSM projections) is fake-quantized per output column; the router
-    stays float. The JAX package's predicates."""
+    stays float. The JAX package's predicates.
+
+    With ABFT verification on (and no tag of its own in ``cfg``) each
+    plan is tagged with its tree path, ``prefix`` (the layer stack's key)
+    and the keys below it, e.g. ``layers/attn/wq_dh``: the path of the
+    whole layer stack, the same for every layer, as the JAX package tags
+    its one stacked plan; the reliability layer maps a violation back to
+    it."""
     sub = engine.get_substrate(cfg.resolved_substrate)
+
+    def cfg_for(keys):
+        if cfg.verify == "off" or cfg.abft_tag is not None:
+            return cfg
+        return dataclasses.replace(cfg, abft_tag="/".join(keys))
 
     def walk(tree, keys):
         out = {}
@@ -119,13 +143,14 @@ def plan_layer(layer, cfg: PimConfig):
             if isinstance(v, dict):
                 out[k] = walk(v, path)
             elif _will_plan(path, k, v):
-                out[k] = (sub.program_experts(v, cfg) if v.dim() == 3
-                          else sub.program(v, cfg))
+                c = cfg_for(path)
+                out[k] = (sub.program_experts(v, c) if v.dim() == 3
+                          else sub.program(v, c))
             else:
                 out[k] = _quantize_leaf(k, v, cfg)
         return out
 
-    return walk(layer, [])
+    return walk(layer, list(prefix))
 
 
 def plan_params_for_pim(params, cfg: PimConfig):
@@ -140,14 +165,14 @@ def plan_params_for_pim(params, cfg: PimConfig):
     embedding tables are fake-quantized per output column. Serving's
     set-up does the same one layer at a time as the weights are drawn
     (``lm.init_lm(..., layer_fn=)``), bit for bit."""
-    def plan_layers(layers):
+    def plan_layers(layers, key):
         n = layers
         while isinstance(n, dict):        # the leading axis of any leaf
             n = next(iter(n.values()))
-        return stack_layers([plan_layer(lp, cfg)
+        return stack_layers([plan_layer(lp, cfg, (key,))
                              for lp in layer_trees(layers, len(n))])
 
-    return {k: plan_layers(v) if k in ("layers", "enc_layers")
+    return {k: plan_layers(v, k) if k in ("layers", "enc_layers")
             else _quantize_leaf(k, v, cfg) for k, v in params.items()}
 
 
@@ -543,18 +568,38 @@ def _load_trace(trace_file: str, vocab: int, seed: int) -> List[Any]:
     return reqs
 
 
-def _not_ported_continuous(sanitize: bool, abft: str,
-                           inject_faults: Optional[str],
-                           chaos_check: bool) -> None:
-    if abft != "off" or inject_faults or chaos_check:
-        raise NotImplementedError(
-            "--abft / --inject-faults / --chaos-check: ABFT-verified "
-            "serving, fault injection and the degradation machine are not "
-            "ported yet (ROADMAP A9)")
+def _not_ported_continuous(sanitize: bool) -> None:
     if sanitize:
         raise NotImplementedError(
             "--sanitize: the runtime sanitizers are not ported yet "
             "(ROADMAP A13)")
+
+
+def chaos_verdict(golden_tokens: Dict[Any, np.ndarray], run,
+                  manager=None) -> Dict[str, int]:
+    """The chaos check of an injected run against the fault-free run's
+    token streams: every request's tokens equal, and at least one
+    detection when any injected fault changed a stored checksum column.
+    Returns the counts; raises ``AssertionError`` when either fails."""
+    got = run.tokens_by_id()
+    mismatched = [rid for rid, toks in golden_tokens.items()
+                  if not np.array_equal(got.get(rid), toks)]
+    rel = run.metrics.get("reliability") or {}
+    detectable = sum(
+        1 for e in (manager.injection_report if manager else [])
+        if e.get("store_delta", 0) > 0)
+    chaos = {"token_mismatches": len(mismatched),
+             "detectable_faults": detectable,
+             "detections": rel.get("detections", 0)}
+    if mismatched:
+        raise AssertionError(
+            f"chaos check failed: {len(mismatched)} request(s) "
+            f"diverged from the fault-free run ({mismatched[:5]})")
+    if detectable and not chaos["detections"]:
+        raise AssertionError(
+            "chaos check failed: faults were injected "
+            f"({detectable} detectable) but ABFT reported no detection")
+    return chaos
 
 
 def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
@@ -599,16 +644,34 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
     with decode one chunk per scheduler iteration, ``prefix_cache``
     (entry capacity) turns on content-hashed KV reuse, and
     ``shared_prefix`` prepends a common random prefix of that length to
-    every synthetic prompt. ``abft``, ``inject_faults``, ``chaos_check``
-    (ROADMAP A9), ``sanitize`` (A13) and ``mesh`` (A11) raise."""
+    every synthetic prompt.
+
+    Reliability knobs (see :mod:`repro_torch.reliability`): ``abft``
+    stamps an ABFT column-checksum verify policy ("off" | "sample" |
+    "always") on every programmed plan (requires ``pim``);
+    ``inject_faults`` loads a fault-spec JSON and corrupts the programmed
+    plans before serving: the ABFT checks detect the corruption at
+    execute time and the engine's degradation machine replays the
+    affected dispatch on the golden exact fallback, so completions stay
+    correct; ``chaos_check`` first runs the same trace fault-free and
+    asserts the injected run produced identical tokens and, for any
+    detectable fault, a detection. ``sanitize`` (ROADMAP A13) and
+    ``mesh`` (A11) raise."""
     from repro_torch.serving import ContinuousScheduler, poisson_trace
     if shared_prefix < 0:
         raise ValueError("shared_prefix must be >= 0")
-    _not_ported_continuous(sanitize, abft, inject_faults, chaos_check)
+    _not_ported_continuous(sanitize)
+    if inject_faults and not pim:
+        raise ValueError("--inject-faults requires --pim (faults target "
+                         "programmed plans)")
+    if inject_faults and abft == "off":
+        raise ValueError("--inject-faults requires --abft sample|always "
+                         "(without checksum verification the corruption "
+                         "would go undetected)")
     cfg, params, substrate, pim_cfg, _ = _setup(
         arch, layers, d_model, pim, pim_bits, pim_emulate, pim_substrate,
         plan_dir, mesh_spec=mesh, compile_cache_dir=compile_cache_dir,
-        device=device)
+        abft=abft, device=device)
     if trace_file:
         requests = _load_trace(trace_file, cfg.vocab_size, seed)
         if not requests:
@@ -628,6 +691,30 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
             shared_prefix_len=shared_prefix)
         prompt_pad = prompt_len + shared_prefix
         max_len = prompt_pad + gen
+    golden_tokens = None
+    if chaos_check:
+        # fault-free reference pass over the same trace and plans: the
+        # injected run below must reproduce these tokens bit for bit
+        # through detection + fallback replay
+        from repro_torch.reliability import FAULT_LOG
+        golden_sched = ContinuousScheduler(
+            params, cfg, num_slots=num_slots, prompt_pad=prompt_pad,
+            max_len=max_len, sync_every=sync_every,
+            stop_tokens=stop_tokens, eos_token=eos_token,
+            prefill_chunk=prefill_chunk,
+            admission_policy=admission_policy)
+        golden_sched.warmup()
+        golden_tokens = golden_sched.run(requests).tokens_by_id()
+        FAULT_LOG.clear()
+    manager = None
+    if inject_faults or abft != "off":
+        # ABFT without a fault spec still arms the manager: checks are
+        # counted, violations drain per dispatch, and the metrics gain
+        # their reliability section (all zeros on a clean run)
+        from repro_torch.reliability import (ReliabilityManager,
+                                             load_fault_spec)
+        models = load_fault_spec(inject_faults) if inject_faults else []
+        manager = ReliabilityManager(params, models)
     sched = ContinuousScheduler(params, cfg, num_slots=num_slots,
                                 prompt_pad=prompt_pad, max_len=max_len,
                                 sync_every=sync_every,
@@ -635,11 +722,17 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
                                 eos_token=eos_token,
                                 prefill_chunk=prefill_chunk,
                                 prefix_cache=prefix_cache,
-                                admission_policy=admission_policy)
+                                admission_policy=admission_policy,
+                                reliability=manager)
     sched.warmup()   # keep first-call costs out of the metered run
     run = sched.run(requests)
 
     result: Dict[str, Any] = dict(run.metrics)
+    if manager is not None:
+        result["fault_spec"] = inject_faults
+        result["injection_report"] = manager.injection_report
+    if golden_tokens is not None:
+        result["chaos_check"] = chaos_verdict(golden_tokens, run, manager)
     result["arch"] = cfg.name
     result["requests"] = [
         {"id": c.request_id, "prompt_len": int(c.prompt.shape[0]),
@@ -736,18 +829,28 @@ def main() -> None:
                     help="admission order (continuous mode)")
     ap.add_argument("--abft", default="off",
                     choices=("off", "sample", "always"),
-                    help="not ported yet (ROADMAP A9)")
+                    help="ABFT column-checksum verification on every "
+                         "programmed plan (requires --pim): 'sample' "
+                         "checks one deterministic row per matmul, "
+                         "'always' checks every row; violations feed "
+                         "the reliability layer (continuous mode)")
     ap.add_argument("--inject-faults", default=None, metavar="SPEC.json",
-                    help="not ported yet (ROADMAP A9)")
+                    help="fault-injection spec (see repro_torch.reliability."
+                         "load_fault_spec): corrupt the programmed plans "
+                         "before serving (stuck nibble planes, ADC drift, "
+                         "dropped WDM chunks, bit-flips); requires --pim "
+                         "and --abft; detected violations replay on the "
+                         "golden exact fallback (continuous mode)")
     ap.add_argument("--chaos-check", action="store_true",
-                    help="not ported yet (ROADMAP A9)")
+                    help="with --inject-faults: run the trace fault-free "
+                         "first and assert the injected run produced "
+                         "identical tokens and >=1 detection")
     ap.add_argument("--sanitize", action="store_true",
                     help="not ported yet (ROADMAP A13)")
     ap.add_argument("--metrics-json", default=None,
                     help="write the structured run metrics to this path")
     args = ap.parse_args()
-    _not_ported_continuous(args.sanitize, args.abft, args.inject_faults,
-                           args.chaos_check)
+    _not_ported_continuous(args.sanitize)
     stop_tokens = tuple(
         int(t) for t in args.stop_tokens.split(",") if t.strip()
     ) if args.stop_tokens else ()
@@ -765,8 +868,19 @@ def main() -> None:
             metrics_json=args.metrics_json, stop_tokens=stop_tokens,
             eos_token=args.eos_token, prefill_chunk=args.prefill_chunk,
             prefix_cache=args.prefix_cache,
-            shared_prefix=args.shared_prefix,
-            admission_policy=args.admission_policy, device=args.device)
+            shared_prefix=args.shared_prefix, abft=args.abft,
+            inject_faults=args.inject_faults,
+            admission_policy=args.admission_policy,
+            chaos_check=args.chaos_check, device=args.device)
+        if res.get("reliability"):
+            rel = res["reliability"]
+            print(f"[serve] reliability: {rel['injected_faults']} faults "
+                  f"injected, {rel['checks']} checks, "
+                  f"{rel['detections']} detections, {rel['retries']} "
+                  f"retries, {rel['repairs']} repairs, "
+                  f"degraded={rel['degraded']}")
+        if res.get("chaos_check"):
+            print(f"[serve] chaos check passed: {res['chaos_check']}")
         print(f"[serve] continuous: {res['num_requests']} requests through "
               f"{res['num_slots']} slots, {res['decode_steps']} decode "
               f"steps in {res['host_syncs']} host syncs "

@@ -46,17 +46,31 @@ Production semantics underneath:
   re-feed their last token at their last position — a deterministic
   identical KV rewrite, so the cache stays bit-exact.
 
+  ABFT-verified serving — with a
+  :class:`~repro_torch.reliability.ReliabilityManager` (``reliability=``)
+  the engine serves its (possibly fault-injected) params and runs every
+  dispatch inside an ABFT collect scope: each verified matmul's
+  violation count stays on the device, the dispatch's per-tag sums come
+  to the host in the same copy as its tokens (no host sync per matmul)
+  and go to the fault log; a dispatch that tripped is replayed on the
+  manager's golden exact fallback from the pre-dispatch state, then the
+  manager may re-program plans (the prefix cache is flushed) or pin the
+  engine to the fallback. Counts are delivered on every dispatch,
+  manager or not, as the JAX engine's ``_verified_jit`` does.
+
 The port runs its step functions eagerly, so nothing is compiled:
 ``prefill_traces`` / ``decode_traces`` / ``insert_traces`` count the
 distinct step-input shape signatures run (prefill and chunk calls,
-single steps and windows, inserts), the counterpart of the JAX engine's
+single steps and windows, inserts), and ``fallback_traces`` those of the
+fallback replays (warm-up included): the counterpart of the JAX engine's
 compile-once counters; on fixed slot geometry each stays 1 (decode, 2
-with windows). Out of scope, and raising: ``mesh=`` (ROADMAP A11),
-``sanitizer=`` (A13) and ``reliability=`` (A9).
+with windows). Out of scope, and raising: ``mesh=`` (ROADMAP A11) and
+``sanitizer=`` (A13).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +78,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.reliability import abft
 from repro_torch.serving import slots as slots_mod
 from repro_torch.serving.prefix import (Prefix, PrefixCache, PrefixEntry,
                                         token_key)
@@ -149,7 +164,7 @@ class PrefillTask:
         return self.prefix is not None
 
 
-def _not_ported(mesh, sanitizer, reliability) -> None:
+def _not_ported(mesh, sanitizer) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "ServingEngine(mesh=): sharded serving is not ported yet "
@@ -158,17 +173,17 @@ def _not_ported(mesh, sanitizer, reliability) -> None:
         raise NotImplementedError(
             "ServingEngine(sanitizer=): the runtime sanitizers are not "
             "ported yet (ROADMAP A13)")
-    if reliability is not None:
-        raise NotImplementedError(
-            "ServingEngine(reliability=): ABFT-verified serving and the "
-            "degradation machine are not ported yet (ROADMAP A9)")
 
 
 class ServingEngine:
     """The serving facade. One instance binds params + config + slot
     geometry and owns every step function; traffic lives in
     :class:`DecodeState` objects created by :meth:`init_state`. The
-    params' device is the engine's."""
+    params' device is the engine's. ``reliability`` (a duck-typed
+    :class:`~repro_torch.reliability.ReliabilityManager`) arms
+    ABFT-verified serving with retry on its fallback, repair and
+    degraded mode; the engine then serves ``reliability.serving_params()``.
+    """
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
                  prompt_pad: int, max_len: int,
@@ -178,7 +193,7 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache_capacity: int = 0,
                  mesh=None, sanitizer=None, reliability=None):
-        _not_ported(mesh, sanitizer, reliability)
+        _not_ported(mesh, sanitizer)
         slots_mod.check_slot_compatible(cfg)
         if prompt_pad > max_len:
             raise ValueError(f"prompt_pad={prompt_pad} exceeds "
@@ -214,9 +229,13 @@ class ServingEngine:
                                       device=self.device)
         self.prefix_cache = (PrefixCache(prefix_cache_capacity)
                              if prefix_cache_capacity else None)
+        self.reliability = reliability
+        if reliability is not None:
+            self.params = reliability.serving_params()
         self._signatures: Dict[str, set] = {"prefill": set(),
                                             "insert": set(),
-                                            "decode": set()}
+                                            "decode": set(),
+                                            "fallback": set()}
 
     # ------------------------------------------------------------------
     # step-input shape signatures (the compile-once counters' meaning)
@@ -233,50 +252,63 @@ class ServingEngine:
     def decode_traces(self) -> int:
         return len(self._signatures["decode"])
 
-    def _note(self, kind: str, *shapes) -> None:
-        self._signatures[kind].add(tuple(tuple(s) for s in shapes))
+    @property
+    def fallback_traces(self) -> int:
+        return len(self._signatures["fallback"])
+
+    def _note(self, kind: str, fallback: bool, *shapes) -> None:
+        """Record a step's input signature: under ``kind``, or, for a
+        fallback replay, under "fallback" keyed by ``kind`` too."""
+        sig = tuple(tuple(s) for s in shapes)
+        if fallback:
+            self._signatures["fallback"].add((kind,) + sig)
+        else:
+            self._signatures[kind].add(sig)
 
     # ------------------------------------------------------------------
     # step functions
     # ------------------------------------------------------------------
-    def _prefill_fn(self, toks: torch.Tensor, length: int):
-        self._note("prefill", toks.shape)
+    def _prefill_fn(self, params, toks: torch.Tensor, length: int,
+                    fallback: bool = False):
+        self._note("prefill", fallback, toks.shape)
         logits, pcache = lm.prefill(
-            self.params, self.cfg, {"tokens": toks}, max_len=self.prompt_pad,
+            params, self.cfg, {"tokens": toks}, max_len=self.prompt_pad,
             cache_dtype=self.cache_dtype, logits_index=length - 1)
         tok0 = torch.argmax(logits, -1)[0]
         return tok0, {"k": pcache["k"], "v": pcache["v"]}
 
-    def _chunk_fn(self, scratch, toks: torch.Tensor, start: int, li: int):
+    def _chunk_fn(self, params, scratch, toks: torch.Tensor, start: int,
+                  li: int, fallback: bool = False):
         """One chunk into ``scratch``, written in place."""
-        self._note("prefill", toks.shape, scratch["k"].shape)
-        logits, scratch = lm.prefill_chunk(self.params, self.cfg, scratch,
-                                           toks, start, logits_index=li)
+        self._note("prefill", fallback, toks.shape, scratch["k"].shape)
+        logits, scratch = lm.prefill_chunk(params, self.cfg, scratch, toks,
+                                           start, logits_index=li)
         return torch.argmax(logits, -1)[0], scratch
 
     def _insert_fn(self, cache, kv, slot: int, length: int):
-        self._note("insert", kv["k"].shape, cache["k"].shape)
+        self._note("insert", False, kv["k"].shape, cache["k"].shape)
         return slots_mod.write_prefill(cache, kv, slot, length)
 
-    def _decode_fn(self, cache, toks, pos):
-        self._note("decode", toks.shape, pos.shape)
-        logits, cache = lm.decode_step(self.params, self.cfg, cache, toks,
-                                       pos)
+    def _decode_fn(self, params, cache, toks, pos, fallback: bool = False):
+        self._note("decode", fallback, toks.shape, pos.shape)
+        logits, cache = lm.decode_step(params, self.cfg, cache, toks, pos)
         nxt = torch.argmax(logits, -1)
         return nxt, lm.token_stop_mask(nxt, self._stop_arr), cache
 
-    def _window_fn(self, cache, toks, pos, done, left, window_len: int):
+    def _window_fn(self, params, cache, toks, pos, done, left,
+                   window_len: int, fallback: bool = False):
         """``window_len`` fused decode steps (sync_every > 1) between host
         syncs. Step i only advances rows that are not done (budget and
         stop tokens flip ``done`` on the device the step they are
         reached); frozen rows recompute their previous step verbatim
         (same token, same position -> bit-identical KV rewrite), so
         nothing after a stop token is ever marked valid."""
-        self._note("decode", toks.shape, pos.shape, done.shape, left.shape)
+        self._note("decode", fallback, toks.shape, pos.shape, done.shape,
+                   left.shape)
         toks_seq, valid_seq = [], []
         for _ in range(window_len):
-            logits, cache = lm.decode_step(self.params, self.cfg, cache,
-                                           toks, pos)
+            logits, cache = lm.decode_step(params, self.cfg, cache, toks,
+                                           pos)
             nxt = torch.argmax(logits, -1)
             active = ~done
             stop = lm.token_stop_mask(nxt, self._stop_arr)
@@ -311,32 +343,159 @@ class ServingEngine:
     def _tokens(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(arr, np.int64)).to(self.device)
 
-    def warmup(self) -> None:
-        """Run every step function this engine will use once, outside any
-        timed window, against throwaway buffers (first-call costs: the
-        kernels' libraries, cuBLAS handles, the caching allocator)."""
+    def _warm(self, params, fallback: bool) -> None:
+        """Each step function this engine uses, once, on ``params``."""
         cache = self.init_state().cache
         if self.prefill_chunk is not None:
-            tok0, kv = self._chunk_fn(
-                self._init_scratch(),
-                self._tokens(np.zeros((1, self.prefill_chunk))), 0, 0)
+            (tok0, kv), scope = self._dispatch(
+                self._chunk_fn, params, self._init_scratch(),
+                self._tokens(np.zeros((1, self.prefill_chunk))), 0, 0,
+                fallback)
         else:
-            tok0, kv = self._prefill_fn(
-                self._tokens(np.zeros((1, self.prompt_pad))), 1)
+            (tok0, kv), scope = self._dispatch(
+                self._prefill_fn, params,
+                self._tokens(np.zeros((1, self.prompt_pad))), 1, fallback)
+        self._fetch([tok0], scope)
         cache = self._insert_fn(cache, kv, 0, 1)
         tok_vec = self._tokens(np.zeros((self.num_slots, 1)))
         pos_vec = self._tokens(np.zeros((self.num_slots,)))
-        nxt, _, cache = self._decode_fn(cache, tok_vec, pos_vec)
+        (nxt, _, cache), scope = self._dispatch(
+            self._decode_fn, params, cache, tok_vec, pos_vec, fallback)
+        self._fetch([nxt], scope)
         if self.sync_every > 1:
             done = torch.zeros((self.num_slots,), dtype=torch.bool,
                                device=self.device)
             left = self._tokens(np.full((self.num_slots,),
                                         self.sync_every))
-            toks_seq, _, cache = self._window_fn(cache, tok_vec, pos_vec,
-                                                 done, left,
-                                                 self.sync_every)
-            toks_seq.cpu()
-        tok0.cpu(), nxt.cpu()
+            (toks_seq, _, cache), scope = self._dispatch(
+                self._window_fn, params, cache, tok_vec, pos_vec, done,
+                left, self.sync_every, fallback)
+            self._fetch([toks_seq], scope)
+
+    def warmup(self) -> None:
+        """Run every step function this engine will use once, outside any
+        timed window, against throwaway buffers (first-call costs: the
+        kernels' libraries, cuBLAS handles, the caching allocator). With
+        a reliability manager the fallback verbs run once too, so a
+        replay in the serving loop pays no first call, and whatever the
+        warm-up tripped is drained (the machine starts clean)."""
+        self._warm(self.params, False)
+        if self.reliability is not None:
+            self._warm(self.reliability.fallback, True)
+            self.reliability.drain()
+
+    # ------------------------------------------------------------------
+    # dispatch: ABFT counts collected per dispatch, fetched with its
+    # tokens; the degradation machine around every verified dispatch
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _dispatch(fn, *args):
+        """Run one step function inside an ABFT collect scope: every
+        verified matmul's count stays on the device. Returns the output
+        and the closed scope (its tags and per-tag count vector)."""
+        with abft.collect_scope() as scope:
+            out = fn(*args)
+        return out, scope
+
+    @staticmethod
+    def _fetch(tensors: Sequence[torch.Tensor],
+               scope: abft.CollectScope) -> List[np.ndarray]:
+        """The dispatch's one device-to-host copy: ``tensors`` (integer or
+        bool, as int64) and the scope's per-tag counts together; the
+        counts go to the fault log. Nothing to read means no sync."""
+        parts = [t.reshape(-1).to(torch.int64) for t in tensors]
+        if scope.names:
+            parts.append(scope.counts().to(torch.int64))
+        if not parts:
+            return []
+        host = (torch.cat(parts) if len(parts) > 1
+                else parts[0]).cpu().numpy()
+        out, at = [], 0
+        for t in tensors:
+            out.append(host[at:at + t.numel()].reshape(tuple(t.shape)))
+            at += t.numel()
+        if scope.names:
+            abft.deliver(scope.names, host[at:])
+        return out
+
+    def _after_violation(self) -> None:
+        """Post-retry bookkeeping: re-program plans whose strike count
+        came due; a repair changes the live params, so the prefix cache
+        (KV is a function of tokens AND params) is flushed and the engine
+        rebinds the repaired tree."""
+        man = self.reliability
+        if man.maybe_repair():
+            self.params = man.params
+            if self.prefix_cache is not None:
+                self.prefix_cache.invalidate_all()
+
+    def _checked(self, run, reads, restore=None):
+        """One dispatch under the degradation machine. ``run(params,
+        fallback)`` dispatches the step; ``reads(out)`` names the tensors
+        the host reads from it. Without a manager, or with a degraded one,
+        the step runs once (on the fallback when degraded). Otherwise the
+        manager drains after it, and a dispatch that tripped is replayed
+        on the golden fallback, after ``restore()`` (if given) has put
+        back what the dispatch wrote in place. Returns the output and the
+        host copies of ``reads(out)``."""
+        man = self.reliability
+        degraded = man is not None and man.degraded
+        out, scope = self._dispatch(
+            run, man.fallback if degraded else self.params, degraded)
+        host = self._fetch(reads(out), scope)
+        if man is None or degraded:
+            return out, host
+        bad = man.drain()
+        if bad:
+            man.record_violations(bad)
+            t0 = time.perf_counter()
+            if restore is not None:
+                restore()
+            out, scope = self._dispatch(run, man.fallback, True)
+            host = self._fetch(reads(out), scope)
+            man.note_retry(time.perf_counter() - t0)
+            self._after_violation()
+        return out, host
+
+    def _run_prefill(self, toks: torch.Tensor, length: int):
+        """A whole prefill: its first token (host int) and KV. It builds a
+        fresh cache, so a replay needs no restore."""
+        out, host = self._checked(
+            lambda params, fb: self._prefill_fn(params, toks, length, fb),
+            lambda out: [out[0]])
+        return int(host[0]), out[1]
+
+    def _run_chunk(self, scratch, toks: torch.Tensor, start: int, li: int,
+                   last: bool):
+        """One chunk into ``scratch`` in place: its token (a host int for
+        the last chunk, else None) and the scratch. A replay needs no
+        restore: the chunk writes its positions [start, start + C) before
+        it reads them and reads no later position, so a replay on the
+        faulty dispatch's scratch computes the fault-free chunk and
+        overwrites every entry the faulty one wrote."""
+        out, host = self._checked(
+            lambda params, fb: self._chunk_fn(params, scratch, toks, start,
+                                              li, fb),
+            lambda out: [out[0]] if last else [])
+        return (int(host[0]) if last else None), out[1]
+
+    @staticmethod
+    def _snapshot(cache, pos: torch.Tensor, w: int):
+        """What a w-step window may write in place: each slot row's
+        positions [pos, pos + w) of every layer's K and V (a frozen row
+        rewrites its last one; clamped to the cache), copied. Returns the
+        closure that puts them back. Faulty tokens can stop a row early
+        or late inside the window, so the replay alone would not
+        overwrite every entry the faulty window wrote."""
+        cols = (pos[:, None] + torch.arange(w, device=pos.device)[None]
+                ).clamp(max=cache["k"].shape[2] - 1)
+        rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        saved = {key: cache[key][:, rows, cols] for key in ("k", "v")}
+
+        def restore():
+            for key, blk in saved.items():
+                cache[key][:, rows, cols] = blk
+        return restore
 
     # ------------------------------------------------------------------
     # prefill
@@ -421,9 +580,9 @@ class ServingEngine:
         if self.prefill_chunk is None:
             padded = np.zeros((1, self.prompt_pad), np.int32)
             padded[0, :plen] = task.tokens
-            tok0, kv = self._prefill_fn(self._tokens(padded), plen)
-            task.prefix = Prefix(length=plen, first_token=int(tok0),
-                                 kv=kv, key=task.key)
+            tok0, kv = self._run_prefill(self._tokens(padded), plen)
+            task.prefix = Prefix(length=plen, first_token=tok0, kv=kv,
+                                 key=task.key)
         else:
             phase, idx = task.cursor
             toks, starts = task.phases[phase]
@@ -432,8 +591,8 @@ class ServingEngine:
             last = (phase == len(task.phases) - 1 and
                     idx == len(starts) - 1)
             li = (plen - 1) - start if last else 0
-            tok, task.scratch = self._chunk_fn(
-                task.scratch, self._tokens(blk), start, li)
+            tok, task.scratch = self._run_chunk(
+                task.scratch, self._tokens(blk), start, li, last)
             if idx + 1 < len(starts):
                 task.cursor = (phase, idx + 1)
             elif phase + 1 < len(task.phases):
@@ -448,8 +607,8 @@ class ServingEngine:
                 task.cursor = (phase + 1, 0)
             else:
                 kv = {"k": task.scratch["k"], "v": task.scratch["v"]}
-                task.prefix = Prefix(length=plen, first_token=int(tok),
-                                     kv=kv, key=task.key)
+                task.prefix = Prefix(length=plen, first_token=tok, kv=kv,
+                                     key=task.key)
         if task.finished and self.prefix_cache is not None \
                 and not task.prefix.from_cache:
             self.prefix_cache.put(task.key, PrefixEntry(
@@ -530,8 +689,8 @@ class ServingEngine:
         caps the fused window (clamped to ``sync_every``; default: as
         many steps as the engine may fuse). Slots whose sequences finish
         — stop token emitted or budget exhausted — are retired and their
-        slots freed before this returns. The window's tokens come to the
-        host in one copy."""
+        slots freed before this returns. The window's tokens (and its ABFT
+        counts) come to the host in one copy."""
         active = state.slots
         if not active:
             return state, StepResult(events=[], finished=[], steps=0)
@@ -547,18 +706,30 @@ class ServingEngine:
             done_vec[slot] = False
             left_vec[slot] = view.budget_left
         tok_dev, pos_dev = self._tokens(tok_vec), self._tokens(pos_vec)
+        cache = state.cache
+        man = self.reliability
         if w > 1:
-            toks_dev, valid_dev, state.cache = self._window_fn(
-                state.cache, tok_dev, pos_dev,
-                torch.from_numpy(done_vec).to(self.device),
-                self._tokens(left_vec), w)
-            toks_seq = toks_dev.cpu().numpy()
-            valid_seq = valid_dev.cpu().numpy()
+            done_dev = torch.from_numpy(done_vec).to(self.device)
+            left_dev = self._tokens(left_vec)
+            restore = (self._snapshot(cache, pos_dev, w)
+                       if man is not None and not man.degraded else None)
+            out, (toks_seq, valid_seq) = self._checked(
+                lambda params, fb: self._window_fn(
+                    params, cache, tok_dev, pos_dev, done_dev, left_dev, w,
+                    fb),
+                lambda out: [out[0], out[1]], restore)
+            valid_seq = valid_seq.astype(bool)
         else:
-            nxt_dev, _, state.cache = self._decode_fn(state.cache, tok_dev,
-                                                      pos_dev)
-            toks_seq = nxt_dev.cpu().numpy()[None]
+            # a replay needs no restore: the step writes each row's one
+            # position before it reads it, and reads no later position,
+            # so the replay overwrites every entry the faulty step wrote
+            out, (nxt,) = self._checked(
+                lambda params, fb: self._decode_fn(params, cache, tok_dev,
+                                                   pos_dev, fb),
+                lambda out: [out[0]])
+            toks_seq = nxt[None]
             valid_seq = ~done_vec[None]
+        state.cache = out[2]
         events: List[TokenEvent] = []
         finished: List[Tuple[SlotView, int]] = []
         for i in range(w):           # step-major: sync_every=1 ordering

@@ -178,8 +178,10 @@ class ContinuousScheduler:
     ``prefill_traces`` / ``decode_traces`` proxy its counts of distinct
     step-input shape signatures, so tests and benchmarks can assert that
     the step shapes stay fixed (the JAX engine's compile-once counters).
-    Out of scope, and raising in the engine: ``mesh=`` (ROADMAP A11),
-    ``sanitizer=`` (A13) and ``reliability=`` (A9).
+    ``reliability=`` (a :class:`~repro_torch.reliability.
+    ReliabilityManager`) passes to the engine, and the run's metrics gain
+    its ``reliability`` section. Out of scope, and raising in the engine:
+    ``mesh=`` (ROADMAP A11) and ``sanitizer=`` (A13).
     """
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
@@ -485,6 +487,8 @@ class ContinuousScheduler:
                 step += 1.0
 
         wall_s = time.time() - t0
+        if engine.reliability is not None:
+            engine.reliability.deadline_expiries = reasons["deadline"]
         if state.alloc.num_active:
             raise AssertionError(
                 f"slot leak: {state.alloc.num_active} slots still "
@@ -512,8 +516,9 @@ class ContinuousScheduler:
             "admission_policy": self.admission_policy,
             "stop_reasons": dict(reasons),
             "deadline_expiries": reasons["deadline"],
-            "fallback_traces": 0,   # fallback twins arrive with A9
-            "reliability": None,    # ROADMAP A9
+            "fallback_traces": engine.fallback_traces,
+            "reliability": (engine.reliability.metrics()
+                            if engine.reliability is not None else None),
             "prefix_cache": (engine.prefix_cache.stats()
                              if engine.prefix_cache is not None else None),
             "wall_s": wall_s,

@@ -193,8 +193,13 @@ def test_guards():
     dw = engine.program(w[:9], kind="depthwise")
     with pytest.raises(ValueError, match="no fused bias"):
         engine.matmul(torch.zeros(3, 9, 8), dw, bias=torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="reliability slice"):
-        pim.PimConfig(verify="always")
+    # ABFT (A9): verify programs a checksum record; an unknown mode
+    # raises at programming, as in the JAX package
+    on = engine.program(w, pim.PimConfig(verify="always"))
+    assert set(on.abft) == {"col_i32", "col_f32", "scale_sum"}
+    assert on.abft["col_i32"].shape == (w.shape[0],)
+    with pytest.raises(ValueError, match="unknown verify mode"):
+        engine.program(w, pim.PimConfig(verify="often"))
     # wide weights still run on the float-only emulate route
     wide = engine.program(w, pim.PimConfig(weight_bits=16,
                                            substrate="emulate"))

@@ -6,7 +6,10 @@ Three trees, at reduced sizes: a dense LM's planned parameters
 (``qwen3-4b``, 2 layers, d_model 64: vmapped plans in JAX, per-layer
 lists in the port), a CNN's plans with depthwise layers (``mobilenet``,
 16x16, width 0.25) and an expert-stacked MoE LM (``qwen3-moe-30b-a3b``,
-1 layer, d_model 32, 8 experts). Everything is compared bit for bit: the
+1 layer, d_model 32, 8 experts); the two LM trees also programmed with
+ABFT verification on (``verify="always"``: each plan carries its
+checksum record, a dict child of the plan). Everything is compared bit
+for bit: the
 two packages' manifests equal as JSON, their ``arrays.npz`` members equal
 array for array, restored plans equal the originals field for field and
 run bit-identically on ``exact-torch``; a flipped byte names the same
@@ -40,15 +43,17 @@ from repro_torch.engine import persist
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import cnn, lm
 
-TREES = ("dense", "cnn", "experts")
+TREES = ("dense", "cnn", "experts", "dense-abft", "experts-abft")
 JCFG = JPimConfig(weight_bits=4, act_bits=4, substrate="exact-jnp")
+JCFG_ABFT = JPimConfig(weight_bits=4, act_bits=4, substrate="exact-jnp",
+                       verify="always")
 
 
-def _lm_tree(arch, layers, d_model, vocab):
+def _lm_tree(arch, layers, d_model, vocab, pim_cfg=JCFG):
     jcfg = j_get_config(arch).reduced(num_layers=layers, d_model=d_model,
                                       vocab=vocab)
     jparams = j_lm.init_lm(jcfg, jax.random.PRNGKey(0))
-    jplanned = j_serve.plan_params_for_pim(jparams, JCFG)
+    jplanned = j_serve.plan_params_for_pim(jparams, pim_cfg)
     return {"cfg": convert.model_config_from_reference(jcfg),
             "jax": jplanned,
             "port": convert.planned_params_from_reference(jplanned, "cpu")}
@@ -68,7 +73,10 @@ def _cnn_tree():
 def trees():
     return {"dense": _lm_tree("qwen3-4b", 2, 64, 128),
             "cnn": _cnn_tree(),
-            "experts": _lm_tree("qwen3-moe-30b-a3b", 1, 32, 64)}
+            "experts": _lm_tree("qwen3-moe-30b-a3b", 1, 32, 64),
+            "dense-abft": _lm_tree("qwen3-4b", 2, 64, 128, JCFG_ABFT),
+            "experts-abft": _lm_tree("qwen3-moe-30b-a3b", 1, 32, 64,
+                                     JCFG_ABFT)}
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +134,14 @@ def _assert_plans_equal(got, want):
         assert getattr(got, "n", 0) == getattr(want, "n", 0)
         for f in persist._fields(want):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
+        want_abft = getattr(want, "abft", None)
+        if want_abft is None:
+            assert getattr(got, "abft", None) is None
+        else:
+            assert sorted(got.abft) == sorted(want_abft)
+            for name, t in want_abft.items():
+                assert got.abft[name].dtype == t.dtype
+                assert torch.equal(got.abft[name], t), name
     else:
         assert got.dtype == want.dtype and torch.equal(got, want)
 
@@ -280,14 +296,18 @@ def test_shard_stamps_restore_unsharded_with_a_warning(port_saved,
 
 
 def test_mesh_and_verify_raise_their_items(port_saved, tmp_path):
+    """``mesh=`` still raises naming A11; A9 is ported, so a spec whose
+    plan has verify on loads in both packages, its config as saved."""
     with pytest.raises(NotImplementedError, match="A11"):
         engine.load_plans(port_saved["cnn"][0], mesh=object())
 
     def verify(spec):
         spec["items"]["pw0"]["cfg"]["verify"] = "sample"
     d = _edit_spec(port_saved["cnn"][0], str(tmp_path / "verify"), verify)
-    with pytest.raises(NotImplementedError, match="A9"):
-        engine.load_plans(d, device="cpu")
+    plans, _, _ = engine.load_plans(d, device="cpu")
+    assert plans["pw0"].cfg.verify == "sample" and plans["pw0"].abft is None
+    jplans, _, _ = j_engine.load_plans(d)
+    assert jplans["pw0"].cfg.verify == "sample"
 
 
 def test_missing_and_unspecced_directories(tmp_path):

@@ -1,7 +1,8 @@
 """Static LM serving in the port (``repro_torch.launch.serve``) against the
 JAX package's: the result key set, the metrics JSON, the OPIMA hardware
 estimate (pure Python on both sides, so equal exactly), what raises as
-not ported, the CLI in both modes, and the import rule (the port and ``chip_smoke.py`` import
+not ported (and, since A9, the reliability options that now run), the
+CLI in both modes, and the import rule (the port and ``chip_smoke.py`` import
 neither ``jax`` nor ``repro``)."""
 import json
 import os
@@ -20,6 +21,7 @@ from repro.launch import serve as j_serve
 from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core.pim import PimConfig
 from repro_torch.launch import serve as t_serve
+from repro_torch.reliability import FaultModel, dump_fault_spec
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(batch=2, prompt_len=8, gen=4, layers=2, d_model=64)
@@ -89,7 +91,12 @@ def test_opima_lm_estimate_equals_jax(bits):
     (True, {"inject_faults": "faults.json"}, "A9"),
     (True, {"chaos_check": True}, "A9"),
     (True, {"sanitize": True}, "A13")])
-def test_unported_serve_options_raise(continuous, kwargs, item):
+def test_unported_serve_options_raise(continuous, kwargs, item, tmp_path):
+    """Options of later items raise naming them; A9's options are ported
+    and run (with JAX's guards)."""
+    if item == "A9":
+        _reliability_option_runs(kwargs, tmp_path)
+        return
     if continuous:
         with pytest.raises(NotImplementedError, match=item):
             t_serve.serve_continuous("qwen2.5-3b", device="cpu", layers=1,
@@ -97,6 +104,36 @@ def test_unported_serve_options_raise(continuous, kwargs, item):
         return
     with pytest.raises(NotImplementedError, match=item):
         t_serve.serve("qwen2.5-3b", device="cpu", **SMALL, **kwargs)
+
+
+def _reliability_option_runs(kwargs, tmp_path):
+    spec = tmp_path / "faults.json"
+    spec.write_text(dump_fault_spec([FaultModel(
+        target="layers/attn/wq_dh", seed=1, bitflips=2)]))
+
+    def run(**kw):
+        return t_serve.serve_continuous(
+            "qwen2.5-3b", device="cpu", layers=1, d_model=32,
+            num_requests=3, prompt_len=8, gen=3, **kw)
+    if "abft" in kwargs:
+        res = run(pim=True, **kwargs)
+        rel = res["reliability"]
+        assert rel["checks"] > 0 and rel["violations"] == 0
+        assert res["injection_report"] == [] and res["fault_spec"] is None
+    elif "inject_faults" in kwargs:
+        with pytest.raises(ValueError, match="requires --pim"):
+            run(inject_faults=str(spec))
+        with pytest.raises(ValueError, match="requires --abft"):
+            run(pim=True, inject_faults=str(spec))
+        res = run(pim=True, abft="always", inject_faults=str(spec))
+        assert [e["kind"] for e in res["injection_report"]] == \
+            ["bitflip", "bitflip"]
+        assert res["reliability"]["detections"] > 0
+    else:
+        res = run(pim=True, abft="always", inject_faults=str(spec),
+                  **kwargs)
+        assert res["chaos_check"]["token_mismatches"] == 0
+        assert res["chaos_check"]["detections"] > 0
 
 
 def test_substrate_resolution():
@@ -136,8 +173,18 @@ def test_cli_static_and_continuous(tmp_path):
     assert "continuous: 3 requests through 2 slots" in res.stdout
     assert "saved programmed plans" in res.stdout
     assert json.loads(out.read_text())["num_requests"] == 3
-    for flag, item in ((["--abft", "sample"], "A9"), (["--sanitize"], "A13"),
-                       (["--mesh", "1,1"], "A11")):
+    spec = tmp_path / "faults.json"
+    spec.write_text(dump_fault_spec([FaultModel(
+        target="layers/mlp/*", seed=2, stuck_planes=1, stuck_value=15)]))
+    res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen3-4b",
+                "--layers", "1", "--d-model", "32", "--pim", "--continuous",
+                "--num-slots", "2", "--requests", "3", "--prompt-len", "8",
+                "--gen", "3", "--device", "cpu", "--abft", "always",
+                "--inject-faults", str(spec), "--chaos-check"])
+    assert res.returncode == 0, res.stderr
+    assert "[serve] reliability: 3 faults injected" in res.stdout
+    assert "chaos check passed" in res.stdout
+    for flag, item in ((["--sanitize"], "A13"), (["--mesh", "1,1"], "A11")):
         res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen2.5-3b",
                     "--continuous", "--device", "cpu", *flag])
         assert res.returncode != 0 and item in res.stderr, flag

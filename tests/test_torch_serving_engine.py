@@ -497,9 +497,22 @@ def test_serve_static_stop_reason_metrics_json(tmp_path):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A11"),
                                      ({"sanitizer": object()}, "A13"),
-                                     ({"reliability": object()}, "A9")])
+                                     ({"reliability": True}, "A9")])
 def test_engine_options_of_later_items_raise(kw, item):
+    """``mesh=`` and ``sanitizer=`` raise naming their items; A9 is
+    ported, so ``reliability=`` takes a manager and the engine serves its
+    params, with the fallback replays' signatures counted."""
     cfg, params = _params()
+    if item == "A9":
+        from repro_torch.reliability import ReliabilityManager
+        man = ReliabilityManager(params)
+        eng = ServingEngine(params, cfg, num_slots=1, prompt_pad=4,
+                            max_len=8, reliability=man)
+        assert eng.reliability is man
+        assert eng.params is man.serving_params()
+        eng.warmup()
+        assert eng.fallback_traces == 2      # the prefill and the step
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(params, cfg, num_slots=1, prompt_pad=4, max_len=8,
                       **kw)

@@ -102,14 +102,15 @@ package. Phases, each of which raises on failure:
 11. mamba2-370m at full width (48 layers) with ``ssd_backend="cuda"``: 48
     SSD launches per prefill, its prefill logits against the chunked
     route, and the request's time;
-12. the MoE path: moonshot-v1-16b-a3b at full width (48 layers, d_model
-    2048, 64 experts top-6 of d_ff 1408, 2 shared experts, vocab 163840,
-    random weights from seed 0): first at 2 layers (full width), its
-    prefill and 16 decode steps' logits on ``exact-cuda`` bit-identical to
-    ``exact-torch``; then ``repro_torch.launch.serve``'s set-up, which
-    programs each layer at w4a4 on ``exact-cuda`` as it is drawn (the
-    float32 expert stacks, 106 GB, never exist at once), and the static
-    loop (batch 8, prompt 512, 16 new tokens): 199 PIM launches per layer
+12. the MoE path: moonshot-v1-16b-a3b at full width (d_model 2048, 64
+    experts top-6 of d_ff 1408, 2 shared experts, vocab 163840, random
+    weights from seed 0): first at 2 layers, its prefill and 16 decode
+    steps' logits on ``exact-cuda`` bit-identical to ``exact-torch``;
+    then ``repro_torch.launch.serve``'s programming, which programs each
+    layer at w4a4 on ``exact-cuda`` as it is drawn (the float32 expert
+    stacks never exist at once), of ``MOE_SERVE_LAYERS`` (12) of its 48
+    layers, and the static loop (batch 8, prompt 512, 16 new tokens): 199
+    PIM launches per layer
     and forward step (4 attention, 3 shared, 3 x 64 expert), all on the
     wgmma route in prefill and on the small-M route in decode, no other
     kernel; prefill and decode times, tokens/s, programming time, peak
@@ -170,7 +171,27 @@ package. Phases, each of which raises on failure:
     qwen3-4b on ``analog-cuda`` with ``verify="always"``: a prefill and
     4 decode steps with no violation, a stuck plane caught by the plane
     audit;
-17. the flash-attention kernels against their plain versions: the
+17. the mesh (after every kernel library is built and the earlier
+    phases' plans are freed): two ranks spawned on the one card, over
+    gloo (``repro_torch.launch.mesh``), each serving qwen3-4b at full width
+    through ``serve_continuous(..., mesh="1,2")`` on phase 14's trace and
+    slots: each rank's 36 x 7 projections split 5 by columns (B1 on each
+    rank's half of N) and 2 by rows (B2 on each rank's half of K, the
+    int32 partials all-reduced before the dequant), 180 B1 and 72 B2
+    launches per prefill and per decode step, the 32 token streams equal
+    phase 14's bit for bit; prefill ms per request, decode ms per step
+    and tokens/s beside single-device and each rank's resident and peak
+    memory from that run; then a second, instrumented run of the trace's
+    first 8 requests for the collectives' time and the row split's K-block
+    copies;
+    each split at kernel level at qwen3-4b's shapes (M = 512 and 8) equal
+    to the unsplit plan and B2 to its plain version; moonshot-v1-16b-a3b
+    at 2 layers with its 64 experts split 32 a rank, on ``exact-cuda`` and
+    ``analog-cuda``, prefill and decode logits equal the whole plans'; a
+    stamped plan directory (qwen3-4b, 2 layers) saved on the mesh and
+    restored with ``load_plans(mesh=)``, equal logits; then B2 and B1 at
+    the mesh path's shapes, bit for bit and timed as for hymba;
+18. the flash-attention kernels against their plain versions: the
     forward on the JAX kernel test's cases in float32 and bfloat16 (within
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
     three backward kernels (dQ, dK/dV per query head, the head sum) at
@@ -191,7 +212,7 @@ package. Phases, each of which raises on failure:
     3xTF32 bound and its CUDA-core float32 bound; and the backward's three
     passes summed against SDPA's backward (its forward + backward minus
     its forward);
-18. the training path: gemma3-1b at full width (26 layers, d_model 1152,
+19. the training path: gemma3-1b at full width (26 layers, d_model 1152,
     vocab 262144, float32, random weights from seed 0) through
     ``repro_torch.launch.train``, ``attn_backend="cuda"``: the loss,
     gradient norm and every gradient leaf against the ``"jnp"`` route on
@@ -201,7 +222,7 @@ package. Phases, each of which raises on failure:
     ``TRAIN_STEPS`` timed: 26 launches of each flash kernel per step, no
     other kernel), one step with int8 gradient compression, and a profile
     of one step by stage;
-19. checkpoint and restart on the card at a reduced gemma3-1b: a run
+20. checkpoint and restart on the card at a reduced gemma3-1b: a run
     resumed from a step-6 checkpoint against the unbroken run.
 
 Each path's launch counts are set to 0 just before its requests and read
@@ -423,8 +444,10 @@ def time_ms(torch, fn, budget_ms=300.0):
 def device_ms(torch, fn, reps=200):
     """Device milliseconds per call of ``fn(i)`` over ``reps`` calls: the
     calls are queued behind a spin kernel, so the host's enqueue rate
-    (the ctypes wrappers take tens of microseconds a call) does not show;
-    raises if the enqueue outran the spin."""
+    (the ctypes wrappers take tens of microseconds a call) does not show.
+    The spin lasts several times a first pass's host time; where the
+    enqueue still outran it (the host slowed), the timing is repeated
+    behind a spin four times longer, and raises after the third try."""
     fn(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -434,15 +457,17 @@ def device_ms(torch, fn, reps=200):
     host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((4 * host_s + 5e-3) * 2e9))  # ~2 GHz cycles
-    start.record()
-    for i in range(reps):
-        fn(i)
-    end.record()
-    if start.query():
-        raise AssertionError("the calls' enqueue outran the spin kernel")
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    for factor in (4, 16, 64):
+        torch.cuda._sleep(int((factor * host_s + 5e-3) * 2e9))  # ~2 GHz
+        start.record()
+        for i in range(reps):
+            fn(i)
+        end.record()
+        outran = start.query()
+        end.synchronize()
+        if not outran:
+            return start.elapsed_time(end) / reps
+    raise AssertionError("the calls' enqueue outran the spin kernel")
 
 
 def bound(pa, pw, m, k, n, out_bytes, extra_bytes):
@@ -1007,7 +1032,6 @@ def shape_numbers(torch, dev, kern, ref, shapes, with_bias=True):
         if row["route"][0] == "small_m":
             row["fused_ms"] = time_ms(
                 torch, lambda: kern.pim_matmul_fused_cuda(*args))
-            row["int_ms"] = time_ms(torch, lambda: kern.pim_matmul_cuda(a, w))
             small_m_times(torch, dev, kern, gen, row, args)
             timer = lambda fn: time_ms(torch, fn)
         else:
@@ -1084,7 +1108,8 @@ def small_m_times(torch, dev, kern, gen, row, args):
     yardstick: warm, one weight resident in L2; and cold, rotating over
     copies of the weight that exceed the 50 MB L2, as a decode step finds
     its weights, in turns new, tiled, tiled, new. ``fused_ms`` becomes
-    the cold time; the wrapper's enqueue time per call stays beside it."""
+    the cold time; the wrapper's enqueue time per call stays beside it.
+    ``int_ms`` is the int32 entry point's (B2's) cold device time."""
     a, w, a_s, w_s, bias = args
     m, k, n = row["M"], row["K"], row["N"]
     ws = [w] + [planes(torch, gen, 1, k, n, dev)
@@ -1103,6 +1128,8 @@ def small_m_times(torch, dev, kern, gen, row, args):
     row["fused_ms"] = statistics.mean(t for nm, t in cold if nm == "new")
     row["fused_tiled_ms"] = statistics.mean(t for nm, t in cold
                                             if nm == "tiled")
+    row["int_ms"] = device_ms(
+        torch, lambda i: kern.pim_matmul_cuda(a, ws[i % len(ws)]))
 
 
 def analog_bound(pa, pw, m, ka, kw, n, chunk, conversions, out_bytes,
@@ -2115,6 +2142,11 @@ MOONSHOT = "moonshot-v1-16b-a3b"
 # exact-cuda against exact-torch at full width on this many layers: the
 # plain substrate's float64 products over 64 experts make 48 slow
 MOE_EXACT_LAYERS = 2
+# the served request's depth (of 48): each layer is identical in shape, so
+# B1's per-launch rows and the launches per layer do not depend on it; the
+# cut keeps the run within its time limit beside the mesh phase (the
+# 48-layer fit, 60.4 GB resident, is in PERF.md)
+MOE_SERVE_LAYERS = 12
 # moonshot's B1 (K, N) as the plans pad them: attention, shared-expert
 # up/gate and down (K 2816 -> 3072), expert up/gate and down (K 1408 ->
 # 1536); every one at the prefill's and the decode step's M
@@ -2358,14 +2390,17 @@ def moe_phase_launches(torch, mods, planned, cfg, tokens, counters):
 
 
 def moonshot_path(torch, dev, mods, counters):
-    """(e) moonshot-v1-16b-a3b at full width (48 layers, d_model 2048, 64
-    experts top-6 of d_ff 1408, 2 shared experts, vocab 163840), random
-    weights from seed 0: exact-cuda against exact-torch at 2 layers, then
-    serving's set-up (each layer programmed at w4a4 on exact-cuda as it is
-    drawn) and the static loop at batch 8, prompt 512, 16 new tokens:
-    launches by route, times, memory, a profile by stage."""
+    """(e) moonshot-v1-16b-a3b at full width (d_model 2048, 64 experts
+    top-6 of d_ff 1408, 2 shared experts, vocab 163840), random weights
+    from seed 0: exact-cuda against exact-torch at 2 layers, then serving's
+    programming (each layer programmed at w4a4 on exact-cuda as it is
+    drawn) of MOE_SERVE_LAYERS of its 48 layers and the static loop at
+    batch 8, prompt 512, 16 new tokens: launches by route, times, memory,
+    a profile by stage."""
+    import dataclasses
     serve_mod, kern = mods["serve"], mods["pim_kern"]
-    cfg = mods["configs"].get_config(MOONSHOT)
+    cfg = dataclasses.replace(mods["configs"].get_config(MOONSHOT),
+                              num_layers=MOE_SERVE_LAYERS)
     tokens = lm_tokens(torch, dev, cfg.vocab_size)
     out = {"config": {"arch": cfg.name, "layers": cfg.num_layers,
                       "d_model": cfg.d_model, "experts": cfg.num_experts,
@@ -2378,9 +2413,9 @@ def moonshot_path(torch, dev, mods, counters):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, planned, substrate, _, _ = serve_mod._setup(
-        MOONSHOT, None, None, True, 4, False, "exact-cuda", None,
-        device=dev)
+    substrate = "exact-cuda"
+    planned = serve_mod._program(cfg, mods["pim"].PimConfig(
+        weight_bits=4, act_bits=4, substrate=substrate), dev)
     torch.cuda.synchronize()
     out["program_s"] = time.perf_counter() - t0
     out["setup_peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -2841,6 +2876,7 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
     del planned
     out["checks"] = checks
     out["failures"] = failures
+    out["streams"] = base
     if failures:
         raise AssertionError("qwen3 continuous identities: "
                              + "; ".join(failures))
@@ -3265,6 +3301,514 @@ def reliability_checks(torch, dev, mods):
     del planned, bad, cache
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh: qwen3-4b on a 1x2 mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+MESH_SPEC, MESH_RANKS = "1,2", 2
+MESH_EXACT_LAYERS = 2     # moonshot's expert split and the stamped directory
+MESH_TIMEOUT_S = 900      # both ranks' whole run, set-up included
+MESH_TRACED = 8           # requests of the instrumented second run
+# per layer and forward step: q, k, v, gate, up split by columns (B1), o and
+# down by rows (B2)
+MESH_COL, MESH_ROW = 5, 2
+# (K, N, kind) of qwen3-4b's projections checked at kernel level, and one
+# moonshot expert stack's up projection (experts, K, N)
+MESH_CHECKS = ((2560, 4096, "col"), (2560, 1024, "col"), (2560, 9728, "col"),
+               (4096, 2560, "row"), (9728, 2560, "row"))
+MESH_EXPERT_CHECK = (4, 2048, 1408)
+
+
+def mesh_rank(rank, world, init_file, task_file, out_file):
+    """One rank of the mesh phase (the target of a spawned process): joins
+    the gloo group on the shared card, runs the mesh's checks and its
+    served trace, and writes its numbers to ``out_file``; a failure
+    raises (the process exits non-zero)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, engine, serving
+    from repro_torch.core import pim
+    from repro_torch.engine import mesh as mesh_mod
+    from repro_torch.kernels.analog_readout import analog_readout as akern
+    from repro_torch.kernels.pim_matmul import pim_matmul as kern
+    from repro_torch.kernels.pim_matmul import ref
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+    # as in the parent: the float matmuls in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = {"configs": configs, "engine": engine, "serving": serving,
+            "pim": pim, "mesh": mesh_mod, "kern": kern, "akern": akern,
+            "ref": ref, "serve": serve_mod, "lm": lm}
+    task = json.loads(Path(task_file).read_text())
+    backend = launch_mesh.init_distributed("cuda", f"file://{init_file}",
+                                           rank, world)
+    try:
+        mesh = launch_mesh.make_serve_mesh(MESH_SPEC)
+        out = {"rank": rank, "device": str(mesh.device), "backend": backend}
+        out["kernel_checks"] = mesh_kernel_checks(torch, mods, mesh)
+        out["serve"] = mesh_serve(torch, mods, task)
+        out["moonshot"] = mesh_moonshot(torch, mods, mesh)
+        out["persist"] = mesh_persist(torch, mods, mesh, task["plan_dir"])
+        Path(out_file).write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_kernel_checks(torch, mods, mesh):
+    """Each split at kernel level, at qwen3-4b's projection shapes and M =
+    512 and 8: col and row ``engine.matmul`` on the mesh equal the unsplit
+    plan on exact-cuda bit for bit, B2's int32 accumulator on each rank's
+    K block equals its plain version, and an expert split of a moonshot
+    stack (broadcast and paired) equals the unsplit stack. Launches here
+    are not the main path's."""
+    engine, pim, kern, ref = (mods["engine"], mods["pim"], mods["kern"],
+                              mods["ref"])
+    mesh_mod = mods["mesh"]
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cfg = pim.PimConfig(weight_bits=4, act_bits=4, substrate="exact-cuda")
+    out = {}
+    for k, n, kind in MESH_CHECKS:
+        w = torch.randn((k, n), generator=gen, device=dev)
+        full = engine.program(w, cfg)
+        split = engine.program(w, cfg, mesh=mesh, spec=kind)
+        for m in (LM_PROMPT, CONT_SLOTS):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            label = f"{kind} M={m} K={k} N={n}"
+            if not torch.equal(engine.matmul(x, split),
+                               engine.matmul(x, full)):
+                raise AssertionError(f"mesh {label}: the split differs from "
+                                     "the unsplit plan")
+            if kind == "row":
+                _, a_planes = pim._quantize_activations(x, cfg)
+                width = split.planes.shape[-2]
+                blk = mesh_mod.act_block(a_planes, split.shard.index * width,
+                                         width)
+                got = kern.pim_matmul_cuda(blk, split.planes)
+                max_err(torch, got, ref.pim_matmul_ref(blk, split.planes))
+            out[label] = True
+    e, k, n = MESH_EXPERT_CHECK
+    w = torch.randn((e, k, n), generator=gen, device=dev)
+    full = engine.program(w, cfg, kind="experts")
+    split = engine.program(w, cfg, kind="experts", mesh=mesh)
+    for m in (LM_PROMPT, CONT_SLOTS):
+        for paired in (False, True):
+            x = torch.randn((e, m, k) if paired else (m, k), generator=gen,
+                            device=dev)
+            if not torch.equal(engine.matmul(x, split, paired=paired),
+                               engine.matmul(x, full, paired=paired)):
+                raise AssertionError(f"mesh expert split (M={m}, paired="
+                                     f"{paired}) differs from the unsplit")
+            out[f"expert M={m} paired={paired}"] = True
+    torch.cuda.synchronize()
+    return out
+
+
+def mesh_calls(kern, forward_shapes, prefills, decode_steps):
+    """(entry point, M, K, N) -> launches over a served run of the mesh:
+    each forward shape once per prefill of LM_PROMPT rows and once per
+    decode step of CONT_SLOTS rows, the warm-up's prefill and decode step
+    included."""
+    calls = Counter()
+    for name, k, n, c in forward_shapes:
+        calls[(name, LM_PROMPT, k, n)] += c * (prefills + 1)
+        calls[(name, CONT_SLOTS, k, n)] += c * (decode_steps + 1)
+    return calls
+
+
+def event_timed(torch, store, fn):
+    """``fn`` with CUDA events around each call (device time, summed by
+    :func:`event_ms`; no sync)."""
+    def wrapper(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        store.append((start, end))
+        return out
+    return wrapper
+
+
+def event_ms(torch, pairs):
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs)
+
+
+def synced(torch, store, key, fn):
+    """``fn`` with the device synchronized before and after, its host
+    seconds added to ``store[key]`` and its calls counted: a collective's
+    own time, without the queued work it would otherwise wait for."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        store[key] = store.get(key, 0.0) + time.perf_counter() - t0
+        store[key + "_calls"] = store.get(key + "_calls", 0) + 1
+        return out
+    return wrapper
+
+
+def mesh_serve(torch, mods, task):
+    """The main path on the mesh: ``serve_continuous(qwen3-4b, ...,
+    mesh="1,2")`` on the qwen3 continuous phase's trace and slots, its
+    launch counts set to 0 just before and read just after, its 32 token
+    streams held to the single-device run's; prefill and decode times
+    (host clock around the engine's verbs, as single-device, and nothing
+    else timed in this run), resident and peak memory. Then
+    :func:`mesh_collectives`' instrumented run."""
+    serve_mod, serving, kern, akern = (mods["serve"], mods["serving"],
+                                       mods["kern"], mods["akern"])
+    mesh_mod = mods["mesh"]
+    Engine = serving.ServingEngine
+    t, mem = {}, {}
+    real_setup = serve_mod._setup
+
+    def setup(*args, **kwargs):
+        res = real_setup(*args, **kwargs)
+        torch.cuda.synchronize()
+        mem["resident_bytes"] = torch.cuda.memory_allocated()
+        mem["setup_peak_bytes"] = torch.cuda.max_memory_allocated()
+        plans = layer_plans(res[1]["layers"])
+        mem["kinds"] = dict(Counter(
+            "whole" if p.shard is None else p.shard.kind for p in plans))
+        mem["plan_bytes"] = sum(p.planes.numel() + p.values.numel()
+                                for p in plans)
+        # (entry point, K, N) as the kernel sees each rank's slice -> its
+        # launches per forward step: B1 on the column blocks, B2 on the
+        # row blocks
+        mem["forward_shapes"] = [
+            [name, k, n, c] for (name, k, n), c in Counter(
+                ("pim_matmul_int" if p.shard.kind == "row"
+                 else "pim_matmul_fused", *p.planes.shape[-2:])
+                for p in plans).items()]
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kern, akern)
+    mesh_mod.reset_collectives()
+    t0 = time.perf_counter()
+    with patched((serve_mod, "_setup", setup),
+                 (Engine, "prefill_step", timed(t, "prefill_s",
+                                                Engine.prefill_step)),
+                 (Engine, "generate", timed(t, "decode_s", Engine.generate))):
+        res = serve_mod.serve_continuous(
+            QWEN3, num_slots=CONT_SLOTS, num_requests=CONT_REQUESTS,
+            prompt_len=LM_PROMPT, gen=LM_GEN, pim=True,
+            arrival_rate=CONT_RATE, seed=0, mesh=MESH_SPEC)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kern, akern)
+    b1 = route_counts(kern, "pim_matmul_fused")
+    b2 = route_counts(kern, "pim_matmul_int")
+    got = {str(k): v for k, v in entry_streams(res).items()}
+    want = {k: tuple(v) for k, v in task["streams"].items()}
+    diff = sorted(k for k in want if tuple(got.get(k, ())) != want[k])
+    if diff or len(got) != len(want):
+        raise AssertionError(f"mesh: {len(diff)} of {len(want)} token "
+                             f"streams differ from single-device ({diff[:5]})")
+    layers = mods["configs"].get_config(QWEN3).num_layers
+    calls = mesh_calls(kern, mem["forward_shapes"], res["prefills"],
+                       res["decode_steps"])
+    want = {name: Counter() for name in ("pim_matmul_fused",
+                                         "pim_matmul_int")}
+    for (name, m, k, n), c in calls.items():
+        want[name][kern.small_m_grid(m, k, n)[0]] += c
+    want_b1, want_b2 = (dict(want["pim_matmul_fused"]),
+                        dict(want["pim_matmul_int"]))
+    per_step = {name: sum(c for nm, _, _, c in mem["forward_shapes"]
+                          if nm == name) for name in want}
+    if b1 != want_b1 or b2 != want_b2 or per_step != {
+            "pim_matmul_fused": MESH_COL * layers,
+            "pim_matmul_int": MESH_ROW * layers} or any(
+            v for k, v in launches.items()
+            if k not in ("pim_matmul_fused", "pim_matmul_int")):
+        raise AssertionError(f"mesh launches {launches}: B1 by route {b1} "
+                             f"(expected {want_b1}), B2 by route {b2} "
+                             f"(expected {want_b2}); per forward step "
+                             f"{per_step}")
+    if (res["mesh"], res["mesh_ranks"], res["mesh_backend"]) != \
+            (MESH_SPEC, MESH_RANKS, "gloo"):
+        raise AssertionError(f"mesh fields {res.get('mesh')}")
+    out = {"entry_s": seconds, "launches": launches, "b1_by_route": b1,
+           "b2_by_route": b2,
+           "collective_counts": dict(mesh_mod.COLLECTIVES),
+           "prefills": res["prefills"], "decode_steps": res["decode_steps"],
+           "prefill_ms_per_request": t["prefill_s"] * 1e3 / res["prefills"],
+           "decode_ms_per_step": t["decode_s"] * 1e3 / res["decode_steps"],
+           "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
+           "peak_bytes": torch.cuda.max_memory_allocated(), **mem}
+    out["instrumented"] = mesh_collectives(torch, mods)
+    return out
+
+
+def mesh_collectives(torch, mods):
+    """A second, shorter served run on the mesh (the first MESH_TRACED
+    requests of a trace drawn as the main run's), instrumented: the device
+    synchronized before and after every collective (its own host time,
+    without the queued work it would otherwise wait for) and CUDA events
+    around every K-block copy of the row splits. Its share of collectives
+    is read against its own wall time; its prefill and decode times show
+    what the instrumentation costs."""
+    serve_mod, serving = mods["serve"], mods["serving"]
+    mesh_mod = mods["mesh"]
+    Engine = serving.ServingEngine
+    t, coll, blocks = {}, {}, []
+    mesh_mod.reset_collectives()
+    with patched((Engine, "prefill_step", timed(t, "prefill_s",
+                                                Engine.prefill_step)),
+                 (Engine, "generate", timed(t, "decode_s", Engine.generate)),
+                 (mesh_mod, "all_gather_list",
+                  synced(torch, coll, "all_gather_s",
+                         mesh_mod.all_gather_list)),
+                 (mesh_mod, "all_reduce",
+                  synced(torch, coll, "all_reduce_s", mesh_mod.all_reduce)),
+                 (mesh_mod, "act_block",
+                  event_timed(torch, blocks, mesh_mod.act_block))):
+        res = serve_mod.serve_continuous(
+            QWEN3, num_slots=CONT_SLOTS, num_requests=MESH_TRACED,
+            prompt_len=LM_PROMPT, gen=LM_GEN, pim=True,
+            arrival_rate=CONT_RATE, seed=0, mesh=MESH_SPEC)
+        torch.cuda.synchronize()
+    return {"requests": MESH_TRACED, "collectives": dict(coll),
+            "collective_counts": dict(mesh_mod.COLLECTIVES),
+            "k_block_copies": len(blocks),
+            "k_block_ms": event_ms(torch, blocks),
+            "prefills": res["prefills"], "decode_steps": res["decode_steps"],
+            "prefill_ms_per_request": t["prefill_s"] * 1e3 / res["prefills"],
+            "decode_ms_per_step": t["decode_s"] * 1e3 / res["decode_steps"],
+            "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"]}
+
+
+def mesh_moonshot(torch, mods, mesh):
+    """The expert split at full width: moonshot-v1-16b-a3b at 2 layers (64
+    experts, 32 a rank), programmed whole and split on exact-cuda and on
+    analog-cuda (whose dense plans the walk replicates); the prefill's
+    logits (batch 8 x 512: the layer's experts in chunks of 16, each from
+    one rank) and one decode step's (one chunk of all 64) equal the whole
+    plans' bit for bit."""
+    import dataclasses
+    serve_mod, lm, pim, engine = (mods["serve"], mods["lm"], mods["pim"],
+                                  mods["engine"])
+    dev = mesh.device
+    cfg = dataclasses.replace(mods["configs"].get_config(MOONSHOT),
+                              num_layers=MESH_EXACT_LAYERS)
+    tokens = lm_tokens(torch, dev, cfg.vocab_size)
+    out = {}
+    for substrate in ("exact-cuda", "analog-cuda"):
+        whole = serve_mod._program(cfg, pim.PimConfig(
+            weight_bits=4, act_bits=4, substrate=substrate), dev)
+        split = engine.shard_plan_tree(whole, mesh)
+        kinds = Counter("whole" if p.shard is None else p.shard.kind
+                        for p in layer_plans(split["layers"]))
+        logits = []
+        for planned in (whole, split):
+            pre, cache = lm.prefill(planned, cfg, {"tokens": tokens},
+                                    LM_PROMPT + 1)
+            step, _ = lm.decode_step(planned, cfg, cache,
+                                     torch.argmax(pre, -1)[:, None],
+                                     LM_PROMPT)
+            logits.append((pre, step))
+            del cache
+        if not (torch.equal(logits[0][0], logits[1][0]) and
+                torch.equal(logits[0][1], logits[1][1])):
+            raise AssertionError(f"mesh moonshot {substrate}: the expert "
+                                 "split's logits differ from the whole "
+                                 "plans'")
+        out[substrate] = {"kinds": dict(kinds), "equal": True}
+        del whole, split, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_persist(torch, mods, mesh, plan_dir):
+    """A stamped plan directory: qwen3-4b at 2 layers (full width)
+    programmed on the mesh, saved (rank 0 writes the whole leaves),
+    restored with ``load_plans(mesh=)``: the same kinds and prefill logits
+    bit for bit."""
+    import dataclasses
+    serve_mod, lm, pim, engine = (mods["serve"], mods["lm"], mods["pim"],
+                                  mods["engine"])
+    dev = mesh.device
+    cfg = dataclasses.replace(mods["configs"].get_config(QWEN3),
+                              num_layers=MESH_EXACT_LAYERS)
+    tokens = lm_tokens(torch, dev, cfg.vocab_size)
+    pim_cfg = pim.PimConfig(weight_bits=4, act_bits=4, substrate="exact-cuda")
+    split = serve_mod._program(cfg, pim_cfg, dev, mesh)
+    want = lm.prefill(split, cfg, {"tokens": tokens}, LM_PROMPT + 1)[0]
+    t0 = time.perf_counter()
+    engine.save_plans(plan_dir, split, extras={"mesh": MESH_SPEC})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, _, extras = engine.load_plans(plan_dir, mesh=mesh)
+    load_s = time.perf_counter() - t0
+    kinds = lambda tree: [None if p.shard is None else p.shard.kind
+                          for p in layer_plans(tree["layers"])]
+    got = lm.prefill(restored, cfg, {"tokens": tokens}, LM_PROMPT + 1)[0]
+    if kinds(restored) != kinds(split) or not torch.equal(got, want) or \
+            extras != {"mesh": MESH_SPEC}:
+        raise AssertionError("mesh: the restored stamped directory differs "
+                             "from the plans saved")
+    size = sum(f.stat().st_size for f in Path(plan_dir).rglob("*")
+               if f.is_file())
+    restored_kinds = Counter(str(k) for k in kinds(restored))
+    del split, restored
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "load_s": load_s, "directory_bytes": size,
+            "kinds": dict(restored_kinds), "equal": True}
+
+
+def mesh_phase(torch, dev, mods, single, smi):
+    """(j) the mesh: two ranks spawned on the one card (gloo), after every
+    kernel library is built here and the earlier phases' plans are freed;
+    each rank serves qwen3-4b at full width on a 1x2 mesh and runs the
+    checks of :func:`mesh_rank`. ``single`` is the qwen3 continuous
+    phase's result (its token streams, held to bit for bit, and its
+    times). Then B2 and B1 at the mesh path's shapes, timed here."""
+    import multiprocessing
+    kern, ref = mods["pim_kern"], mods["pim_ref"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="mesh_"))
+    task = {"streams": single["streams"], "plan_dir": str(work / "plans")}
+    (work / "task.json").write_text(json.dumps(task))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, MESH_RANKS, str(work / "init"), str(work / "task.json"),
+        str(work / f"rank{r}.json"))) for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    try:
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"mesh ranks exited with {codes} (a rank "
+                                 "that failed prints its traceback above)")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"spec": MESH_SPEC, "ranks": ranks, "seconds": seconds,
+           "card": smi}
+    first = ranks[0]["serve"]
+    layers = mods["configs"].get_config(QWEN3).num_layers
+    shapes = {"pim_matmul_int": Counter(), "pim_matmul_fused": Counter()}
+    for (name, m, k, n), c in mesh_calls(
+            kern, first["forward_shapes"], first["prefills"],
+            first["decode_steps"]).items():
+        shapes[name][(m, k, n)] += c
+    single_cont = {k: single[k] for k in ("prefill_ms_per_request",
+                                          "decode_ms_per_step")}
+    single_cont["tokens_per_s"] = single["metrics"]["tokens_per_s"]
+    out["single_device"] = single_cont
+    out["shapes"] = {name: [list(s) + [c] for s, c in sh.items()]
+                     for name, sh in shapes.items()}
+    for r in ranks:
+        s = r["serve"]
+        ins = s["instrumented"]
+        coll = ins["collectives"]
+        log(f"mesh rank {r['rank']} ({r['device']}, {r['backend']}): "
+            f"resident {s['resident_bytes'] / 2 ** 30:.3f} GiB (plans "
+            f"{s['plan_bytes'] / 2 ** 30:.3f} GiB, kinds {s['kinds']}), "
+            f"peak {s['peak_bytes'] / 2 ** 30:.3f} GiB; B1 by route "
+            f"{s['b1_by_route']}, B2 by route {s['b2_by_route']}, "
+            f"collectives {s['collective_counts']} in the main run; "
+            f"instrumented run ({ins['requests']} requests, "
+            f"{ins['prefills']} prefills, {ins['decode_steps']} decode "
+            f"steps): collectives {ins['collective_counts']}, all-gather "
+            f"{coll.get('all_gather_s', 0.0):.3f} s, all-reduce "
+            f"{coll.get('all_reduce_s', 0.0):.3f} s (host clock, synced) of "
+            f"its {ins['wall_s']:.2f} s; prefill "
+            f"{ins['prefill_ms_per_request']:.2f} ms per request, decode "
+            f"{ins['decode_ms_per_step']:.2f} ms per step under the "
+            f"instrumentation; {ins['k_block_copies']} row-split K-block "
+            f"copies, {ins['k_block_ms']:.3f} ms of device time")
+    log(f"qwen3 mesh {MESH_SPEC} ({MESH_RANKS} ranks on one card, gloo; "
+        f"{smi}; main run, uninstrumented): the "
+        f"{len(single['streams'])} token streams equal the "
+        "single-device run's bit for bit; prefill "
+        f"{first['prefill_ms_per_request']:.2f} ms per admitted request "
+        f"(single device {single_cont['prefill_ms_per_request']:.2f}), "
+        f"decode {first['decode_ms_per_step']:.2f} ms per step "
+        f"({single_cont['decode_ms_per_step']:.2f}), "
+        f"{first['tokens_per_s']:.2f} tokens/s "
+        f"({single_cont['tokens_per_s']:.2f}); B2 per prefill and per "
+        f"decode step {MESH_ROW * layers}, B1 {MESH_COL * layers}; "
+        f"{seconds:.1f} s with both ranks' set-up and checks")
+    for r in ranks:
+        m = r["moonshot"]
+        p = r["persist"]
+        log(f"mesh rank {r['rank']}: moonshot-v1-16b-a3b at "
+            f"{MESH_EXACT_LAYERS} layers, expert split on exact-cuda "
+            f"{m['exact-cuda']['kinds']} and analog-cuda "
+            f"{m['analog-cuda']['kinds']}: prefill and decode logits equal "
+            f"the whole plans'; stamped directory ({QWEN3}, "
+            f"{MESH_EXACT_LAYERS} layers, {p['directory_bytes'] / 1e9:.3f} "
+            f"GB): saved {p['save_s']:.2f} s, restored on the mesh "
+            f"{p['load_s']:.2f} s, kinds {p['kinds']}, logits equal; "
+            f"{len(r['kernel_checks'])} kernel-level split checks equal")
+    out["max_abs_err"] = {
+        "pim_matmul_fused": lm_kernel_checks(
+            torch, dev, kern, ref, shapes["pim_matmul_fused"]),
+        "pim_matmul_int": int_kernel_checks(
+            torch, dev, kern, ref, shapes["pim_matmul_int"])}
+    out["rows"] = {name: shape_numbers(torch, dev, kern, ref, sh,
+                                       with_bias=False)
+                   for name, sh in shapes.items()}
+    return out
+
+
+def int_kernel_checks(torch, dev, kern, ref, shapes):
+    """B2 at the mesh path's row-split shapes, bit for bit against its
+    plain version."""
+    err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for m, k, n in sorted(shapes):
+        a = planes(torch, gen, 1, m, k, dev)
+        w = planes(torch, gen, 1, k, n, dev)
+        err = max(err, max_err(torch, kern.pim_matmul_cuda(a, w),
+                               ref.pim_matmul_ref(a, w)))
+    log(f"kernel check at the {len(shapes)} row-split shapes (w4a4): B2 "
+        "bit-exact")
+    return err
+
+
+def mesh_entries(mesh):
+    """The mesh path's lines: B2 (the row splits) and B1 (the column
+    splits), rank 0's launches, per run of the trace."""
+    first = mesh["ranks"][0]["serve"]
+    per = (f"one continuous qwen3-4b run on a {MESH_SPEC} mesh (2 ranks "
+           f"sharing the card, gloo; {CONT_REQUESTS} Poisson requests, "
+           f"{CONT_SLOTS} slots, w4a4; rank 0's launches, the warm-up "
+           "included): device time summed over the run's launches, "
+           f"{LM_PROMPT}-row prefills on the wgmma route and "
+           f"{CONT_SLOTS}-row decode steps on the small-M route; "
+           "library_ms is torch._int_mm on one plane pair over the prefill "
+           "shapes (it takes M > 16)")
+    b2 = kernel_entry("pim_matmul_int", "int", mesh["rows"]["pim_matmul_int"],
+                      first["launches"], mesh["max_abs_err"],
+                      path=f"qwen3-4b mesh {MESH_SPEC}"
+                      " row splits", routes=first["b2_by_route"], per=per)
+    b1 = kernel_entry("pim_matmul_fused", "fused",
+                      mesh["rows"]["pim_matmul_fused"], first["launches"],
+                      mesh["max_abs_err"], path=f"qwen3-4b mesh {MESH_SPEC} column splits",
+                      routes=first["b1_by_route"], per=per)
+    return [b2, b1]
 
 
 def ssd_entry(hymba, err):
@@ -4195,7 +4739,8 @@ def main() -> int:
         per=(f"one moonshot-v1-16b-a3b request (batch {LM_BATCH}, prompt "
              f"{LM_PROMPT}, {LM_GEN} new tokens, w4a4; "
              f"{moe_layer_launches(configs.get_config(MOONSHOT))} launches "
-             "per layer and step, 48 layers): sum over the prefill's "
+             f"per layer and step, {MOE_SERVE_LAYERS} of its 48 layers): "
+             "sum over the prefill's "
              f"launches (wgmma route, device time: {b1['prefill_ms']:.3f} "
              f"ms, the mma.sync yardstick {b1['prefill_mma_sync_ms']:.3f} "
              f"ms, bound {b1['prefill_bound_ms']:.3f} ms) and the decode "
@@ -4232,6 +4777,8 @@ def main() -> int:
     rel_rows = rowsum_rows(torch, dev, kern, ref, qwen3_rel["shapes"])
     kernels.append(rowsum_entry(rel_rows, qwen3_rel, smi))
     rel_checks = reliability_checks(torch, dev, mods)
+    mesh = mesh_phase(torch, dev, mods, qwen3_cont, smi)
+    kernels += mesh_entries(mesh)
     mods.update({"train": train, "flash_kern": fkern, "tree": tree})
     training = train_path(torch, dev, mods, counters)
     kernels += flash_entries(flash_rows, training["config"]["windows"],
@@ -4259,6 +4806,7 @@ def main() -> int:
              "qwen3_shapes": q_rows,
              "qwen3_reliability": listed(qwen3_rel),
              "rowsum_shapes": rel_rows, "reliability_checks": rel_checks,
+             "mesh": mesh,
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "kernels": kernels},
             indent=1, default=str))

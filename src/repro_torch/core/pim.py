@@ -147,6 +147,9 @@ class DensePlan(Plan):
     abft: Optional[dict] = None  # ABFT checksum record {"col_i32" (K,),
                                  # "col_f32" (K,), "scale_sum" ()} from
                                  # programming with verify != "off"
+    shard: Optional["PlanShard"] = None  # mesh split (engine/mesh.py): the
+                                 # tensor fields then hold this rank's
+                                 # slice, while k and n stay global
 
     @property
     def shape(self):
@@ -175,10 +178,16 @@ class ExpertStackedPlan(Plan):
     ``n`` and ``cfg`` are shared: the reference's vmapped layout, so
     plans convert between the two packages. :meth:`expert` gives expert
     ``e``'s plan as views, its planes the contiguous (Pw, Kp, Np) block
-    the kernel takes without a copy."""
+    the kernel takes without a copy. A stack split over a mesh
+    (``shard``, kind ``"expert"``) holds this rank's experts in ``dense``
+    while ``num_experts`` stays the whole stack's; :meth:`expert` and
+    :meth:`experts` index the experts it holds and give them unstamped
+    (an expert is whole on the rank that holds it), so only whole stamped
+    stacks reach the split executor."""
 
     dense: DensePlan             # fields stacked over a leading expert axis
     num_experts: int = 0
+    shard: Optional["PlanShard"] = None  # mesh split (engine/mesh.py)
 
     @property
     def cfg(self) -> PimConfig:  # type: ignore[override]

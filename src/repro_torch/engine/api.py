@@ -15,27 +15,42 @@ from typing import Optional
 import torch
 
 from repro_torch.core import pim
+from repro_torch.engine import mesh as mesh_mod
 from repro_torch.engine.substrates import get_substrate
 
 _PROGRAM_KINDS = ("dense", "depthwise", "experts")
 
 
 def program(w: torch.Tensor, cfg: pim.PimConfig = pim.DEFAULT_PIM, *,
-            kind: str = "dense", substrate: Optional[str] = None
-            ) -> pim.Plan:
+            kind: str = "dense", substrate: Optional[str] = None,
+            mesh=None, spec: Optional[str] = None,
+            mesh_axis: str = "model") -> pim.Plan:
     """Program float weights — (K, N) for ``kind="dense"``, (K=kh*kw, C)
     for ``kind="depthwise"``, (E, K, N) for ``kind="experts"`` — into a
     plan on a named substrate (``substrate`` overrides ``cfg``'s). The
-    plan lives where ``w`` does."""
+    plan lives where ``w`` does.
+
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`), the plan is
+    split over ``mesh[mesh_axis]`` and stamped with the split
+    (:mod:`repro_torch.engine.mesh`), so ``matmul`` needs no flags:
+    ``spec`` is ``"col"`` or ``"row"`` for dense plans, ``"expert"`` for
+    expert stacks; ``None`` picks ``"col"`` and ``"expert"``. Every rank
+    programs the whole plan and keeps its slice."""
     sub = get_substrate(substrate or cfg.resolved_substrate)
     if kind == "dense":
-        return sub.program(w, cfg)
-    if kind == "depthwise":
-        return sub.program_depthwise(w, cfg)
-    if kind == "experts":
-        return sub.program_experts(w, cfg)
-    raise ValueError(f"unknown plan kind {kind!r}; expected one of "
-                     f"{_PROGRAM_KINDS}")
+        plan = sub.program(w, cfg)
+    elif kind == "depthwise":
+        plan = sub.program_depthwise(w, cfg)
+    elif kind == "experts":
+        plan = sub.program_experts(w, cfg)
+    else:
+        raise ValueError(f"unknown plan kind {kind!r}; expected one of "
+                         f"{_PROGRAM_KINDS}")
+    if mesh is not None:
+        plan = mesh_mod.shard_plan(plan, mesh, spec, axis=mesh_axis)
+    elif spec is not None:
+        raise ValueError("spec= requires mesh=")
+    return plan
 
 
 def matmul(x: torch.Tensor, plan: pim.Plan, *,

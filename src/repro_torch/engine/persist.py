@@ -33,9 +33,17 @@ registered node's children (``i:0``, ``i:1``, ...).
 Each plan's ``PimConfig`` is written with the JAX package's field set and
 substrate names (``exact-cuda`` -> ``exact-pallas``, ``exact-torch`` ->
 ``exact-jnp``, ``analog-cuda`` -> ``analog-pallas``) and read back the
-way :func:`repro_torch.convert.config_from_reference` maps them. Not
-ported, and raising: ``mesh=`` (ROADMAP A11). Saved shard stamps restore
-unsharded, with the JAX package's warning.
+way :func:`repro_torch.convert.config_from_reference` maps them.
+
+Meshes (:mod:`repro_torch.engine.mesh`). A plan split over a mesh is
+described with its whole (global) leaves and the JAX package's ``"shard":
+{"kind", "axis"}`` stamp. Saving a stamped tree gathers each split leaf
+from the ranks along its axis, one leaf at a time; the process of global
+rank 0 writes the directory and the others wait at a barrier.
+``load_plans(mesh=)`` re-places the restored tree: each rank keeps its
+slice of the stamped plans and all of everything else. Without ``mesh=``
+the stamps are dropped, with the JAX package's warning, and the plans
+restore whole.
 """
 from __future__ import annotations
 
@@ -47,10 +55,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.convert import config_from_reference
 from repro_torch.core import pim
+from repro_torch.engine import mesh as mesh_mod
 from repro_torch.kernels.runtime import resolve_device
 
 PLANS_EXTRAS_KEY = "engine_plans"
@@ -130,7 +140,9 @@ def _geometry(plan: pim.Plan):
     """What a layer stack's plans must share: everything but the data."""
     dense = getattr(plan, "dense", plan)
     record = _abft_record(dense)
-    return (type(plan), getattr(plan, "num_experts", None), dense.bits,
+    shard = getattr(plan, "shard", None)
+    return (type(plan), getattr(plan, "num_experts", None),
+            None if shard is None else (shard.kind, shard.axis), dense.bits,
             getattr(dense, "k", None), getattr(dense, "n", None), dense.cfg,
             tuple(tuple(getattr(dense, f).shape) for f in _fields(dense)),
             tuple(getattr(dense, f).dtype for f in _fields(dense)),
@@ -138,18 +150,31 @@ def _geometry(plan: pim.Plan):
                   for name, t in record.items()))
 
 
-def _describe_plans(plans: List[pim.Plan], stacked: bool) -> Dict[str, Any]:
+def _stamp(shard) -> Dict[str, str]:
+    return {"kind": shard.kind, "axis": shard.axis}
+
+
+def _describe_plans(plans: List[pim.Plan], stacked: bool,
+                    shard=None) -> Dict[str, Any]:
     """Spec of one plan (``stacked=False``) or of a layer stack (its
-    fields get a leading axis of ``len(plans)``)."""
+    fields get a leading axis of ``len(plans)``), with the whole leaves'
+    shapes of a plan split over a mesh (``shard``: an expert stack's, for
+    its dense plan)."""
     head = plans[0]
     if stacked and any(_geometry(p) != _geometry(head) for p in plans[1:]):
         raise ValueError("the plans of a layer stack must share their "
-                         "geometry (class, bits, k, n, cfg, shapes)")
+                         "geometry (class, bits, k, n, cfg, shapes, shard)")
     lead = [len(plans)] if stacked else []
     if isinstance(head, pim.ExpertStackedPlan):
-        return {"kind": "expert-plan", "num_experts": head.num_experts,
-                "dense": _describe_plans([p.dense for p in plans], stacked)}
-    leaves = [_leaf_spec(lead + list(getattr(head, f).shape),
+        out = {"kind": "expert-plan", "num_experts": head.num_experts,
+               "dense": _describe_plans([p.dense for p in plans], stacked,
+                                        head.shard)}
+        if head.shard is not None:
+            out["shard"] = _stamp(head.shard)
+        return out
+    if isinstance(head, pim.DensePlan):
+        shard = shard or head.shard
+    leaves = [_leaf_spec(lead + list(mesh_mod.global_shape(head, shard, f)),
                          getattr(head, f).dtype) for f in _fields(head)]
     if isinstance(head, pim.DensePlan):
         out = {"kind": "dense-plan", "bits": head.bits, "k": head.k,
@@ -159,6 +184,8 @@ def _describe_plans(plans: List[pim.Plan], stacked: bool) -> Dict[str, Any]:
             # the ABFT checksum record, described key by key
             out["abft"] = {name: _leaf_spec(lead + list(t.shape), t.dtype)
                            for name, t in record.items()}
+        if head.shard is not None:
+            out["shard"] = _stamp(head.shard)
         return out
     if isinstance(head, pim.DepthwisePlan):
         return {"kind": "depthwise-plan", "bits": head.bits,
@@ -190,7 +217,7 @@ def describe_plan_tree(tree: Any) -> Dict[str, Any]:
 
 def _shard_stamps(spec: Dict[str, Any], path: str = "") -> list:
     """Collect (path, shard) pairs recorded in a plan-tree spec: the
-    stamps the port does not restore (it has no mesh placement yet)."""
+    stamps a restore without ``mesh=`` drops."""
     kind = spec.get("kind")
     out = []
     if kind in ("dense-plan", "expert-plan") and spec.get("shard"):
@@ -311,24 +338,30 @@ def _values_rank(spec: Dict[str, Any]) -> int:
     return len(dense["leaves"][0]["shape"])
 
 
-def _rebuild(spec: Dict[str, Any], take) -> Any:
+def _rebuild(spec: Dict[str, Any], take, place=None) -> Any:
     """The port's tree ``spec`` describes, its leaves taken in JAX's
     flatten order (dict items in sorted key order, built in the spec's
-    own order)."""
+    own order). ``place(plan, stamp)``, if given, maps each plan as soon
+    as it is built (``stamp``: the spec's shard record or None)."""
     kind = spec["kind"]
     if kind == "dict":
-        built = {k: _rebuild(spec["items"][k], take)
+        built = {k: _rebuild(spec["items"][k], take, place)
                  for k in sorted(spec["items"])}
         return {k: built[k] for k in spec["items"]}
     if kind in ("list", "tuple"):
-        items = [_rebuild(v, take) for v in spec["items"]]
+        items = [_rebuild(v, take, place) for v in spec["items"]]
         return items if kind == "list" else tuple(items)
     if kind in ("dense-plan", "depthwise-plan", "expert-plan"):
         lead = _values_rank(spec) - _plan_rank(spec)
         if lead not in (0, 1):
             raise ValueError(f"plan spec with {lead} leading axes; the port "
                              "takes unstacked or layer-stacked plans")
-        return _plans_from_spec(spec, take, lead)
+        plans = _plans_from_spec(spec, take, lead)
+        if place is None:
+            return plans
+        stamp = spec.get("shard")
+        return [place(p, stamp) for p in plans] if lead \
+            else place(plans, stamp)
     if kind == "leaf":
         return take(spec)
     raise ValueError(f"unknown plan-spec kind {kind!r}")
@@ -362,23 +395,30 @@ def _stacked_array(tensors: List[torch.Tensor]) -> np.ndarray:
     return out
 
 
-def _producers(tree: Any) -> List:
+def _producers(tree: Any) -> List[Tuple[Any, bool]]:
     """Zero-argument producers of every stored leaf, in JAX's flatten
-    order: each returns (array, dtype name) when called."""
+    order, each with whether it is collective (it gathers a leaf split
+    over a mesh: every rank on the split's axis must call it, in this
+    order). A producer returns (array, dtype name) when called."""
     def leaf(make, dtype):
         return lambda: (make(), _dtype_name(dtype))
 
-    def plan_leaves(plans: List[pim.Plan], stacked: bool) -> List:
+    def plan_leaves(plans: List[pim.Plan], stacked: bool,
+                    shard=None) -> List:
         head = plans[0]
         if isinstance(head, pim.ExpertStackedPlan):
-            return plan_leaves([p.dense for p in plans], stacked)
+            return plan_leaves([p.dense for p in plans], stacked, head.shard)
+        shard = shard or getattr(head, "shard", None)
+        names = list(_fields(head)) + list(_abft_record(head))
         per_plan = [[getattr(p, f) for f in _fields(head)]
                     + list(_abft_record(p).values()) for p in plans]
         out = []
-        for fields in zip(*per_plan):
-            make = (lambda fs=fields: _stacked_array(fs)) if stacked \
-                else (lambda t=fields[0]: _tensor_array(t))
-            out.append(leaf(make, fields[0].dtype))
+        for name, fields in zip(names, zip(*per_plan)):
+            def make(fields=fields, name=name):
+                whole = [mesh_mod.gather_leaf(t, shard, name) for t in fields]
+                return _stacked_array(whole) if stacked \
+                    else _tensor_array(whole[0])
+            out.append((leaf(make, fields[0].dtype), shard is not None))
         return out
 
     if isinstance(tree, pim.Plan):
@@ -390,7 +430,7 @@ def _producers(tree: Any) -> List:
         return [p for k in sorted(tree, key=str) for p in _producers(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [p for v in tree for p in _producers(v)]
-    return [leaf(lambda t=tree: _tensor_array(t), tree.dtype)]
+    return [(leaf(lambda t=tree: _tensor_array(t), tree.dtype), False)]
 
 
 def save_plans(directory: str, plans: Any, step: int = 0,
@@ -400,18 +440,66 @@ def save_plans(directory: str, plans: Any, step: int = 0,
     Every plan's substrate and full ``PimConfig`` land in the manifest
     ``extras`` (under :data:`PLANS_EXTRAS_KEY`), so a restart can rebuild
     the tree and audit what it was programmed for. Leaves are gathered to
-    the host one at a time. Returns the published checkpoint path."""
+    the host one at a time. Returns the published checkpoint path.
+
+    In a process group of more than one rank, every rank calls this with
+    its own (possibly mesh-split) tree: the split leaves are gathered
+    leaf by leaf, the process of global rank 0 writes the directory, and
+    every rank returns once rank 0 has told them how the write went. If
+    rank 0 fails (an ``OSError`` of its directory, a full disk partway
+    through), it still joins the gathers of the leaves it did not reach,
+    so the ranks' collectives stay paired, and then every rank raises:
+    rank 0 its own error, the others an ``OSError`` naming it."""
     all_extras = dict(extras or {})
     spec = describe_plan_tree(plans)
     all_extras[PLANS_EXTRAS_KEY] = spec
-    return ckpt.write_checkpoint(directory, step, _fingerprint(spec),
-                                 _producers(plans), all_extras)
+    producers = _producers(plans)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return ckpt.write_checkpoint(directory, step, _fingerprint(spec),
+                                     [p for p, _ in producers], all_extras)
+    if dist.get_rank() != 0:
+        for produce, collective in producers:
+            if collective:
+                produce()
+        status = [None, None]       # rank 0's path, or its failure
+        dist.broadcast_object_list(status, src=0)
+        path, failure = status
+        if failure is not None:
+            raise OSError(f"rank 0 could not save the plans to "
+                          f"{directory}: {failure}")
+        return path
+    started = [0]       # producers the write has called, in order
+
+    def counted(i, produce):
+        def call():
+            started[0] = i + 1
+            return produce()
+        return call
+
+    try:
+        path = ckpt.write_checkpoint(
+            directory, step, _fingerprint(spec),
+            [counted(i, p) for i, (p, _) in enumerate(producers)],
+            all_extras)
+    except Exception as e:
+        for produce, collective in producers[started[0]:]:
+            if collective:
+                produce()
+        dist.broadcast_object_list([None, f"{type(e).__name__}: {e}"],
+                                   src=0)
+        raise
+    dist.broadcast_object_list([path, None], src=0)
+    return path
 
 
 def load_plans(directory: str, step: Optional[int] = None, *, mesh=None,
                device=None) -> Tuple[Any, int, Dict[str, Any]]:
     """Restore a plan tree saved by :func:`save_plans` (or by the JAX
-    package's) onto ``device`` (``None``: CUDA).
+    package's) onto ``device`` (``None``: the mesh's device, else CUDA).
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`), each plan
+    saved with a shard stamp is split again as it is restored, each rank
+    keeping its slice, and everything else restores whole on every rank;
+    without it the stamps are dropped with a warning.
 
     Returns ``(plans, step, extras)`` with :data:`PLANS_EXTRAS_KEY`
     stripped from ``extras``. Each stored leaf is checked against its
@@ -421,11 +509,8 @@ def load_plans(directory: str, step: Optional[int] = None, *, mesh=None,
     ``save_plans`` or its structure does not match its spec, and
     :class:`PlanCorruptionError` naming the leaf when a leaf fails its
     digest or cannot be read."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_plans(mesh=): sharded plan placement is not ported yet "
-            "(ROADMAP A11)")
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None and device is None \
+        else resolve_device(device)
     if step is None:
         step = ckpt.latest_step(directory)
         if step is None:
@@ -494,19 +579,25 @@ def load_plans(directory: str, step: Optional[int] = None, *, mesh=None,
         del arr
         return t.to(dtype=_torch_dtype(leaf["dtype"]))
 
+    def place(plan, stamp):
+        if stamp is None:
+            return plan
+        return mesh_mod.shard_plan(plan, mesh, stamp["kind"],
+                                   axis=stamp["axis"])
+
     try:
-        plans = _rebuild(spec, take)
+        plans = _rebuild(spec, take, None if mesh is None else place)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    stamps = _shard_stamps(spec)
+    stamps = _shard_stamps(spec) if mesh is None else []
     if stamps:
         head = ", ".join(
             f"{p}:{s['kind']}@axis{s['axis']}" for p, s in stamps[:3])
         more = f", +{len(stamps) - 3} more" if len(stamps) > 3 else ""
         warnings.warn(
             f"load_plans(mesh=None) drops {len(stamps)} saved shard "
-            f"stamp(s) ({head}{more}); plans restore replicated "
-            "(sharded placement is ROADMAP A11)", UserWarning, stacklevel=2)
+            f"stamp(s) ({head}{more}); plans restore replicated; "
+            "pass mesh= to re-place them", UserWarning, stacklevel=2)
     extras = {k: v for k, v in manifest["extras"].items()
               if k != PLANS_EXTRAS_KEY}
     return plans, step, extras

@@ -45,6 +45,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import pim
+from repro_torch.engine import mesh as mesh_mod
+from repro_torch.kernels.pim_matmul import ops as pim_ops
+from repro_torch.kernels.pim_matmul.ref import pim_matmul_ref
 
 
 class Substrate:
@@ -64,6 +67,10 @@ class Substrate:
     # whether ``_dense2d`` takes ``act=`` (the rows' codes, scales and
     # planes from ``pim._quantize_activations``) instead of quantizing
     shares_activation_codes: bool = False
+    # the dense mesh splits (:mod:`repro_torch.engine.mesh`) this
+    # substrate runs, bit for bit with one device where it is exact; every
+    # substrate splits experts
+    dense_splits: Tuple[str, ...] = ()
 
     # -- programming ------------------------------------------------------
     def stamp(self, cfg: pim.PimConfig) -> pim.PimConfig:
@@ -97,10 +104,15 @@ class Substrate:
         x (..., K, C) -> (..., C). Expert stacks broadcast x (..., K) to
         every expert -> (E, ..., N); with ``paired=True`` x carries a
         leading (E, ...) axis and expert e sees only x[e] (the MoE
-        down-projection)."""
+        down-projection). A plan split over a mesh (``plan.shard``) runs
+        its split executor (:mod:`repro_torch.engine.mesh`), which wraps
+        this substrate's own math in the split's collective."""
         cfg = plan.cfg if cfg is None else cfg
         if self.integer_datapath:
             pim._check_widths(cfg)
+        if getattr(plan, "shard", None) is not None:
+            return mesh_mod.sharded_matmul(self, x, plan, cfg=cfg, bias=bias,
+                                           rng=rng, paired=paired)
         if isinstance(plan, pim.ExpertStackedPlan):
             return self._experts(x, plan, cfg, bias, rng, paired)
         if paired:
@@ -173,6 +185,15 @@ class Substrate:
                  rng: Optional[torch.Generator]) -> torch.Tensor:
         raise NotImplementedError
 
+    def _dense_int(self, a_planes: torch.Tensor,
+                   w_planes: torch.Tensor) -> torch.Tensor:
+        """The raw int32 contraction of (Pa, M, K) activation planes with
+        (Pw, K, N) weight planes, no epilogue: a row split's partial.
+        Only substrates whose ``dense_splits`` include ``"row"`` have
+        one."""
+        raise NotImplementedError(f"substrate {self.name!r} has no int32 "
+                                  "contraction")
+
     @staticmethod
     def _verify(plan: pim.DensePlan, cfg: pim.PimConfig) -> bool:
         """Whether this dispatch runs ABFT checksum verification: the
@@ -194,10 +215,14 @@ class ExactCudaSubstrate(Substrate):
     name = pim.EXACT_CUDA
     is_exact = True
     shares_activation_codes = True
+    dense_splits = ("col", "row")
 
     def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
         return pim.exact_cuda_matmul2d(x2, plan, cfg, bias, act,
                                    verify=self._verify(plan, cfg))
+
+    def _dense_int(self, a_planes, w_planes):
+        return pim_ops.pim_matmul_int(a_planes, w_planes)
 
 
 class ExactTorchSubstrate(Substrate):
@@ -206,10 +231,14 @@ class ExactTorchSubstrate(Substrate):
     name = pim.EXACT_TORCH
     is_exact = True
     shares_activation_codes = True
+    dense_splits = ("col", "row")
 
     def _dense2d(self, x2, plan, cfg, bias, rng, act=None):
         return pim.exact_torch_matmul2d(x2, plan, cfg, bias, act,
                                    verify=self._verify(plan, cfg))
+
+    def _dense_int(self, a_planes, w_planes):
+        return pim_matmul_ref(a_planes, w_planes)
 
 
 class AnalogSubstrate(Substrate):
@@ -247,6 +276,8 @@ class EmulateSubstrate(Substrate):
     name = pim.EMULATE
     is_exact = False
     integer_datapath = False
+    dense_splits = ("col",)    # a column block's float matmul may round
+                               # differently from the whole's
 
     def _dense2d(self, x2, plan, cfg, bias, rng):
         return pim.emulate_matmul2d(x2, plan, cfg, bias,

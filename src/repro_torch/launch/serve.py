@@ -37,9 +37,18 @@ golden ``exact-cuda`` fallback; ``--chaos-check`` first serves the trace
 fault-free and asserts the injected run's tokens equal it, with a
 detection for any detectable fault.
 
-Not ported yet, and raising: ``--mesh`` (ROADMAP A11), ``--sanitize``
-(A13), and the compile cache (the port has no compiled step functions;
-ROADMAP path glue item 2 would capture decode in a CUDA graph).
+Meshes (``--mesh DP,TP``, :mod:`repro_torch.launch.mesh`): one process
+per rank, started by a launcher (``torchrun --standalone --nproc-per-node
+DP*TP``); each rank draws the weights, programs each layer and at once
+keeps its slice of every split plan (:func:`repro_torch.engine.
+shard_plan_tree`: column splits for ``_dh`` projections, row splits for
+``_hd``, expert splits for expert stacks), then runs the whole serving
+loop, the split matmuls ending in collectives. Only rank 0 prints and
+writes ``--metrics-json``.
+
+Not ported yet, and raising: ``--sanitize`` (A13) and the compile cache
+(the port has no compiled step functions; ROADMAP path glue item 2 would
+capture decode in a CUDA graph).
 
 Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
@@ -50,6 +59,9 @@ Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --layers 2 --d-model 64 --device cpu --pim --continuous \
       --abft always --inject-faults spec.json --chaos-check
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m \
+      repro_torch.launch.serve --arch qwen3-4b --layers 2 --d-model 64 \
+      --pim --device cpu --continuous --mesh 2,2
 """
 from __future__ import annotations
 
@@ -64,6 +76,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import engine
 from repro_torch.configs.base import ModelConfig, get_config
@@ -71,7 +84,9 @@ from repro_torch.core import pim as pim_mod
 from repro_torch.core.perfmodel import network_perf, total_power_w
 from repro_torch.core.pim import PimConfig
 from repro_torch.core.workloads import DenseSpec
+from repro_torch.engine import mesh as mesh_mod
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models.lm import (decode_step, init_lm, layer_trees,
                                    prefill, stack_layers)
 from repro_torch.quant.quantize import fake_quantize
@@ -239,10 +254,18 @@ def _resolve_substrate(pim_substrate: Optional[str],
         if pim_substrate else pim_mod.EXACT_CUDA
 
 
-def _not_ported(mesh_spec, compile_cache_dir) -> None:
-    if mesh_spec:
-        raise NotImplementedError(
-            "mesh: sharded serving is not ported yet (ROADMAP A11)")
+def _rank0() -> bool:
+    """Whether this process speaks for the run: rank 0 of a mesh, or the
+    only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _say(msg: str) -> None:
+    if _rank0():
+        print(msg)
+
+
+def _not_ported(compile_cache_dir) -> None:
     if compile_cache_dir:
         raise NotImplementedError(
             "compile_cache_dir: the port runs its step functions eagerly "
@@ -250,13 +273,27 @@ def _not_ported(mesh_spec, compile_cache_dir) -> None:
             "first (ROADMAP path glue item 2, CUDA-graph decode)")
 
 
-def _program(cfg: ModelConfig, pim_cfg: PimConfig, device):
+def _program(cfg: ModelConfig, pim_cfg: PimConfig, device, mesh=None):
     """Draw the weights (seed 0) and program each layer as soon as it is
     drawn (equal to ``plan_params_for_pim`` of ``init_lm``'s params, bit
-    for bit); the embedding tables are fake-quantized."""
+    for bit); the embedding tables are fake-quantized. On a mesh each
+    layer's plans are split as soon as they are programmed
+    (:func:`repro_torch.engine.shard_plan_tree`), so a rank never holds
+    more than one layer of whole plans."""
+    replicated = []
+
+    def layer_fn(layer):
+        planned = plan_layer(layer, pim_cfg)
+        if mesh is None:
+            return planned
+        planned, names = mesh_mod.place_plan_tree(planned, mesh)
+        replicated.extend(names)
+        return planned
+
     # a MoE model's float32 expert stacks need not fit the card at once
-    params = init_lm(cfg, 0, device=device,
-                     layer_fn=lambda layer: plan_layer(layer, pim_cfg))
+    params = init_lm(cfg, 0, device=device, layer_fn=layer_fn)
+    if mesh is not None:
+        mesh_mod.report_replicated(replicated, mesh)
     return {k: v if k == "layers" else _quantize_leaf(k, v, pim_cfg)
             for k, v in params.items()}
 
@@ -324,18 +361,20 @@ def _same_extras(got: Dict[str, Any], want: Dict[str, Any]) -> bool:
 
 
 def _pim_params(cfg: ModelConfig, pim_cfg: PimConfig,
-                plan_dir: Optional[str], device):
+                plan_dir: Optional[str], device, mesh=None,
+                mesh_spec: Optional[str] = None):
     """Program (or restore) the PIM parameter tree.
 
     With ``plan_dir`` set, the weights are first drawn for their digest;
     then a previously saved plan checkpoint is restored (serving restarts
     skip re-programming) or, on any mismatch of model identity, geometry
     or operating point (arch, reduced dims, substrate, bit widths, the
-    weights' digest), or any restore failure, the plans are programmed
-    afresh and persisted for the next boot. A save that fails on
-    ``OSError`` serves without a checkpoint."""
+    mesh layout, the weights' digest), or any restore failure, the plans
+    are programmed afresh and persisted for the next boot. A save that
+    fails on ``OSError`` serves without a checkpoint. With ``mesh``, the
+    plans are split over it and saved stamps are re-placed on restore."""
     if not plan_dir:
-        return _program(cfg, pim_cfg, device)
+        return _program(cfg, pim_cfg, device, mesh)
     want = {"substrate": pim_cfg.resolved_substrate,
             "weight_bits": pim_cfg.weight_bits,
             "act_bits": pim_cfg.act_bits,
@@ -344,31 +383,32 @@ def _pim_params(cfg: ModelConfig, pim_cfg: PimConfig,
             "num_layers": cfg.num_layers,
             "d_model": cfg.d_model,
             "vocab_size": cfg.vocab_size,
-            "mesh": None,
+            "mesh": mesh_spec,
             "params_digest": _params_digest(cfg, device)}
     try:
-        planned, _, extras = engine.load_plans(plan_dir, device=device)
+        planned, _, extras = engine.load_plans(plan_dir, mesh=mesh,
+                                               device=device)
     except FileNotFoundError:
         pass
     except Exception as e:  # noqa: BLE001: any restore failure re-programs
-        print(f"[serve] could not restore plans from {plan_dir} "
-              f"({type(e).__name__}: {e}); re-programming")
+        _say(f"[serve] could not restore plans from {plan_dir} "
+             f"({type(e).__name__}: {e}); re-programming")
     else:
         got = {k: extras.get(k) for k in want}
         if _same_extras(got, want):
-            print(f"[serve] restored programmed plans from {plan_dir} "
-                  f"(substrate={got['substrate']})")
+            _say(f"[serve] restored programmed plans from {plan_dir} "
+                 f"(substrate={got['substrate']})")
             return planned
         del planned
-        print(f"[serve] plan checkpoint at {plan_dir} was programmed "
-              f"for {got}, requested {want}; re-programming")
-    planned = _program(cfg, pim_cfg, device)
+        _say(f"[serve] plan checkpoint at {plan_dir} was programmed "
+             f"for {got}, requested {want}; re-programming")
+    planned = _program(cfg, pim_cfg, device, mesh)
     try:
         engine.save_plans(plan_dir, planned, extras=want)
-        print(f"[serve] saved programmed plans to {plan_dir}")
+        _say(f"[serve] saved programmed plans to {plan_dir}")
     except OSError as e:
-        print(f"[serve] could not save plans to {plan_dir} "
-              f"({type(e).__name__}: {e}); serving without a checkpoint")
+        _say(f"[serve] could not save plans to {plan_dir} "
+             f"({type(e).__name__}: {e}); serving without a checkpoint")
     return planned
 
 
@@ -380,11 +420,15 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
            device=None):
     """Serve bring-up: config reduction, parameter init (random, seed 0)
     and, with ``pim``, weight programming, layer by layer as the weights
-    are drawn, or its restore from ``plan_dir``. Returns
-    ``(cfg, params, substrate, pim_cfg, mesh)``; ``mesh`` is always None
-    in the port."""
-    _not_ported(mesh_spec, compile_cache_dir)
-    device = resolve_device(device)
+    are drawn, or its restore from ``plan_dir``. ``mesh_spec`` ("dp,tp")
+    builds a ("data", "model") mesh over the launched ranks and splits
+    the programmed plans over it (:mod:`repro_torch.engine.mesh`); each
+    rank then holds its slice of the split plans and all of everything
+    else, on its own device. Returns ``(cfg, params, substrate, pim_cfg,
+    mesh)``, ``mesh`` None without a spec."""
+    _not_ported(compile_cache_dir)
+    mesh = make_serve_mesh(mesh_spec, device) if mesh_spec else None
+    device = mesh.device if mesh is not None else resolve_device(device)
     cfg = get_config(arch)
     if layers or d_model:
         cfg = cfg.reduced(num_layers=layers or 2, d_model=d_model or 64,
@@ -393,9 +437,18 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
     pim_cfg = PimConfig(weight_bits=pim_bits, act_bits=pim_bits,
                         substrate=substrate, verify=abft)
     if not pim:
-        return cfg, init_lm(cfg, 0, device=device), substrate, pim_cfg, None
-    return (cfg, _pim_params(cfg, pim_cfg, plan_dir, device), substrate,
-            pim_cfg, None)
+        return cfg, init_lm(cfg, 0, device=device), substrate, pim_cfg, mesh
+    return (cfg, _pim_params(cfg, pim_cfg, plan_dir, device, mesh,
+                             mesh_spec or None), substrate, pim_cfg, mesh)
+
+
+def _mesh_fields(result: Dict[str, Any], spec: Optional[str], mesh) -> None:
+    """The mesh spec, its rank count and its backend in a run's result."""
+    if mesh is not None:
+        result["mesh"] = spec
+        result["mesh_ranks"] = dist.get_world_size() \
+            if dist.is_initialized() else 1
+        result["mesh_backend"] = mesh.backend
 
 
 def write_metrics_json(path: str, result: Dict[str, Any]) -> None:
@@ -477,15 +530,17 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 16, gen: int = 8,
           eos_token: Optional[int] = None, device=None) -> Dict[str, Any]:
     """Run one batched serve request on ``device`` (``None``: CUDA);
     ``pim_substrate`` names the engine route (default ``exact-cuda``).
+    ``mesh`` ("dp,tp") serves on a mesh of launched ranks (see
+    :func:`_setup`); only rank 0 writes ``metrics_json``.
 
     ``stop_tokens`` / ``eos_token`` are applied *post hoc*: the lock-step
     loop runs all ``gen`` steps, then each row is truncated at its first
     stop token and classified."""
-    cfg, params, substrate, pim_cfg, _ = _setup(
+    cfg, params, substrate, pim_cfg, dev_mesh = _setup(
         arch, layers, d_model, pim, pim_bits, pim_emulate, pim_substrate,
         plan_dir, mesh_spec=mesh, compile_cache_dir=compile_cache_dir,
         device=device)
-    dev = resolve_device(device)
+    dev = dev_mesh.device if dev_mesh is not None else resolve_device(device)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(batch, prompt_len))).to(dev)
@@ -524,11 +579,12 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 16, gen: int = 8,
         "emitted": emitted,
         "emitted_tokens": sum(len(e) for e in emitted),
     }
+    _mesh_fields(result, mesh, dev_mesh)
     if pim:
         result["pim_substrate"] = substrate
         result.update(opima_lm_estimate(cfg, batch, prompt_len, gen,
                                         pim_cfg))
-    if metrics_json:
+    if metrics_json and _rank0():
         write_metrics_json(metrics_json, result)
     return result
 
@@ -655,8 +711,10 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
     affected dispatch on the golden exact fallback, so completions stay
     correct; ``chaos_check`` first runs the same trace fault-free and
     asserts the injected run produced identical tokens and, for any
-    detectable fault, a detection. ``sanitize`` (ROADMAP A13) and
-    ``mesh`` (A11) raise."""
+    detectable fault, a detection. ``mesh`` ("dp,tp") serves on a mesh of
+    launched ranks (see :func:`_setup`): every rank runs the scheduler
+    over its slice of the plans, and only rank 0 writes
+    ``metrics_json``. ``sanitize`` (ROADMAP A13) raises."""
     from repro_torch.serving import ContinuousScheduler, poisson_trace
     if shared_prefix < 0:
         raise ValueError("shared_prefix must be >= 0")
@@ -668,7 +726,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
         raise ValueError("--inject-faults requires --abft sample|always "
                          "(without checksum verification the corruption "
                          "would go undetected)")
-    cfg, params, substrate, pim_cfg, _ = _setup(
+    cfg, params, substrate, pim_cfg, dev_mesh = _setup(
         arch, layers, d_model, pim, pim_bits, pim_emulate, pim_substrate,
         plan_dir, mesh_spec=mesh, compile_cache_dir=compile_cache_dir,
         abft=abft, device=device)
@@ -699,7 +757,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
         from repro_torch.reliability import FAULT_LOG
         golden_sched = ContinuousScheduler(
             params, cfg, num_slots=num_slots, prompt_pad=prompt_pad,
-            max_len=max_len, sync_every=sync_every,
+            max_len=max_len, sync_every=sync_every, mesh=dev_mesh,
             stop_tokens=stop_tokens, eos_token=eos_token,
             prefill_chunk=prefill_chunk,
             admission_policy=admission_policy)
@@ -717,7 +775,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
         manager = ReliabilityManager(params, models)
     sched = ContinuousScheduler(params, cfg, num_slots=num_slots,
                                 prompt_pad=prompt_pad, max_len=max_len,
-                                sync_every=sync_every,
+                                sync_every=sync_every, mesh=dev_mesh,
                                 stop_tokens=stop_tokens,
                                 eos_token=eos_token,
                                 prefill_chunk=prefill_chunk,
@@ -734,6 +792,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
     if golden_tokens is not None:
         result["chaos_check"] = chaos_verdict(golden_tokens, run, manager)
     result["arch"] = cfg.name
+    _mesh_fields(result, mesh, dev_mesh)
     result["requests"] = [
         {"id": c.request_id, "prompt_len": int(c.prompt.shape[0]),
          "tokens": c.tokens, "arrival_step": c.arrival_step,
@@ -757,7 +816,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
             result["opima_tokens_per_s"] = (
                 run.metrics["generated_tokens"] / (pass_s * total_passes))
             result["opima_power_w"] = est["opima_power_w"]
-    if metrics_json:
+    if metrics_json and _rank0():
         write_metrics_json(metrics_json, result)
     return result
 
@@ -786,7 +845,12 @@ def main() -> None:
                     help="persist/restore programmed plans here so "
                          "restarts skip re-programming")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="not ported yet (ROADMAP A11)")
+                    help="mesh 'dp,tp' of launched ranks (torchrun "
+                         "--nproc-per-node DP*TP): split programmed plans "
+                         "over the model axis (column, row and expert "
+                         "splits) and rows over the data axis; backend "
+                         "nccl when every rank has a card of its own, else "
+                         "gloo")
     ap.add_argument("--compile-cache-dir", default=None,
                     help="not ported: the port has no compiled step "
                          "functions (ROADMAP path glue item 2)")
@@ -854,24 +918,46 @@ def main() -> None:
     stop_tokens = tuple(
         int(t) for t in args.stop_tokens.split(",") if t.strip()
     ) if args.stop_tokens else ()
+    try:
+        if args.continuous:
+            res = serve_continuous(
+                args.arch, num_slots=args.num_slots,
+                num_requests=args.requests, prompt_len=args.prompt_len,
+                gen=args.gen, layers=args.layers, d_model=args.d_model,
+                pim=args.pim, pim_bits=args.pim_bits,
+                pim_emulate=args.pim_emulate,
+                pim_substrate=args.pim_substrate, plan_dir=args.plan_dir,
+                arrival_rate=args.arrival_rate, trace_file=args.trace_file,
+                seed=args.seed, sync_every=args.sync_every, mesh=args.mesh,
+                compile_cache_dir=args.compile_cache_dir,
+                metrics_json=args.metrics_json, stop_tokens=stop_tokens,
+                eos_token=args.eos_token, prefill_chunk=args.prefill_chunk,
+                prefix_cache=args.prefix_cache,
+                shared_prefix=args.shared_prefix, abft=args.abft,
+                inject_faults=args.inject_faults,
+                admission_policy=args.admission_policy,
+                chaos_check=args.chaos_check, device=args.device)
+        else:
+            res = serve(args.arch, args.batch, args.prompt_len, args.gen,
+                        args.layers, args.d_model, args.pim, args.pim_bits,
+                        args.pim_emulate, pim_substrate=args.pim_substrate,
+                        plan_dir=args.plan_dir, mesh=args.mesh,
+                        compile_cache_dir=args.compile_cache_dir,
+                        metrics_json=args.metrics_json,
+                        stop_tokens=stop_tokens, eos_token=args.eos_token,
+                        device=args.device)
+        if _rank0():
+            _print_result(res, args, stop_tokens)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _print_result(res: Dict[str, Any], args, stop_tokens) -> None:
+    if "mesh" in res:
+        print(f"[serve] mesh {res['mesh']} over {res['mesh_ranks']} ranks, "
+              f"backend {res['mesh_backend']}")
     if args.continuous:
-        res = serve_continuous(
-            args.arch, num_slots=args.num_slots,
-            num_requests=args.requests, prompt_len=args.prompt_len,
-            gen=args.gen, layers=args.layers, d_model=args.d_model,
-            pim=args.pim, pim_bits=args.pim_bits,
-            pim_emulate=args.pim_emulate,
-            pim_substrate=args.pim_substrate, plan_dir=args.plan_dir,
-            arrival_rate=args.arrival_rate, trace_file=args.trace_file,
-            seed=args.seed, sync_every=args.sync_every, mesh=args.mesh,
-            compile_cache_dir=args.compile_cache_dir,
-            metrics_json=args.metrics_json, stop_tokens=stop_tokens,
-            eos_token=args.eos_token, prefill_chunk=args.prefill_chunk,
-            prefix_cache=args.prefix_cache,
-            shared_prefix=args.shared_prefix, abft=args.abft,
-            inject_faults=args.inject_faults,
-            admission_policy=args.admission_policy,
-            chaos_check=args.chaos_check, device=args.device)
         if res.get("reliability"):
             rel = res["reliability"]
             print(f"[serve] reliability: {rel['injected_faults']} faults "
@@ -899,13 +985,6 @@ def main() -> None:
             f"; prefix cache: {res['prefix_cache']}"
             if res.get("prefix_cache") else ""))
     else:
-        res = serve(args.arch, args.batch, args.prompt_len, args.gen,
-                    args.layers, args.d_model, args.pim, args.pim_bits,
-                    args.pim_emulate, pim_substrate=args.pim_substrate,
-                    plan_dir=args.plan_dir, mesh=args.mesh,
-                    compile_cache_dir=args.compile_cache_dir,
-                    metrics_json=args.metrics_json, stop_tokens=stop_tokens,
-                    eos_token=args.eos_token, device=args.device)
         print(f"[serve] prefill {res['prefill_s']*1e3:.1f}ms, "
               f"decode {res['decode_s_per_token']*1e3:.1f}ms/tok")
         print(f"[serve] tokens:\n{res['generated']}")

@@ -1,8 +1,8 @@
 """Mixture-of-Experts FFN: top-k router + dropless expert FFNs
 (counterpart of ``repro/models/moe.py``).
 
-Two execution paths, chosen by the params themselves, as in the JAX
-package:
+Three execution paths, chosen by the params and the sharding context, as
+in the JAX package:
 
 * ``local`` — float expert stacks: the token-expert assignments sorted by
   expert, then one group of rows per expert through its up, gate and
@@ -15,11 +15,16 @@ package:
   stationary array through ``engine.matmul`` (up and gate broadcast, the
   down-projection paired), and the router weights apply at aggregation.
   On ``exact-cuda`` each expert's product is one launch of the PIM
-  matmul kernel.
-
-The reference's third path, expert parallelism over a mesh axis
-(``_moe_ep_body``), waits for the port's mesh slice (ROADMAP A11):
-``moe_apply`` has no mesh branch.
+  matmul kernel. Stacks split over a mesh (``engine.shard_plan``, kind
+  ``"expert"``) run each rank's experts and gather them chunk by chunk,
+  combined in the single-device order, so the layer's output is the
+  unsplit stacks' bit for bit.
+* ``ep`` — float stacks under a :class:`~repro_torch.distributed.
+  sharding.ShardingContext` whose ``model`` axis is above 1 and divides
+  E: every rank routes its tokens (split over the data axes where they
+  divide) against its own E / ep experts, with the reference's capacity
+  factor 1.25 and trash bucket, and an all-reduce over ``model`` sums the
+  contributions (:func:`_moe_ep_body`).
 
 Router as in qwen3-moe: softmax over all experts, top-k, renormalize;
 the Switch load-balance loss and the router z-loss go to ``aux``.
@@ -33,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pim import ExpertStackedPlan
+from repro_torch.distributed.sharding import DATA_AXES, current_context
 from repro_torch.engine import matmul as engine_matmul
+from repro_torch.engine import mesh as mesh_mod
 from repro_torch.models.layers import Params, dense_init, mlp_apply, mlp_init
 
 # The PIM route runs the experts in chunks whose (chunk, T, width) float32
@@ -146,16 +153,80 @@ def _moe_pim(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
     width = max(wi.dense.n, wo.dense.n)
     chunk = max(1, min(e, PIM_CHUNK_ELEMENTS // max(1, t * width)))
     out = torch.zeros((t, d), dtype=torch.float32, device=x2.device)
+    if wi.shard is not None:
+        _moe_pim_split(out, x2f, w, wi, wg, wo, chunk)
+        return out.to(x2.dtype)
     for lo in range(0, e, chunk):
         hi = min(e, lo + chunk)
-        h = engine_matmul(x2f, wi.experts(lo, hi))          # (C, T, F)
-        hidden = F.silu(engine_matmul(x2f, wg.experts(lo, hi))) * h
-        del h
-        y = engine_matmul(hidden, wo.experts(lo, hi), paired=True)
-        del hidden
-        _combine(out, w[:, lo:hi], y)
-        del y
+        _combine(out, w[:, lo:hi], _expert_chunk(x2f, wi, wg, wo, lo, hi))
     return out.to(x2.dtype)
+
+
+def _expert_chunk(x2f: torch.Tensor, wi: ExpertStackedPlan,
+                  wg: ExpertStackedPlan, wo: ExpertStackedPlan, lo: int,
+                  hi: int) -> torch.Tensor:
+    """Experts ``lo`` to ``hi - 1`` of the stacks (indices into the
+    experts they hold) on the whole batch: (C, T, D)."""
+    h = engine_matmul(x2f, wi.experts(lo, hi))              # (C, T, F)
+    hidden = F.silu(engine_matmul(x2f, wg.experts(lo, hi))) * h
+    del h
+    return engine_matmul(hidden, wo.experts(lo, hi), paired=True)
+
+
+def _moe_pim_split(out: torch.Tensor, x2f: torch.Tensor, w: torch.Tensor,
+                   wi: ExpertStackedPlan, wg: ExpertStackedPlan,
+                   wo: ExpertStackedPlan, chunk: int) -> None:
+    """:func:`_moe_pim`'s loop on stacks split over a mesh (each rank holds
+    E / ep experts), bit-identical to the unsplit loop.
+
+    The single-device chunks ``[lo, lo + chunk)`` are cut at the ranks'
+    expert blocks into pieces. In round j every rank computes its j-th
+    piece (per-expert math, so a piece's rows equal the same experts' rows
+    of the whole chunk) and an all-gather hands every rank every rank's
+    j-th piece. A chunk is combined once all its pieces have arrived, in
+    chunk order, as the single device combines it: the same (C, T, D)
+    tensor through the same einsum, added in the same order. Pieces that
+    arrive ahead of their chunk's turn wait (at prefill, the experts of the
+    ranks after the first: the combine's order costs that memory)."""
+    sh = wi.shard
+    if any(p.shard != sh for p in (wg, wo)):
+        raise ValueError("the up, gate and down expert stacks must be split "
+                         "alike (engine.shard_plan_tree splits them so)")
+    e = wi.num_experts
+    own = e // sh.size
+    local = [mesh_mod.local_experts(p) for p in (wi, wg, wo)]
+    bounds = [(lo, min(e, lo + chunk)) for lo in range(0, e, chunk)]
+    pieces = [[(c, max(lo, r * own), min(hi, (r + 1) * own))
+               for c, (lo, hi) in enumerate(bounds)
+               if max(lo, r * own) < min(hi, (r + 1) * own)]
+              for r in range(sh.size)]
+    waiting = {c: [] for c in range(len(bounds))}
+    turn = 0
+    for j in range(max(len(p) for p in pieces)):
+        width = max(hi - lo for p in pieces if j < len(p)
+                    for _, lo, hi in [p[j]])
+        mine = pieces[sh.index][j] if j < len(pieces[sh.index]) else None
+        if mine is None:
+            y = out.new_zeros((width,) + tuple(out.shape))
+        else:
+            base = sh.index * own
+            y = _expert_chunk(x2f, *local, mine[1] - base, mine[2] - base)
+            if y.shape[0] < width:
+                y = F.pad(y, (0, 0, 0, 0, 0, width - y.shape[0]))
+        for r, part in enumerate(mesh_mod.all_gather_list(y, sh.mesh,
+                                                          sh.axis)):
+            if j < len(pieces[r]):
+                c, lo, hi = pieces[r][j]
+                waiting[c].append((lo, part[:hi - lo]))
+        del y
+        while turn < len(bounds) and bounds[turn][1] - bounds[turn][0] \
+                == sum(p.shape[0] for _, p in waiting[turn]):
+            lo, hi = bounds[turn]
+            parts = sorted(waiting.pop(turn), key=lambda item: item[0])
+            _combine(out, w[:, lo:hi],
+                     torch.cat([p for _, p in parts]) if len(parts) > 1
+                     else parts[0][1])
+            turn += 1
 
 
 def _combine(out: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> None:
@@ -164,13 +235,78 @@ def _combine(out: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> None:
     out += torch.einsum("tc,ctd->td", w, y)
 
 
+def _moe_ep_body(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
+                 wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor, *,
+                 num_experts: int, shard: int,
+                 capacity_factor: float = 1.25) -> torch.Tensor:
+    """One rank's part of the expert-parallel route: ``wi`` / ``wg`` /
+    ``wo`` hold this rank's E / ep experts, the ``shard``-th block. Returns
+    its contribution (T, D), to be summed over the ``model`` axis.
+
+    As in the reference: assignments to other ranks' experts go to a
+    trailing trash bucket; after a stable sort by local expert only the
+    first ``cap = T·k / ep · capacity_factor`` rows can be local, and
+    assignments past ``cap`` drop (the standard capacity behaviour). The
+    kept rows run through their experts in float32, as :func:`_moe_local`
+    runs them, and each token's k slots are summed in slot order."""
+    e_local = wi.shape[0]
+    ep_size = num_experts // e_local
+    t, k = ids.shape
+    local = ids - shard * e_local
+    valid = (local >= 0) & (local < e_local)
+    flat_ids = torch.where(valid, local,
+                           torch.full_like(local, e_local)).reshape(-1)
+    order = torch.argsort(flat_ids, stable=True)
+    cap = max(1, min(t * k, int(t * k / ep_size * capacity_factor)))
+    keep = order[:cap]                       # local assignments sort first
+    counts = torch.bincount(flat_ids, minlength=e_local + 1)[:e_local]
+    cum = torch.clamp(torch.cumsum(counts, 0), max=cap).tolist()
+    group_sizes = [b - a for a, b in zip([0] + cum[:-1], cum)]
+    rows = cum[-1] if cum else 0
+    ys = torch.zeros((cap, x2.shape[1]), dtype=torch.float32,
+                     device=x2.device)
+    if rows:
+        xs = x2[keep[:rows] // k].to(torch.float32)
+        ys[:rows] = _expert_ffn_local(xs, group_sizes, wi.to(torch.float32),
+                                      wg.to(torch.float32),
+                                      wo.to(torch.float32))
+    wts = probs.reshape(-1)[keep] * valid.reshape(-1)[keep].to(torch.float32)
+    slots = torch.zeros((t * k, x2.shape[1]), dtype=torch.float32,
+                        device=x2.device)
+    slots[keep] = ys * wts[:, None]
+    return slots.reshape(t, k, -1).sum(dim=1).to(x2.dtype)
+
+
+def _moe_ep(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
+            wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor,
+            num_experts: int, mesh) -> torch.Tensor:
+    """The expert-parallel route over ``mesh``'s ``model`` axis: tokens
+    split over the data axes where they divide (else every rank takes
+    them all), this rank's block of experts, the contributions summed over
+    ``model`` and the token blocks gathered back."""
+    axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
+    split = bool(axes) and mesh.size(axes) > 1 and \
+        x2.shape[0] % mesh.size(axes) == 0
+    if split:
+        per = x2.shape[0] // mesh.size(axes)
+        rows = slice(mesh.index(axes) * per, (mesh.index(axes) + 1) * per)
+        x2, probs, ids = x2[rows], probs[rows], ids[rows]
+    own = num_experts // mesh.shape["model"]
+    mine = slice(mesh.coords["model"] * own, (mesh.coords["model"] + 1) * own)
+    out = _moe_ep_body(x2, probs, ids, wi[mine], wg[mine], wo[mine],
+                       num_experts=num_experts, shard=mesh.coords["model"])
+    out = mesh_mod.all_reduce(out, mesh, "model")
+    return mesh_mod.all_gather(out, mesh, axes, dim=0) if split else out
+
+
 def moe_apply(p: Params, x: torch.Tensor, experts_per_token: int,
               aux: Optional[dict] = None) -> torch.Tensor:
-    """MoE FFN. x: (B, S, D) -> (B, S, D). The route follows the params:
-    programmed expert stacks run on the engine, float stacks the local
-    grouped route. The router losses are added to ``aux``'s
-    ``moe_lb_loss`` and ``moe_z_loss`` when it is given. There is no
-    expert-parallel (mesh) branch yet (ROADMAP A11)."""
+    """MoE FFN. x: (B, S, D) -> (B, S, D). The route follows the params
+    and the sharding context: programmed expert stacks run on the engine;
+    float stacks run the expert-parallel route under a context whose
+    ``model`` axis is above 1 and divides E, else the local grouped route.
+    The router losses are added to ``aux``'s ``moe_lb_loss`` and
+    ``moe_z_loss`` when it is given."""
     b, s, d = x.shape
     wi_edf = p["wi_edf"]
     pim_experts = isinstance(wi_edf, ExpertStackedPlan)
@@ -180,8 +316,14 @@ def moe_apply(p: Params, x: torch.Tensor, experts_per_token: int,
     if aux is not None:
         aux["moe_lb_loss"] = aux.get("moe_lb_loss", 0.0) + lb
         aux["moe_z_loss"] = aux.get("moe_z_loss", 0.0) + z
+    ctx = current_context()
     if pim_experts:
         out2 = _moe_pim(x2, probs, ids, wi_edf, p["wg_edf"], p["wo_efd"])
+    elif ctx is not None and "model" in ctx.mesh.axis_names and \
+            ctx.mesh.shape["model"] > 1 and \
+            num_experts % ctx.mesh.shape["model"] == 0:
+        out2 = _moe_ep(x2, probs, ids, wi_edf, p["wg_edf"], p["wo_efd"],
+                       num_experts, ctx.mesh)
     else:
         out2 = _moe_local(x2, probs, ids, wi_edf, p["wg_edf"], p["wo_efd"],
                           num_experts)

@@ -64,8 +64,14 @@ distinct step-input shape signatures run (prefill and chunk calls,
 single steps and windows, inserts), and ``fallback_traces`` those of the
 fallback replays (warm-up included): the counterpart of the JAX engine's
 compile-once counters; on fixed slot geometry each stays 1 (decode, 2
-with windows). Out of scope, and raising: ``mesh=`` (ROADMAP A11) and
-``sanitizer=`` (A13).
+with windows). Out of scope, and raising: ``sanitizer=`` (ROADMAP A13).
+
+Meshes (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh`): every rank
+runs the engine over params whose plans are split over the mesh
+(:mod:`repro_torch.engine.mesh`), and each split matmul hands every rank
+the whole output, so the engine's verbs are unchanged. Each rank holds the
+whole slot cache; the JAX engine places the cache's slot axis over the
+data axes, which is placement only.
 """
 from __future__ import annotations
 
@@ -164,11 +170,7 @@ class PrefillTask:
         return self.prefix is not None
 
 
-def _not_ported(mesh, sanitizer) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "ServingEngine(mesh=): sharded serving is not ported yet "
-            "(ROADMAP A11)")
+def _not_ported(sanitizer) -> None:
     if sanitizer is not None:
         raise NotImplementedError(
             "ServingEngine(sanitizer=): the runtime sanitizers are not "
@@ -183,6 +185,8 @@ class ServingEngine:
     :class:`~repro_torch.reliability.ReliabilityManager`) arms
     ABFT-verified serving with retry on its fallback, repair and
     degraded mode; the engine then serves ``reliability.serving_params()``.
+    ``mesh`` is the mesh the params' plans were split over (recorded; the
+    split plans carry it themselves).
     """
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
@@ -193,7 +197,7 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache_capacity: int = 0,
                  mesh=None, sanitizer=None, reliability=None):
-        _not_ported(mesh, sanitizer)
+        _not_ported(sanitizer)
         slots_mod.check_slot_compatible(cfg)
         if prompt_pad > max_len:
             raise ValueError(f"prompt_pad={prompt_pad} exceeds "
@@ -206,6 +210,7 @@ class ServingEngine:
             prefill_chunk = min(prefill_chunk, prompt_pad)
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
         self.num_slots = num_slots
         self.prompt_pad = prompt_pad
         self.max_len = max_len

@@ -180,8 +180,9 @@ class ContinuousScheduler:
     the step shapes stay fixed (the JAX engine's compile-once counters).
     ``reliability=`` (a :class:`~repro_torch.reliability.
     ReliabilityManager`) passes to the engine, and the run's metrics gain
-    its ``reliability`` section. Out of scope, and raising in the engine:
-    ``mesh=`` (ROADMAP A11) and ``sanitizer=`` (A13).
+    its ``reliability`` section. ``mesh=`` passes to the engine (the
+    params' plans split over it). Out of scope, and raising in the
+    engine: ``sanitizer=`` (ROADMAP A13).
     """
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,

@@ -296,10 +296,15 @@ def test_shard_stamps_restore_unsharded_with_a_warning(port_saved,
 
 
 def test_mesh_and_verify_raise_their_items(port_saved, tmp_path):
-    """``mesh=`` still raises naming A11; A9 is ported, so a spec whose
-    plan has verify on loads in both packages, its config as saved."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine.load_plans(port_saved["cnn"][0], mesh=object())
+    """A11 and A9 are ported: ``mesh=`` re-places a directory on a mesh
+    (here one rank, so nothing splits and every plan restores whole; the
+    splits are ``tests/test_torch_mesh.py``'s), and a spec whose plan has
+    verify on loads in both packages, its config as saved."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    plans, _, _ = engine.load_plans(port_saved["cnn"][0],
+                                    mesh=make_serve_mesh("1,1", "cpu"))
+    assert isinstance(plans["pw0"], pim.DensePlan)
+    assert plans["pw0"].shard is None
 
     def verify(spec):
         spec["items"]["pw0"]["cfg"]["verify"] = "sample"

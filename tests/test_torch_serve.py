@@ -92,10 +92,20 @@ def test_opima_lm_estimate_equals_jax(bits):
     (True, {"chaos_check": True}, "A9"),
     (True, {"sanitize": True}, "A13")])
 def test_unported_serve_options_raise(continuous, kwargs, item, tmp_path):
-    """Options of later items raise naming them; A9's options are ported
-    and run (with JAX's guards)."""
+    """Options of later items raise naming them; A9's and A11's options
+    are ported and run (A9 with JAX's guards; a one-rank ``mesh="1,1"``
+    in this process, and a mesh of more ranks than the run has raises
+    naming the launch command)."""
     if item == "A9":
         _reliability_option_runs(kwargs, tmp_path)
+        return
+    if item == "A11":
+        run = t_serve.serve_continuous if continuous else t_serve.serve
+        small = dict(layers=1, d_model=32) if continuous else SMALL
+        res = run("qwen2.5-3b", device="cpu", **small, **kwargs)
+        assert (res["mesh"], res["mesh_ranks"]) == ("1,1", 1)
+        with pytest.raises(ValueError, match="torchrun"):
+            run("qwen2.5-3b", device="cpu", **small, mesh="1,2")
         return
     if continuous:
         with pytest.raises(NotImplementedError, match=item):
@@ -184,7 +194,10 @@ def test_cli_static_and_continuous(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "[serve] reliability: 3 faults injected" in res.stdout
     assert "chaos check passed" in res.stdout
-    for flag, item in ((["--sanitize"], "A13"), (["--mesh", "1,1"], "A11")):
+    # --mesh is ported (A11): a mesh of more ranks than the run has names
+    # the launch command
+    for flag, item in ((["--sanitize"], "A13"),
+                       (["--mesh", "1,2"], "torchrun --standalone")):
         res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen2.5-3b",
                     "--continuous", "--device", "cpu", *flag])
         assert res.returncode != 0 and item in res.stderr, flag
@@ -226,7 +239,9 @@ NEW_MODULES = (
     "repro_torch.data.pipeline", "repro_torch.tree",
     "repro_torch.engine.persist", "repro_torch.serving.engine",
     "repro_torch.serving.prefix", "repro_torch.serving.scheduler",
-    "repro_torch.serving.slots", "repro_torch.serving.stream")
+    "repro_torch.serving.slots", "repro_torch.serving.stream",
+    "repro_torch.distributed.sharding", "repro_torch.engine.mesh",
+    "repro_torch.launch.mesh")
 
 
 def test_port_and_chip_smoke_import_no_jax():

@@ -499,10 +499,16 @@ def test_serve_static_stop_reason_metrics_json(tmp_path):
                                      ({"sanitizer": object()}, "A13"),
                                      ({"reliability": True}, "A9")])
 def test_engine_options_of_later_items_raise(kw, item):
-    """``mesh=`` and ``sanitizer=`` raise naming their items; A9 is
-    ported, so ``reliability=`` takes a manager and the engine serves its
-    params, with the fallback replays' signatures counted."""
+    """``sanitizer=`` raises naming its item; A9 and A11 are ported, so
+    ``reliability=`` takes a manager and the engine serves its params,
+    with the fallback replays' signatures counted, and ``mesh=`` is
+    recorded (the params' plans carry their splits)."""
     cfg, params = _params()
+    if item == "A11":
+        eng = ServingEngine(params, cfg, num_slots=1, prompt_pad=4,
+                            max_len=8, **kw)
+        assert eng.mesh is kw["mesh"]
+        return
     if item == "A9":
         from repro_torch.reliability import ReliabilityManager
         man = ReliabilityManager(params)

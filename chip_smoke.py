@@ -108,7 +108,7 @@ package. Phases, each of which raises on failure:
     steps' logits on ``exact-cuda`` bit-identical to ``exact-torch``;
     then ``repro_torch.launch.serve``'s programming, which programs each
     layer at w4a4 on ``exact-cuda`` as it is drawn (the float32 expert
-    stacks never exist at once), of ``MOE_SERVE_LAYERS`` (12) of its 48
+    stacks never exist at once), of ``MOE_SERVE_LAYERS`` (6) of its 48
     layers, and the static loop (batch 8, prompt 512, 16 new tokens): 199
     PIM launches per layer
     and forward step (4 attention, 3 shared, 3 x 64 expert), all on the
@@ -130,7 +130,7 @@ package. Phases, each of which raises on failure:
     step); the set-up's parts timed (digest, programming, save, sha256);
 14. continuous batching: ``serve_continuous(qwen3-4b, ...)`` through the
     same directory (its set-up restores the plans: digest, load and the
-    load's sha256 share timed) with 8 slots and 32 Poisson requests at
+    load's sha256 share timed) with 8 slots and 8 Poisson requests at
     0.5 per step (seed 0), prompts 128-512, 4-16 new tokens: launches by
     route (whole prefill on the wgmma route, decode at M = 8 on the
     small-M route, none other), tokens/s, TTFT and latency percentiles
@@ -178,11 +178,11 @@ package. Phases, each of which raises on failure:
     slots: each rank's 36 x 7 projections split 5 by columns (B1 on each
     rank's half of N) and 2 by rows (B2 on each rank's half of K, the
     int32 partials all-reduced before the dequant), 180 B1 and 72 B2
-    launches per prefill and per decode step, the 32 token streams equal
+    launches per prefill and per decode step, the 8 token streams equal
     phase 14's bit for bit; prefill ms per request, decode ms per step
     and tokens/s beside single-device and each rank's resident and peak
     memory from that run; then a second, instrumented run of the trace's
-    first 8 requests for the collectives' time and the row split's K-block
+    first 4 requests for the collectives' time and the row split's K-block
     copies;
     each split at kernel level at qwen3-4b's shapes (M = 512 and 8) equal
     to the unsplit plan and B2 to its plain version; moonshot-v1-16b-a3b
@@ -223,7 +223,20 @@ package. Phases, each of which raises on failure:
     other kernel), one step with int8 gradient compression, and a profile
     of one step by stage;
 20. checkpoint and restart on the card at a reduced gemma3-1b: a run
-    resumed from a step-6 checkpoint against the unbroken run.
+    resumed from a step-6 checkpoint against the unbroken run;
+21. sharded training (after the single-device references, freed): two
+    ranks spawned on the one card over gloo, each training gemma3-1b at
+    full width on a 1x2 mesh (``make_train_step(..., mesh=)``: each rank's
+    2 query heads on the 1 KV head, the FFN hidden and the vocab split)
+    and at 2 layers on a 2x1 data-parallel mesh: the sharded loss and
+    gradient norm on one state within ``TRAIN_LOSS_REL`` /
+    ``TRAIN_GNORM_REL`` of the single-device ones, the gathered gradient's
+    largest leaf gap within ``TRAIN_LEAF_GAP_REL`` (with the control that
+    the check sees a lost half-block), a warm-up and ``TRAIN_STEPS`` steps
+    held likewise step by step, the replicated leaves equal across the
+    ranks, 26 launches of each flash kernel per rank and step at 2 query
+    heads on 1 KV head; per rank the step time, the collectives per step
+    by kind and their share of a synced step, peak and resident memory.
 
 Each path's launch counts are set to 0 just before its requests and read
 just after (B1's also by route, held to what the route chooser gives the
@@ -401,7 +414,7 @@ FLASH_DELTA_RTOL = 1e-6
 FLASH_F64_REL = 1e-5
 # The training path: gemma3-1b at full width (26 layers, d_model 1152,
 # vocab 262144), float32 parameters, AdamW, batch 2 x 2048 tokens.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 2
 GEMMA_FLASH = {"local": (TRAIN_BATCH, TRAIN_SEQ, 4, 1, 256, True, 512, 0),
                "global": (TRAIN_BATCH, TRAIN_SEQ, 4, 1, 256, True, 0, 0)}
 # End to end, the "cuda" route against the "jnp" route on one parameter
@@ -2144,9 +2157,10 @@ MOONSHOT = "moonshot-v1-16b-a3b"
 MOE_EXACT_LAYERS = 2
 # the served request's depth (of 48): each layer is identical in shape, so
 # B1's per-launch rows and the launches per layer do not depend on it; the
-# cut keeps the run within its time limit beside the mesh phase (the
-# 48-layer fit, 60.4 GB resident, is in PERF.md)
-MOE_SERVE_LAYERS = 12
+# cut keeps the run within its time limit beside the mesh and the
+# sharded-training phases (12 until the latter came; the 48-layer fit,
+# 60.4 GB resident, is in PERF.md)
+MOE_SERVE_LAYERS = 6
 # moonshot's B1 (K, N) as the plans pad them: attention, shared-expert
 # up/gate and down (K 2816 -> 3072), expert up/gate and down (K 1408 ->
 # 1536); every one at the prefill's and the decode step's M
@@ -2492,7 +2506,9 @@ def moonshot_path(torch, dev, mods, counters):
 QWEN3 = "qwen3-4b"
 # the continuous path: slots, a Poisson trace (prompts 128-512, 4-16 new
 # tokens: serve_continuous's quarter-to-full ranges) and its variants
-CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 32, 0.5
+# (8 requests since the sharded-training phase came, 32 before: the
+# continuous, ABFT and mesh runs each serve the whole trace, host-bound)
+CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 8, 0.5
 CONT_CHUNK, CONT_PREFIX_CACHE, CONT_SHARED_PREFIX = 64, 16, 128
 CONT_WINDOW = 4            # sync_every of the fused-window variant
 CONT_VARIANT_REQUESTS = 6  # the trace's first requests, for variants
@@ -2697,7 +2713,7 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
     """(g) ``serve_continuous(qwen3-4b, ...)`` at full width through the
     plans (f) saved: the entry point draws the weights for their digest
     and restores the plans (set-up timed, with the sha256 time of the
-    load's reader threads), then serves 8 slots with 32 Poisson requests at 0.5
+    load's reader threads), then serves 8 slots with 8 Poisson requests at 0.5
     per step (seed 0), prompts 128-512, 4-16 new tokens: B1 launches by
     route (whole prefill on the wgmma route, decode at M = 8 on the
     small-M route), tokens/s, TTFT and latency percentiles, prefill ms
@@ -2935,7 +2951,7 @@ def qwen3_reliability_phase(torch, dev, mods, counters, cfg, params, base,
                             cont, smi):
     """(h) ABFT-verified continuous serving at full width: the restored
     plans (g) programmed once more with ``verify="always"``, then the
-    continuous trace of (g) (8 slots, 32 Poisson requests at 0.5 per step,
+    continuous trace of (g) (8 slots, 8 Poisson requests at 0.5 per step,
     seed 0) through ``ContinuousScheduler(..., reliability=)``: verify off,
     ``sample`` and ``always`` on clean plans, then ``always`` under
     REL_FAULTS (the default policy: repair after one strike, degrade
@@ -3309,7 +3325,8 @@ def reliability_checks(torch, dev, mods):
 MESH_SPEC, MESH_RANKS = "1,2", 2
 MESH_EXACT_LAYERS = 2     # moonshot's expert split and the stamped directory
 MESH_TIMEOUT_S = 900      # both ranks' whole run, set-up included
-MESH_TRACED = 8           # requests of the instrumented second run
+MESH_TRACED = 4           # requests of the instrumented second run (8
+                          # until the sharded-training phase came)
 # per layer and forward step: q, k, v, gate, up split by columns (B1), o and
 # down by rows (B2)
 MESH_COL, MESH_ROW = 5, 2
@@ -4518,6 +4535,323 @@ def restart_phase(train):
     return {"resumed": resumed, "straight": straight, "gap": gap}
 
 
+# ---------------------------------------------------------------------------
+# Sharded training: gemma3-1b on meshes of two ranks sharing the card
+# ---------------------------------------------------------------------------
+# (spec, layers): the 1x2 tensor-parallel mesh at full depth, the 2x1
+# data-parallel mesh at 2 layers (None = all 26)
+TRAIN_MESHES = (("1,2", None), ("2,1", 2))
+TRAIN_MESH_TIMEOUT_S = 600    # both ranks' whole run, set-up included
+TRAIN_OPT = dict(lr=3e-4, total_steps=100, warmup_steps=5)
+# the leaf whose gathered gradient the control cuts in half (a lost block)
+TRAIN_MESH_CONTROL = "d:'layers'/d:'attn'/d:'wq_dh'"
+
+
+def gemma_train_cfg(mods, layers=None):
+    import dataclasses
+    cfg = dataclasses.replace(mods["configs"].get_config("gemma3-1b"),
+                              attn_backend="cuda")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def gemma_batches(mods, cfg, dev, n):
+    from repro_torch.data.pipeline import DataConfig, LMDataIterator
+    it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH), cfg)
+    return [mods["train"].batch_to_device(next(it), dev) for _ in range(n)]
+
+
+def train_reference(torch, dev, mods, cfg, path):
+    """The single-device numbers a mesh run is held to: the loss, gradient
+    norm and gradient (saved to ``path``, leaf by leaf on the host) of the
+    state drawn from seed 0 on the first batch, then a warm-up step and
+    TRAIN_STEPS steps (loss, gradient norm each) from that state."""
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    train, tree = mods["train"], mods["tree"]
+    batches = gemma_batches(mods, cfg, dev, 1 + TRAIN_STEPS)
+    params = mods["lm"].init_lm(cfg, 0, device=dev)
+    loss, _, grads = train.loss_and_grads(params, cfg, batches[0])
+    ref = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+           "grads": str(path)}
+    torch.save({"/".join(p): g.cpu()
+                for p, g in tree.flatten_with_path(grads)}, path)
+    del params, grads
+    state = train.init_state(cfg, 0, device=dev)
+    step_fn = train.make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    ref["steps"] = []
+    for batch in batches:
+        state, m = step_fn(state, batch)
+        ref["steps"].append([m["loss"].item(), m["grad_norm"].item()])
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def train_mesh_rank(rank, world, init_file, task_file, out_file):
+    """One rank of the sharded-training phase (the target of a spawned
+    process): joins the gloo group on the shared card and trains each mesh
+    of TRAIN_MESHES; writes its numbers to ``out_file``; a failure raises
+    (the process exits non-zero)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, tree
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.flash_attention import flash_attention as fkern
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    # as in the parent: the float matmuls in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = {"configs": configs, "tree": tree, "coll": coll, "lm": lm,
+            "fkern": fkern, "fops": fops, "train": train}
+    task = json.loads(Path(task_file).read_text())
+    backend = launch_mesh.init_distributed("cuda", f"file://{init_file}",
+                                           rank, world)
+    try:
+        runs = {}
+        for spec, layers in TRAIN_MESHES:
+            mesh = launch_mesh.make_mesh(spec, "cuda",
+                                         module="repro_torch.launch.train")
+            runs[spec] = train_mesh_run(torch, mods, mesh,
+                                        gemma_train_cfg(mods, layers),
+                                        task[spec])
+        Path(out_file).write_text(json.dumps(
+            {"rank": rank, "device": str(mesh.device), "backend": backend,
+             "runs": runs}))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh_run(torch, mods, mesh, cfg, ref):
+    """This rank's part of one mesh: the sharded loss and gradient on the
+    first batch (the gradient gathered and, on rank 0, held leaf by leaf
+    to the single-device one, with the control), then a warm-up step and
+    TRAIN_STEPS timed steps through ``make_train_step(..., mesh=)`` (the
+    last one with synced collectives, for their time), launch counts and
+    the query/KV heads of every flash launch, memory, the replicated
+    leaves' digests."""
+    import hashlib
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    train, tree, coll = mods["train"], mods["tree"], mods["coll"]
+    fkern, fops = mods["fkern"], mods["fops"]
+    dev = mesh.device
+    batches = gemma_batches(mods, cfg, dev, 1 + TRAIN_STEPS)
+    state = train.init_state(cfg, 0, device=dev, mesh=mesh)
+    template = train.param_template(cfg)
+    heads = Counter()
+    real = fops.flash_attention_cuda
+
+    def recorded(q, k, v, *args):
+        heads[f"{q.shape[2]}x{k.shape[2]}"] += 1
+        return real(q, k, v, *args)
+
+    grads_fn = train.sharded_loss_and_grads(cfg, mesh)
+    reset_counts(fkern)
+    with patched((fops, "flash_attention_cuda", recorded)):
+        loss, _, grads = grads_fn(state["params"], batches[0])
+    out = {"loss": loss.item(),
+           "grad_norm": global_norm(grads, grads_fn.splits).item(),
+           "grad_launches": read_counts(fkern), "grad_heads": dict(heads)}
+    whole = train.gather_state(grads, mesh, template)
+    del grads
+    if mesh.rank == 0:
+        out.update(leaf_gaps(torch, tree, whole, ref["grads"], dev))
+    del whole
+    torch.cuda.empty_cache()
+
+    step_fn = train.make_train_step(cfg, AdamWConfig(**TRAIN_OPT), mesh=mesh)
+    state, m = step_fn(state, batches[0])                 # warm-up
+    steps = [[m["loss"].item(), m["grad_norm"].item()]]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(fkern)
+    coll.reset_collectives()
+    heads.clear()
+    step_s, coll_s = [], Counter()
+    real_run = coll._run
+
+    def synced(kind, t, fn):
+        """A collective bracketed by device syncs, its host time kept."""
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real_run(kind, t, fn)
+        torch.cuda.synchronize(dev)
+        coll_s[kind] += time.perf_counter() - t0
+        return out
+
+    for i, batch in enumerate(batches[1:]):
+        last = i == TRAIN_STEPS - 1     # the last step: synced collectives
+        with patched((fops, "flash_attention_cuda", recorded),
+                     *([(coll, "_run", synced)] if last else [])):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        steps.append([m["loss"].item(), m["grad_norm"].item()])
+    split = dict(zip(("/".join(p) for p, _ in
+                      tree.flatten_with_path(template)),
+                     grads_fn.splits.split))
+    out.update({
+        "steps": steps, "step_s": step_s, "launches": read_counts(fkern),
+        "heads": dict(heads), "collectives": dict(coll.COLLECTIVES),
+        "collective_s": dict(coll_s),
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "resident_bytes": torch.cuda.memory_allocated(dev),
+        "split_leaves": sum(split.values()), "leaves": len(split),
+        "replicated": {
+            "/".join(p): hashlib.sha256(
+                t.detach().cpu().contiguous().view(torch.uint8).numpy()
+            ).hexdigest()
+            for p, t in tree.flatten_with_path(state["params"])
+            if not split["/".join(p)]}})
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_gaps(torch, tree, whole, ref_file, dev):
+    """The largest per-leaf gap of the gathered gradient ``whole`` to the
+    single-device one in ``ref_file`` (over that leaf's largest
+    magnitude), its leaf, and the control: the gap when one leaf's last
+    half-block is lost."""
+    refs = torch.load(ref_file, mmap=True, weights_only=True)
+    gaps, control = {}, None
+    for path, g in tree.flatten_with_path(whole):
+        name = "/".join(path)
+        want = refs[name].to(dev)
+        top = want.abs().max().clamp_min(1e-30)
+        gaps[name] = ((g - want).abs().max() / top).item()
+        if name == TRAIN_MESH_CONTROL:
+            lost = g.clone()
+            lost[..., lost.shape[-1] // 2:] = 0
+            control = ((lost - want).abs().max() / top).item()
+    return {"max_leaf_gap": max(gaps.values()),
+            "worst_leaf": max(gaps, key=gaps.get), "control_gap": control}
+
+
+def train_mesh_phase(torch, dev, mods, smi):
+    """Sharded training on the card: the single-device references first
+    (full-width gemma3-1b for the 1x2 mesh, 2 layers for the 2x1), freed,
+    then two ranks spawned on the one card over gloo, each training both
+    meshes (:func:`train_mesh_rank`); their numbers held to the
+    references."""
+    import multiprocessing
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="train_mesh_"))
+    t0 = time.perf_counter()
+    try:
+        task = {spec: train_reference(
+            torch, dev, mods, gemma_train_cfg(mods, layers),
+            work / f"grads_{spec.replace(',', 'x')}.pt")
+            for spec, layers in TRAIN_MESHES}
+        ref_s = time.perf_counter() - t0
+        (work / "task.json").write_text(json.dumps(task))
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=train_mesh_rank, args=(
+            r, MESH_RANKS, str(work / "init"), str(work / "task.json"),
+            str(work / f"rank{r}.json"))) for r in range(MESH_RANKS)]
+        t1 = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + TRAIN_MESH_TIMEOUT_S
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"training mesh ranks exited with {codes} "
+                                 "(a rank that failed prints its traceback "
+                                 "above)")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": smi, "reference_s": ref_s,
+           "ranks_s": time.perf_counter() - t1, "references": task,
+           "ranks": ranks}
+    for spec, layers in TRAIN_MESHES:
+        check_train_mesh(spec, layers or mods["configs"].get_config(
+            "gemma3-1b").num_layers, task[spec], [r["runs"][spec]
+                                                  for r in ranks], smi)
+    return out
+
+
+def check_train_mesh(spec, layers, ref, runs, smi):
+    """Hold one mesh's ranks to the single-device reference and log their
+    numbers: loss and gradient norm (the gradient pass and every step),
+    the gathered gradient's largest leaf gap (rank 0) with its control,
+    the replicated leaves equal across ranks, each flash kernel once per
+    layer and pass at the expected query/KV heads."""
+    dp, tp = map(int, spec.split(","))
+    want_heads = {f"{4 // tp}x1": layers}
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for r, run in enumerate(runs):
+        pairs = [(run["loss"], ref["loss"], TRAIN_LOSS_REL),
+                 (run["grad_norm"], ref["grad_norm"], TRAIN_GNORM_REL)]
+        for (loss, gnorm), (loss_1, gnorm_1) in zip(run["steps"],
+                                                     ref["steps"]):
+            pairs += [(loss, loss_1, TRAIN_LOSS_REL),
+                      (gnorm, gnorm_1, TRAIN_GNORM_REL)]
+        bad = [(a, b, lim) for a, b, lim in pairs if rel(a, b) > lim]
+        launches = {k: run["launches"][k] for k in FLASH_KERNELS}
+        if bad or len(run["steps"]) != len(ref["steps"]) or any(
+                v != layers * TRAIN_STEPS for v in launches.values()) or \
+                any(run["grad_launches"][k] != layers
+                    for k in FLASH_KERNELS) or \
+                run["grad_heads"] != want_heads or run["heads"] != {
+                    k: v * TRAIN_STEPS for k, v in want_heads.items()}:
+            raise AssertionError(
+                f"mesh {spec} rank {r}: {bad} beyond their limits, launches "
+                f"{launches} (grad pass {run['grad_launches']}), heads "
+                f"{run['heads']} (expected {want_heads} per step)")
+    first = runs[0]
+    if not first["max_leaf_gap"] <= TRAIN_LEAF_GAP_REL or \
+            not first["control_gap"] > TRAIN_LEAF_GAP_REL:
+        raise AssertionError(
+            f"mesh {spec}: largest gathered-gradient leaf gap "
+            f"{first['max_leaf_gap']} ({first['worst_leaf']}; limit "
+            f"{TRAIN_LEAF_GAP_REL}), control {first['control_gap']}")
+    if any(run["replicated"] != first["replicated"] for run in runs):
+        raise AssertionError(f"mesh {spec}: replicated leaves differ "
+                             "across ranks")
+    for r, run in enumerate(runs):
+        per_step = {k: v // TRAIN_STEPS for k, v in run["collectives"].items()}
+        synced = run["step_s"][-1]
+        coll_s = sum(run["collective_s"].values())
+        log(f"training mesh {spec} rank {r} (gemma3-1b, {layers} layers, "
+            f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, gloo on one card; {smi}): "
+            f"step {', '.join(f'{t * 1e3:.1f}' for t in run['step_s'][:-1])}"
+            f" ms, the last with synced collectives {synced * 1e3:.1f} ms "
+            f"of which collectives {coll_s * 1e3:.1f} ms "
+            f"({coll_s / synced:.1%}); collectives per step {per_step}; "
+            f"peak {run['peak_bytes'] / 2 ** 30:.3f} GiB, resident "
+            f"{run['resident_bytes'] / 2 ** 30:.3f} GiB; "
+            f"{run['split_leaves']} of {run['leaves']} leaves split; "
+            f"flash launches per step {layers} each at heads "
+            f"{run['grad_heads']}")
+    peaks = sum(run["peak_bytes"] for run in runs)
+    log(f"training mesh {spec}: loss {first['loss']:.7f} vs one device "
+        f"{ref['loss']:.7f}, gradient norm {first['grad_norm']:.7g} vs "
+        f"{ref['grad_norm']:.7g}, largest gathered-gradient leaf gap "
+        f"{first['max_leaf_gap']:.3g} ({first['worst_leaf']}; control, a "
+        f"lost half-block: {first['control_gap']:.3g}); step losses "
+        + ", ".join(f"{a[0]:.5f}/{b[0]:.5f}" for a, b in
+                    zip(first["steps"], ref["steps"]))
+        + f" (mesh/one device); replicated leaves equal across ranks; sum "
+        f"of the ranks' peaks {peaks / 2 ** 30:.3f} GiB of the card's 80")
+
+
 def flash_entries(rows, windows, launches, err):
     """The four flash kernels' lines: one training step's launches (each
     kernel once per layer), each priced at its window's shape, with the
@@ -4663,6 +4997,10 @@ def main() -> int:
     log(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, one process per "
         "source)")
     sass = sass_check(runtime)
+    marks = [("build", time.perf_counter())]   # each phase's end
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
 
     err = kernel_phase(torch, dev, kern, ref)
     analog_err, noisy, adc_rows = analog_kernel_phase(torch, dev, akern,
@@ -4670,6 +5008,7 @@ def main() -> int:
     err.update(analog_err)
     ssd_err, ssd_rows = ssd_kernel_phase(torch, dev, skern, sref)
     flash_err, flash_rows = flash_kernel_phase(torch, dev, fkern, fref)
+    mark("kernel phases")
     counters = (kern, akern, skern, fkern)
     model = build_model(torch, dev, cnn, workloads, pipeline)
     path, run_request, exact_logits = main_path(torch, model, cnn, pim,
@@ -4693,6 +5032,7 @@ def main() -> int:
                                  capture_analog_inputs(aops, run_analog))
     kernels += analog_entries(arows, apath, err)
     studies = study_phase(table2)
+    mark("cnn paths and studies")
 
     mods = {"lm": lm, "serve": serve_mod, "pim": pim, "configs": configs,
             "attention": attention, "ssm": ssm, "ssd_kern": sops,
@@ -4723,8 +5063,10 @@ def main() -> int:
              "(torch._int_mm takes M > 16); yardstick_ms sums the "
              "mma.sync yardstick over the prefill shapes only")))
     kernels.append(ssd_entry(hymba, ssd_err))
+    mark("hymba")
     entry = serve_entry_phase(torch, serve_mod, configs, counters)
     mamba2 = mamba2_path(torch, dev, mods, counters)
+    mark("serve entry and mamba2")
     mods["moe"] = moe
     moonshot = moonshot_path(torch, dev, mods, counters)
     moe_err = lm_kernel_checks(torch, dev, kern, ref, moonshot["shapes"])
@@ -4749,6 +5091,7 @@ def main() -> int:
              f"{b1['decode_tiled_ms']:.3f} ms, bound "
              f"{b1['decode_bound_ms']:.3f} ms); library_ms covers the "
              "prefill shapes (torch._int_mm takes M > 16)")))
+    mark("moonshot")
     mods.update({"serving": serving, "engine": engine, "ckpt": ckpt,
                  "reliability": reliability, "analog_kern": akern})
     qwen3, qwen3_cont, qwen3_rel = qwen3_phases(torch, dev, mods, counters,
@@ -4777,13 +5120,21 @@ def main() -> int:
     rel_rows = rowsum_rows(torch, dev, kern, ref, qwen3_rel["shapes"])
     kernels.append(rowsum_entry(rel_rows, qwen3_rel, smi))
     rel_checks = reliability_checks(torch, dev, mods)
+    mark("qwen3 and reliability")
     mesh = mesh_phase(torch, dev, mods, qwen3_cont, smi)
     kernels += mesh_entries(mesh)
+    mark("mesh")
     mods.update({"train": train, "flash_kern": fkern, "tree": tree})
     training = train_path(torch, dev, mods, counters)
     kernels += flash_entries(flash_rows, training["config"]["windows"],
                              training["launches"], flash_err)
     restart = restart_phase(train)
+    mark("training and restart")
+    train_mesh = train_mesh_phase(torch, dev, mods, smi)
+    mark("training mesh")
+    phase_s = {name: round(t - prev, 1) for (name, t), (_, prev) in
+               zip(marks, [("start", t_start)] + marks[:-1])}
+    log(f"phase seconds: {phase_s}")
     log(f"command time after the card query: "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -4808,7 +5159,9 @@ def main() -> int:
              "rowsum_shapes": rel_rows, "reliability_checks": rel_checks,
              "mesh": mesh,
              "flash_shapes": flash_rows, "train": training,
-             "restart": restart, "kernels": kernels},
+             "restart": restart, "train_mesh": train_mesh,
+             "phase_s": phase_s,
+             "kernels": kernels},
             indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

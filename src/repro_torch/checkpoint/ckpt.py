@@ -14,6 +14,14 @@ replaced last, so a crash mid-write leaves the previous checkpoint the
 latest. Leaves are gathered to the host and restored onto the template
 leaf's device and dtype. The structure fingerprint renders each leaf's
 key path as the JAX package does (:mod:`repro_torch.tree`).
+
+On a mesh (sharded training: ``mesh=`` and the global tree's ``specs``,
+``launch.train.tree_specs``) every rank calls the save: each split leaf
+is gathered (a collective per leaf), and rank 0 writes the global leaves,
+so the files are a single-device run's and cross to the JAX package as
+they do. A failed write raises on every rank (:func:`write_on_rank0`).
+A restore onto a mesh reads the global leaves and keeps each rank's
+slices.
 """
 from __future__ import annotations
 
@@ -30,7 +38,10 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import split_dims
 from repro_torch.tree import flatten_with_path, leaves, unflatten_like
 
 PyTree = Any
@@ -72,11 +83,78 @@ def _to_numpy(x: torch.Tensor) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _gathered(x: torch.Tensor, spec, mesh) -> Tuple[np.ndarray, str]:
+    for d, axes in split_dims(mesh, spec):
+        x = coll.all_gather(x, mesh, axes, d)
+    return _to_numpy(x)
+
+
 def save_checkpoint(directory: str, step: int, tree: PyTree,
-                    extras: Optional[Dict[str, Any]] = None) -> str:
-    return write_checkpoint(
+                    extras: Optional[Dict[str, Any]] = None, mesh=None,
+                    specs: Optional[Sequence[Any]] = None) -> str:
+    """Write ``tree`` as step ``step``. On a mesh, ``tree`` is this rank's
+    slices and ``specs`` the global tree's leaf specs: every rank calls
+    this, the split leaves are gathered and rank 0 writes."""
+    flat = leaves(tree)
+    if mesh is None:
+        return write_checkpoint(
+            directory, step, tree_fingerprint(tree),
+            [functools.partial(_to_numpy, x) for x in flat], extras)
+    return write_on_rank0(
         directory, step, tree_fingerprint(tree),
-        [functools.partial(_to_numpy, x) for x in leaves(tree)], extras)
+        [(functools.partial(_gathered, x, spec, mesh),
+          bool(split_dims(mesh, spec))) for x, spec in zip(flat, specs)],
+        extras)
+
+
+def write_on_rank0(directory: str, step: int, fingerprint: str,
+                   producers: Sequence[Tuple[Callable[[], Tuple[np.ndarray,
+                                                               str]], bool]],
+                   extras: Optional[Dict[str, Any]] = None) -> str:
+    """:func:`write_checkpoint` in a process group: ``producers`` pairs
+    each leaf's producer with whether it is collective (it gathers a
+    split leaf: every rank calls it, in order). Every rank calls this;
+    the process of global rank 0 writes, the others join the collective
+    producers, and every rank returns once rank 0 has told them how the
+    write went. If rank 0 fails (an ``OSError`` of its directory, a full
+    disk partway through), it still joins the gathers of the leaves it
+    did not reach, so the ranks' collectives stay paired, and then every
+    rank raises: rank 0 its own error, the others an ``OSError`` naming
+    it. Without a group of more than one rank it is write_checkpoint."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return write_checkpoint(directory, step, fingerprint,
+                                [p for p, _ in producers], extras)
+    if dist.get_rank() != 0:
+        for produce, collective in producers:
+            if collective:
+                produce()
+        status = [None, None]       # rank 0's path, or its failure
+        dist.broadcast_object_list(status, src=0)
+        path, failure = status
+        if failure is not None:
+            raise OSError(f"rank 0 could not write {directory}: {failure}")
+        return path
+    started = [0]       # producers the write has called, in order
+
+    def counted(i, produce):
+        def call():
+            started[0] = i + 1
+            return produce()
+        return call
+
+    try:
+        path = write_checkpoint(
+            directory, step, fingerprint,
+            [counted(i, p) for i, (p, _) in enumerate(producers)], extras)
+    except Exception as e:
+        for produce, collective in producers[started[0]:]:
+            if collective:
+                produce()
+        dist.broadcast_object_list([None, f"{type(e).__name__}: {e}"],
+                                   src=0)
+        raise
+    dist.broadcast_object_list([path, None], src=0)
+    return path
 
 
 def write_checkpoint(directory: str, step: int, fingerprint: str,
@@ -167,12 +245,24 @@ def _to_tensor(arr: np.ndarray, dtype_name: str,
     return to_tensor(arr, dtype_name).to(device=like.device, dtype=like.dtype)
 
 
+def _block(arr: np.ndarray, spec, mesh) -> np.ndarray:
+    """This rank's block of a global leaf as ``spec`` splits it."""
+    for d, axes in split_dims(mesh, spec):
+        per = arr.shape[d] // mesh.size(axes)
+        arr = np.take(arr, range(mesh.index(axes) * per,
+                                 (mesh.index(axes) + 1) * per), axis=d)
+    return arr
+
+
 def restore_checkpoint(directory: str, template: PyTree,
-                       step: Optional[int] = None
+                       step: Optional[int] = None, mesh=None,
+                       specs: Optional[Sequence[Any]] = None
                        ) -> Tuple[PyTree, int, Dict[str, Any]]:
     """Restore into the structure of ``template`` (its tensor leaves give
     each restored leaf's device and dtype). Returns (tree, step,
-    extras)."""
+    extras). On a mesh ``template`` holds this rank's slices and ``specs``
+    are the global tree's leaf specs: each rank keeps its block of every
+    stored (global) leaf."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -210,6 +300,8 @@ def restore_checkpoint(directory: str, template: PyTree,
                     f"payload sha256 mismatch for {name} at {path}: "
                     f"stored {digests[i][:12]}..., read {live[:12]}...",
                     leaf_index=i, leaf_name=name)
+        if mesh is not None:
+            arr = _block(arr, specs[i], mesh)
         if list(arr.shape) != list(t.shape):
             raise ValueError(f"shape mismatch at leaf {i}: {arr.shape} vs "
                              f"{tuple(t.shape)}")

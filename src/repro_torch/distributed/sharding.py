@@ -11,14 +11,23 @@ The rule table maps logical names to :class:`PartitionSpec`s, the JAX
 package's table entry for entry. In the port's SPMD model every rank runs
 the whole program over a :class:`~repro_torch.launch.mesh.Mesh`; a spec is
 a record of which dimension an axis splits, read by the plan placement of
-:mod:`repro_torch.engine.mesh` (``_kind_from_rules``) and by the MoE
-expert-parallel branch, not a layout that a compiler enforces.
+:mod:`repro_torch.engine.mesh` (``_kind_from_rules``), by the MoE
+expert-parallel branch and by sharded training, not a layout that a
+compiler enforces.
+
+Sharded training (``launch.train.make_train_step(..., mesh=)``) installs a
+context with ``splits``: the float leaves each rank stores split, looked
+up by leaf name and the rank's local shape (:meth:`ShardingContext.
+split_of`). The model's call sites name the leaf they pass
+(``layers.proj(x, p["wq_dh"], "wq_dh")``), and the split follows from the
+table; without such a context every call site runs its single-device
+code.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 _state = threading.local()
 
@@ -80,14 +89,30 @@ def logical_rules(mesh) -> Dict[str, P]:
 
 
 class ShardingContext:
-    """A mesh and its rule table, installed with :func:`use_sharding`."""
+    """A mesh and its rule table, installed with :func:`use_sharding`.
 
-    def __init__(self, mesh):
+    ``splits`` (sharded training only) maps ``(leaf name, local shape)``
+    to the :class:`PartitionSpec` of each float leaf a rank stores split
+    (a per-layer shape: the layer axis dropped); ``batch_axes`` names the
+    mesh axes the batch is split over (empty when every rank takes the
+    whole batch). Serving's contexts leave both unset."""
+
+    def __init__(self, mesh, splits: Optional[Dict[Tuple[str, tuple], P]]
+                 = None, batch_axes: Tuple[str, ...] = ()):
         self.mesh = mesh
         self.rules = logical_rules(mesh)
+        self.splits = splits
+        self.batch_axes = tuple(batch_axes)
 
     def spec(self, name: str) -> P:
         return self.rules[name]
+
+    def split_of(self, name: Optional[str], t) -> Optional[P]:
+        """The spec of leaf ``name`` when this rank stores ``t`` split,
+        else None (no training context, a replicated leaf, a plan)."""
+        if self.splits is None or name is None or not hasattr(t, "shape"):
+            return None
+        return self.splits.get((name, tuple(t.shape)))
 
 
 def current_context() -> Optional[ShardingContext]:
@@ -109,6 +134,13 @@ def mesh_axis_size(axis: str) -> int:
     if ctx is None or axis not in ctx.mesh.axis_names:
         return 1
     return ctx.mesh.shape[axis]
+
+
+def split_dims(mesh, spec: P) -> List[Tuple[int, object]]:
+    """(dimension, axes) of every dimension ``spec`` splits over more than
+    one rank of ``mesh``."""
+    return [(d, axes) for d, axes in enumerate(spec)
+            if axes is not None and mesh.size(axes) > 1]
 
 
 def param_spec_for_path(path: str, rules: Dict[str, P]) -> P:

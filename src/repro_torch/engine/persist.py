@@ -55,7 +55,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.convert import config_from_reference
@@ -445,51 +444,14 @@ def save_plans(directory: str, plans: Any, step: int = 0,
     In a process group of more than one rank, every rank calls this with
     its own (possibly mesh-split) tree: the split leaves are gathered
     leaf by leaf, the process of global rank 0 writes the directory, and
-    every rank returns once rank 0 has told them how the write went. If
-    rank 0 fails (an ``OSError`` of its directory, a full disk partway
-    through), it still joins the gathers of the leaves it did not reach,
-    so the ranks' collectives stay paired, and then every rank raises:
-    rank 0 its own error, the others an ``OSError`` naming it."""
+    every rank returns once rank 0 has told them how the write went; a
+    failed write raises on every rank (:func:`~repro_torch.checkpoint.
+    ckpt.write_on_rank0`)."""
     all_extras = dict(extras or {})
     spec = describe_plan_tree(plans)
     all_extras[PLANS_EXTRAS_KEY] = spec
-    producers = _producers(plans)
-    if not dist.is_initialized() or dist.get_world_size() == 1:
-        return ckpt.write_checkpoint(directory, step, _fingerprint(spec),
-                                     [p for p, _ in producers], all_extras)
-    if dist.get_rank() != 0:
-        for produce, collective in producers:
-            if collective:
-                produce()
-        status = [None, None]       # rank 0's path, or its failure
-        dist.broadcast_object_list(status, src=0)
-        path, failure = status
-        if failure is not None:
-            raise OSError(f"rank 0 could not save the plans to "
-                          f"{directory}: {failure}")
-        return path
-    started = [0]       # producers the write has called, in order
-
-    def counted(i, produce):
-        def call():
-            started[0] = i + 1
-            return produce()
-        return call
-
-    try:
-        path = ckpt.write_checkpoint(
-            directory, step, _fingerprint(spec),
-            [counted(i, p) for i, (p, _) in enumerate(producers)],
-            all_extras)
-    except Exception as e:
-        for produce, collective in producers[started[0]:]:
-            if collective:
-                produce()
-        dist.broadcast_object_list([None, f"{type(e).__name__}: {e}"],
-                                   src=0)
-        raise
-    dist.broadcast_object_list([path, None], src=0)
-    return path
+    return ckpt.write_on_rank0(directory, step, _fingerprint(spec),
+                               _producers(plans), all_extras)
 
 
 def load_plans(directory: str, step: Optional[int] = None, *, mesh=None,

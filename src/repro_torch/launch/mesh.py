@@ -186,11 +186,12 @@ def _join_launched(device) -> None:
         init_distributed(device)
 
 
-def make_serve_mesh(spec: str, device=None) -> Mesh:
-    """A ("data", "model") mesh from a serve-CLI ``"dp,tp"`` spec over the
+def make_mesh(spec: str, device=None,
+              module: str = "repro_torch.launch.serve") -> Mesh:
+    """A ("data", "model") mesh from a CLI ``"dp,tp"`` spec over the
     world's ranks. dp * tp must equal the world size: each rank is a
     process started by the launcher, and a single process never stands in
-    for a mesh."""
+    for a mesh (the error names ``module``'s torchrun line)."""
     dp, tp = _parse(spec)
     _join_launched(device)
     _, world = _world()
@@ -198,10 +199,13 @@ def make_serve_mesh(spec: str, device=None) -> Mesh:
         raise ValueError(
             f"--mesh {spec!r} needs {dp * tp} ranks but this run has "
             f"{world}; start one process per rank, e.g. torchrun "
-            f"--standalone --nproc-per-node {dp * tp} -m "
-            f"repro_torch.launch.serve ... --mesh {spec}")
+            f"--standalone --nproc-per-node {dp * tp} -m {module} ... "
+            f"--mesh {spec}")
     return Mesh((dp, tp), ("data", "model"), device)
 
 
-__all__ = ["Mesh", "choose_backend", "init_distributed", "make_serve_mesh",
-           "rank_device"]
+make_serve_mesh = make_mesh     # serve's --mesh
+
+
+__all__ = ["Mesh", "choose_backend", "init_distributed", "make_mesh",
+           "make_serve_mesh", "rank_device"]

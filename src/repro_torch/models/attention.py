@@ -20,6 +20,16 @@ asks for it; on CPU tensors it is the kernel's plain version. JAX's route
 also needs ``s % block == 0`` and integer windows, which its scanned
 (traced) window never is, so JAX's ``lm.forward`` never reaches its
 kernel where the port's does.
+
+Sharded training (a training ``ShardingContext``): when whole query heads
+of ``wq_dh``'s column split fall on each rank, each rank projects and
+attends its own block of query heads; K and V come split along the same
+head boundaries when the KV heads divide, else whole (gathered, e.g.
+gemma3-1b's one KV head split along head_dim) and cut to the KV heads the
+rank's query block reads. qk-norm's weight enters a rank's heads with its
+gradient summed over the axis. A split that falls mid-head gathers q and
+attends every head on every rank. ``wo_hd``'s row split takes either.
+GQA grouping is contiguous: query head h reads KV head h // (H / KV).
 """
 from __future__ import annotations
 
@@ -28,9 +38,11 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (Params, apply_rope, dense_init, proj,
-                                       rms_norm)
+                                       rms_norm, shared, split_of,
+                                       split_ranks, whole)
 
 NEG_INF = -1e30
 ATTN_BACKENDS = flash_ops.BACKENDS + tuple(flash_ops.BACKEND_ALIASES)
@@ -77,6 +89,68 @@ def _project_qkv(p: Params, x: torch.Tensor, num_heads: int,
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def _query_block(p: Params, num_heads: int) -> Optional[Tuple[int, int]]:
+    """This rank's query heads ``[lo, hi)`` when ``wq_dh`` is stored split
+    into whole heads, else None."""
+    tp, r = split_ranks(p["wq_dh"], "wq_dh")
+    if tp == 1 or num_heads % tp:
+        return None
+    per = num_heads // tp
+    return r * per, (r + 1) * per
+
+
+def _kv_for_block(t: torch.Tensor, lo: int, hi: int, num_heads: int
+                  ) -> torch.Tensor:
+    """The KV heads of whole ``t`` (b, s, KV, d) that query heads
+    ``[lo, hi)`` read, laid out so that the block's contiguous grouping
+    holds: the block's KV range where it covers whole groups or sits in
+    one, else one KV head per query head."""
+    rep = num_heads // t.shape[2]
+    first, last = lo // rep, (hi - 1) // rep + 1
+    n = last - first
+    if (hi - lo) % n == 0 and all(
+            (lo + i) // rep == first + i // ((hi - lo) // n)
+            for i in range(hi - lo)):
+        return t[:, :, first:last]
+    heads = torch.arange(lo, hi, device=t.device) // rep
+    return t.index_select(2, heads)
+
+
+def _project_qkv_split(p: Params, x: torch.Tensor, num_heads: int,
+                       num_kv_heads: int, head_dim: int,
+                       positions: torch.Tensor, rope_theta: float,
+                       norm_eps: float, block: Optional[Tuple[int, int]]):
+    """:func:`_project_qkv` under sharded training. With a query ``block``
+    q holds this rank's heads and k/v the KV heads they read; without one
+    q, k and v are whole on every rank."""
+    b, s, _ = x.shape
+    local = block is not None
+    kv_local = local and num_kv_heads % (
+        num_heads // (block[1] - block[0])) == 0
+    q = proj(x, p["wq_dh"], "wq_dh", local=local)
+    k = proj(x, p["wk_dh"], "wk_dh", local=kv_local)
+    v = proj(x, p["wv_dh"], "wv_dh", local=kv_local)
+    if "bq_bh" in p:
+        q = q + (p["bq_bh"] if local else whole(p["bq_bh"], "bq_bh"))
+        k = k + (p["bk_bh"] if kv_local else whole(p["bk_bh"], "bk_bh"))
+        v = v + (p["bv_bh"] if kv_local else whole(p["bv_bh"], "bv_bh"))
+    q = q.reshape(b, s, -1, head_dim)
+    k = k.reshape(b, s, -1, head_dim)
+    v = v.reshape(b, s, -1, head_dim)
+    if "qnorm_d" in p:
+        q = rms_norm(q, shared(p["qnorm_d"], p["wq_dh"], "wq_dh")
+                     if local else p["qnorm_d"], norm_eps)
+        k = rms_norm(k, shared(p["knorm_d"], p["wk_dh"], "wk_dh")
+                     if kv_local else p["knorm_d"], norm_eps)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if local and not kv_local:      # whole K/V into this rank's heads
+        mesh, axis, _ = split_of(p["wq_dh"], "wq_dh")
+        k = _kv_for_block(coll.copy_to(k, mesh, axis), *block, num_heads)
+        v = _kv_for_block(coll.copy_to(v, mesh, axis), *block, num_heads)
     return q, k, v
 
 
@@ -227,8 +301,13 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
     """Training/prefill attention: the flash kernel route where the backend
     asks for it, else blockwise above the threshold, else full attention."""
     flash = flash_ops.resolve_backend(backend) == "cuda"
-    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
-                           positions, rope_theta, norm_eps)
+    if split_of(p["wq_dh"], "wq_dh") is None:
+        q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                               positions, rope_theta, norm_eps)
+    else:
+        q, k, v = _project_qkv_split(p, x, num_heads, num_kv_heads,
+                                     head_dim, positions, rope_theta,
+                                     norm_eps, _query_block(p, num_heads))
     s = x.shape[1]
     if flash:
         out = flash_ops.flash_attention(q, k, v, causal, window, prefix_len)
@@ -237,8 +316,7 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
                                   prefix_len)
     else:
         out = full_attention(q, k, v, positions, window, causal, prefix_len)
-    out = proj(out.reshape(x.shape[0], s, num_heads * head_dim),
-               p["wo_hd"])
+    out = proj(out.reshape(x.shape[0], s, -1), p["wo_hd"], "wo_hd")
     if return_kv:
         return out, (k, v)
     return out

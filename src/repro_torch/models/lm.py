@@ -16,6 +16,12 @@ traced window array never does. ``prefill`` passes no backend, as in the
 JAX package. ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``), the counterpart of ``jax.checkpoint``.
 
+Under a training ``ShardingContext`` (``launch.train.make_train_step(...,
+mesh=)``) ``forward`` runs this rank's part of a tensor-parallel step:
+the layers' call sites name their leaves, the embedding is vocab-parallel
+and the logits it returns are this rank's block of the vocab, masked at
+the block's offset (``launch.train.cross_entropy`` reduces them).
+
 Not ported yet, and raising: the encoder-decoder with cross-attention
 (whisper) and the VLM prefix (paligemma) (ROADMAP A6).
 
@@ -41,7 +47,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.layers import (Params, embed, embedding_init,
                                        mlp_apply, mlp_init, rms_norm,
-                                       unembed)
+                                       unembed, vocab_shard)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -140,12 +146,15 @@ def layer_trees(layers: Any, n: int) -> List[Any]:
     return list(torch.unbind(layers))
 
 
-def _vocab_mask(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Mask padded-vocab logits with -1e30 (an elementwise add)."""
+def _vocab_mask(cfg: ModelConfig, logits: torch.Tensor, offset: int = 0
+                ) -> torch.Tensor:
+    """Mask padded-vocab logits with -1e30 (an elementwise add).
+    ``logits`` holds the vocab ids from ``offset`` on (a vocab-parallel
+    rank's block), else all of them."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    pad = torch.arange(cfg.padded_vocab, device=logits.device) >= \
-        cfg.vocab_size
+    pad = torch.arange(offset, offset + logits.shape[-1],
+                       device=logits.device) >= cfg.vocab_size
     bias = torch.where(pad, torch.tensor(-1e30, device=logits.device),
                        torch.tensor(0.0, device=logits.device))
     return logits + bias.to(logits.dtype)
@@ -155,9 +164,13 @@ def _windows(cfg: ModelConfig) -> List[int]:
     return [cfg.layer_window(i) for i in range(cfg.num_layers)]
 
 
+def table_name(cfg: ModelConfig) -> str:
+    """The unembedding's leaf: the embedding table when it is tied."""
+    return "embed_vd" if cfg.tie_embeddings else "unembed_vd"
+
+
 def _table(params: Params, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed_vd"] if cfg.tie_embeddings else \
-        params["unembed_vd"]
+    return params[table_name(cfg)]
 
 
 def _mix(outs: List[torch.Tensor]) -> torch.Tensor:
@@ -203,7 +216,7 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def _embed_inputs(params: Params, batch: Dict[str, Any]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     tokens = batch["tokens"]
-    x = embed(params["embed_vd"], tokens)
+    x = embed(params["embed_vd"], tokens, "embed_vd")
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions
@@ -213,7 +226,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, dict]:
     """Training forward. batch: tokens (B, S). Returns (logits (B, S, V),
     aux); aux holds the MoE router losses summed over the layers (0.0
-    without MoE layers), as in the JAX package."""
+    without MoE layers), as in the JAX package. Under sharded training
+    the logits are this rank's block of the vocab where the table is
+    split (``layers.vocab_shard`` of the table gives its offset)."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, batch)
     layers = layer_trees(params["layers"], cfg.num_layers)
@@ -227,7 +242,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
         lb = lb + aux.get("moe_lb_loss", 0.0)
         z = z + aux.get("moe_z_loss", 0.0)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
-    logits = _vocab_mask(cfg, unembed(_table(params, cfg), x))
+    name = table_name(cfg)
+    shard = vocab_shard(params[name], name)
+    logits = _vocab_mask(cfg, unembed(params[name], x, name),
+                         0 if shard is None else shard[2])
     return logits, {"moe_lb_loss": lb, "moe_z_loss": z}
 
 

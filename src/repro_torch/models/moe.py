@@ -25,9 +25,19 @@ in the JAX package:
   divide) against its own E / ep experts, with the reference's capacity
   factor 1.25 and trash bucket, and an all-reduce over ``model`` sums the
   contributions (:func:`_moe_ep_body`).
+* ``ep`` in sharded training — under a training context each rank stores
+  its block of every expert stack (``launch.train.shard_state``) and runs
+  the same body on it, dropless (every assignment to its experts is kept,
+  so the step computes what one device computes), with its gradient: the
+  tokens and router weights enter with :func:`~repro_torch.distributed.
+  collectives.copy_to` and the contributions are summed with
+  ``reduce_from``. Tokens are this data rank's already.
 
 Router as in qwen3-moe: softmax over all experts, top-k, renormalize;
-the Switch load-balance loss and the router z-loss go to ``aux``.
+the Switch load-balance loss and the router z-loss go to ``aux``. When
+sharded training splits the batch over the data axes, the per-expert
+statistics and the z-loss are means over the data ranks before the losses
+are formed, so both are the global batch's.
 """
 from __future__ import annotations
 
@@ -38,10 +48,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pim import ExpertStackedPlan
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import DATA_AXES, current_context
 from repro_torch.engine import matmul as engine_matmul
 from repro_torch.engine import mesh as mesh_mod
-from repro_torch.models.layers import Params, dense_init, mlp_apply, mlp_init
+from repro_torch.models.layers import (Params, dense_init, mlp_apply,
+                                       mlp_init, split_of)
 
 # The PIM route runs the experts in chunks whose (chunk, T, width) float32
 # temporaries hold at most this many elements each (512 MB): at T = 4096
@@ -74,10 +86,12 @@ def moe_init(gen: torch.Generator, d_model: int, num_experts: int,
     return p
 
 
-def _route(router_de: torch.Tensor, x: torch.Tensor, k: int
+def _route(router_de: torch.Tensor, x: torch.Tensor, k: int, ctx=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                       torch.Tensor]:
-    """x: (T, D) -> (probs (T, k), ids (T, k), lb_loss, z_loss)."""
+    """x: (T, D) -> (probs (T, k), ids (T, k), lb_loss, z_loss). Under a
+    training context whose batch is split over data axes, the density,
+    the mean probabilities and z are means over the data ranks."""
     logits = x.to(torch.float32) @ router_de.to(torch.float32)
     full = torch.softmax(logits, dim=-1)
     probs, ids = torch.topk(full, k, dim=-1)
@@ -86,8 +100,12 @@ def _route(router_de: torch.Tensor, x: torch.Tensor, k: int
     # Switch-style load-balance loss
     density = F.one_hot(ids[:, 0], e).to(torch.float32).mean(dim=0)
     mean_probs = full.mean(dim=0)
-    lb = e * torch.sum(density * mean_probs)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if ctx is not None and ctx.batch_axes:
+        stats = coll.data_mean(torch.cat([density, mean_probs, z[None]]),
+                               ctx.mesh, ctx.batch_axes)
+        density, mean_probs, z = stats[:e], stats[e:2 * e], stats[2 * e]
+    lb = e * torch.sum(density * mean_probs)
     return probs, ids, lb, z
 
 
@@ -238,7 +256,7 @@ def _combine(out: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> None:
 def _moe_ep_body(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
                  wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor, *,
                  num_experts: int, shard: int,
-                 capacity_factor: float = 1.25) -> torch.Tensor:
+                 capacity_factor: Optional[float] = 1.25) -> torch.Tensor:
     """One rank's part of the expert-parallel route: ``wi`` / ``wg`` /
     ``wo`` hold this rank's E / ep experts, the ``shard``-th block. Returns
     its contribution (T, D), to be summed over the ``model`` axis.
@@ -246,7 +264,8 @@ def _moe_ep_body(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
     As in the reference: assignments to other ranks' experts go to a
     trailing trash bucket; after a stable sort by local expert only the
     first ``cap = T·k / ep · capacity_factor`` rows can be local, and
-    assignments past ``cap`` drop (the standard capacity behaviour). The
+    assignments past ``cap`` drop (the standard capacity behaviour;
+    ``capacity_factor=None`` keeps all T·k, dropless). The
     kept rows run through their experts in float32, as :func:`_moe_local`
     runs them, and each token's k slots are summed in slot order."""
     e_local = wi.shape[0]
@@ -257,7 +276,8 @@ def _moe_ep_body(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
     flat_ids = torch.where(valid, local,
                            torch.full_like(local, e_local)).reshape(-1)
     order = torch.argsort(flat_ids, stable=True)
-    cap = max(1, min(t * k, int(t * k / ep_size * capacity_factor)))
+    cap = t * k if capacity_factor is None else \
+        max(1, min(t * k, int(t * k / ep_size * capacity_factor)))
     keep = order[:cap]                       # local assignments sort first
     counts = torch.bincount(flat_ids, minlength=e_local + 1)[:e_local]
     cum = torch.clamp(torch.cumsum(counts, 0), max=cap).tolist()
@@ -299,12 +319,27 @@ def _moe_ep(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
     return mesh_mod.all_gather(out, mesh, axes, dim=0) if split else out
 
 
+def _moe_ep_split(x2: torch.Tensor, probs: torch.Tensor,
+                  ids: torch.Tensor, p: Params, num_experts: int, split
+                  ) -> torch.Tensor:
+    """Sharded training's expert-parallel route: this rank's stored block
+    of experts on this data rank's tokens, dropless, the contributions
+    summed over the split's axis."""
+    mesh, axis, _ = split
+    out = _moe_ep_body(coll.copy_to(x2, mesh, axis),
+                       coll.copy_to(probs, mesh, axis), ids, p["wi_edf"],
+                       p["wg_edf"], p["wo_efd"], num_experts=num_experts,
+                       shard=mesh.index(axis), capacity_factor=None)
+    return coll.reduce_from(out, mesh, axis)
+
+
 def moe_apply(p: Params, x: torch.Tensor, experts_per_token: int,
               aux: Optional[dict] = None) -> torch.Tensor:
     """MoE FFN. x: (B, S, D) -> (B, S, D). The route follows the params
     and the sharding context: programmed expert stacks run on the engine;
     float stacks run the expert-parallel route under a context whose
-    ``model`` axis is above 1 and divides E, else the local grouped route.
+    ``model`` axis is above 1 and divides E, or under a training context
+    that stores them split, else the local grouped route.
     The router losses are added to ``aux``'s ``moe_lb_loss`` and
     ``moe_z_loss`` when it is given."""
     b, s, d = x.shape
@@ -312,14 +347,19 @@ def moe_apply(p: Params, x: torch.Tensor, experts_per_token: int,
     pim_experts = isinstance(wi_edf, ExpertStackedPlan)
     num_experts = wi_edf.num_experts if pim_experts else wi_edf.shape[0]
     x2 = x.reshape(-1, d)
-    probs, ids, lb, z = _route(p["router_de"], x2, experts_per_token)
+    ctx = current_context()
+    probs, ids, lb, z = _route(p["router_de"], x2, experts_per_token, ctx)
     if aux is not None:
         aux["moe_lb_loss"] = aux.get("moe_lb_loss", 0.0) + lb
         aux["moe_z_loss"] = aux.get("moe_z_loss", 0.0) + z
-    ctx = current_context()
+    split = None if pim_experts else split_of(wi_edf, "wi_edf")
     if pim_experts:
         out2 = _moe_pim(x2, probs, ids, wi_edf, p["wg_edf"], p["wo_efd"])
-    elif ctx is not None and "model" in ctx.mesh.axis_names and \
+    elif split is not None:
+        out2 = _moe_ep_split(x2, probs, ids, p, p["router_de"].shape[1],
+                             split)
+    elif ctx is not None and ctx.splits is None and \
+            "model" in ctx.mesh.axis_names and \
             ctx.mesh.shape["model"] > 1 and \
             num_experts % ctx.mesh.shape["model"] == 0:
         out2 = _moe_ep(x2, probs, ids, wi_edf, p["wg_edf"], p["wo_efd"],

@@ -7,7 +7,11 @@ Decode keeps an (heads, N, P) state and a conv tail per layer, O(1) per
 token.
 
 The projections here are plain float matmuls, as in the JAX package:
-serving fake-quantizes the SSM weights rather than planning them.
+serving fake-quantizes the SSM weights rather than planning them. They go
+through :func:`~repro_torch.models.layers.proj` by leaf name, so sharded
+training splits ``wz_dh`` / ``wx_dh`` / ``wdt_dh`` by columns (their
+outputs gathered: the conv and the scan run whole on every rank) and
+``wout_hd`` by rows.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import Params, dense_init, rms_norm
+from repro_torch.models.layers import Params, dense_init, proj, rms_norm
 
 CONV_K = 4
 
@@ -94,10 +98,12 @@ def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _project(p: Params, x_in: torch.Tensor):
-    z = x_in @ p["wz_dh"]
-    x = x_in @ p["wx_dh"]
+    """The in-projections. Under sharded training a split ``_dh`` leaf's
+    output is gathered: the scan runs whole on every rank."""
+    z = proj(x_in, p["wz_dh"], "wz_dh")
+    x = proj(x_in, p["wx_dh"], "wx_dh")
     bc = torch.cat([x_in @ p["wb_dn"], x_in @ p["wc_dn"]], dim=-1)
-    dt = x_in @ p["wdt_dh"]
+    dt = proj(x_in, p["wdt_dh"], "wdt_dh")
     return z, x, bc, dt
 
 
@@ -136,7 +142,7 @@ def ssm_apply(p: Params, x_in: torch.Tensor, ssm_state: int,
     y = y + xh * p["d_skip"].to(f32)[None, None, :, None]
     y = y.reshape(bsz, l, d_inner).to(x_in.dtype)
     y = rms_norm(y * F.silu(z), p["norm_d"])
-    y = y @ p["wout_hd"]
+    y = proj(y, p["wout_hd"], "wout_hd")
     if return_state:
         s_fin = s_fin.reshape(bsz, nheads, ssm_state, head_dim)
         return y, (s_fin, torch.cat([tail_x, tail_bc], dim=-1))
@@ -191,6 +197,6 @@ def ssm_step(p: Params, x_in: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = y.reshape(bsz, 1, d_inner).to(x_in.dtype)
     y = rms_norm(y * F.silu(z), p["norm_d"])
     new_tail = torch.cat([new_tail_x, new_tail_bc], dim=-1)
-    return y @ p["wout_hd"], {
+    return proj(y, p["wout_hd"], "wout_hd"), {
         "state": state.to(cache["state"].dtype),
         "conv_tail": new_tail.to(cache["conv_tail"].dtype)}

@@ -7,15 +7,21 @@ float64), so both packages round them alike; they stay on the device, so
 an update makes no host sync. Unlike the JAX package, the update runs in
 place over the flat leaf list (parameters, first and second moments):
 the port saves the copies that JAX's functional update makes.
+
+Sharded training passes ``splits`` (a :class:`~repro_torch.distributed.
+collectives.LeafSplits`): each rank updates its shards in place, and the
+clip's global norm sums each split leaf's squares over the axis and
+counts each replicated leaf once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.collectives import LeafSplits
 from repro_torch.tree import leaves, tree_map
 
 PyTree = Any
@@ -57,9 +63,14 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
+def global_norm(tree: PyTree, splits: Optional[LeafSplits] = None
+                ) -> torch.Tensor:
+    """The L2 norm over every leaf; with ``splits``, of the whole leaves
+    (a split leaf's sum of squares summed over its axis)."""
     sums = [torch.sum(torch.square(x.to(torch.float32)))
             for x in leaves(tree)]
+    if splits is not None:
+        sums = splits.reduce(sums, "sum")
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -84,11 +95,13 @@ def adamw_init(params: PyTree) -> AdamWState:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: PyTree, state: AdamWState,
-                 params: PyTree) -> Tuple[PyTree, AdamWState, Dict[str, Any]]:
+                 params: PyTree, splits: Optional[LeafSplits] = None
+                 ) -> Tuple[PyTree, AdamWState, Dict[str, Any]]:
     """One AdamW step. ``params``, ``state.mu`` and ``state.nu`` are
     updated in place and returned, with the new step count; the metrics
-    (``grad_norm`` before clipping, ``lr``) are 0-d device tensors."""
-    gnorm = global_norm(grads)
+    (``grad_norm`` before clipping, ``lr``) are 0-d device tensors.
+    ``splits`` marks the leaves stored split over a mesh axis."""
+    gnorm = global_norm(grads, splits)
     clip = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0 else None
     step = state.step + 1
     lr = schedule_lr(cfg, step)

@@ -241,7 +241,7 @@ NEW_MODULES = (
     "repro_torch.serving.prefix", "repro_torch.serving.scheduler",
     "repro_torch.serving.slots", "repro_torch.serving.stream",
     "repro_torch.distributed.sharding", "repro_torch.engine.mesh",
-    "repro_torch.launch.mesh")
+    "repro_torch.launch.mesh", "repro_torch.distributed.collectives")
 
 
 def test_port_and_chip_smoke_import_no_jax():

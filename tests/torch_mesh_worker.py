@@ -1,5 +1,7 @@
-"""The rank side of ``tests/test_torch_mesh.py`` and
-``tests/test_torch_cuda_mesh.py``: a process of a gloo group (on the CPU,
+"""The rank side of ``tests/test_torch_mesh.py``,
+``tests/test_torch_cuda_mesh.py`` and the sharded-training tests
+(``tests/test_torch_train_mesh.py``, ``tests/test_torch_cuda_train_mesh.py``):
+a process of a gloo group (on the CPU,
 or sharing the card) that runs the functions below on request, each rank
 the same one with the same arguments, and sends back what it returns.
 Imports no JAX (the CPU test's parent holds the JAX side and compares).
@@ -16,13 +18,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import engine
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import pim
 from repro_torch.core.pim import PimConfig
 from repro_torch.distributed.sharding import ShardingContext, use_sharding
 from repro_torch.engine import mesh as mesh_mod
 from repro_torch.engine import persist
 from repro_torch.launch import mesh as launch_mesh
+from repro_torch.launch import train
 from repro_torch.models import moe
+from repro_torch.optim import adamw
+from repro_torch.optim.compression import compress_grads, compress_leaf
+from repro_torch.tree import flatten_with_path, leaves, tree_map
 
 _MESHES = {}
 _DEVICE = {"device": "cpu"}
@@ -393,3 +400,111 @@ def cuda_splits(spec="1,2"):
                 engine.matmul(x, full, paired=paired))
     return {"equal": out, "routes": routes, "backend": mesh.backend,
             "device": str(dev)}
+
+
+# ---------------------------------------------------------------------------
+# sharded training (tests/test_torch_train_mesh.py,
+# tests/test_torch_cuda_train_mesh.py)
+# ---------------------------------------------------------------------------
+def _on(tree, device):
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _named(tree):
+    return {"/".join(path): t for path, t in flatten_with_path(tree)}
+
+
+def _host(tree):
+    return {k: v.detach().cpu().numpy() for k, v in _named(tree).items()}
+
+
+def train_mesh_step(cfg, state, batch, opt, spec, compress_bits=0):
+    """One sharded step from the global ``state`` (the port's tree, on the
+    CPU) on ``batch`` (numpy): the loss, the gradient's global norm and
+    the gathered gradient of the sharded loss-and-gradients, then one
+    ``make_train_step(..., mesh=)`` step: its metrics, the gathered
+    parameters after it, and this rank's replicated leaves (their bits,
+    for the comparison across ranks). Flash-kernel launches by kernel
+    over the two passes on the card."""
+    mesh = _mesh(spec)
+    dev = mesh.device
+    from repro_torch.kernels.flash_attention import flash_attention as fkern
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    template = train.param_template(cfg)
+    local = _on(train.shard_state(state, mesh), dev)
+    fkern.reset_launches()
+    grads_fn = train.sharded_loss_and_grads(cfg, mesh)
+    loss, _, grads = grads_fn(local["params"], batch)
+    gnorm = adamw.global_norm(grads, grads_fn.splits)
+    whole = train.gather_state(grads, mesh, template)
+    step = train.make_train_step(cfg, adamw.AdamWConfig(**opt),
+                                 compress_bits, mesh)
+    new, metrics = step(local, batch)
+    launches = dict(fkern.LAUNCHES)
+    params = train.gather_state(new["params"], mesh, template)
+    split = dict(zip(_named(template), grads_fn.splits.split))
+    mine = {k: v for k, v in _host(new["params"]).items() if not split[k]}
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "device": str(dev), "backend": mesh.backend,
+            "loss": float(loss), "grad_norm": float(gnorm),
+            "step_loss": float(metrics["loss"]),
+            "step_grad_norm": float(metrics["grad_norm"]),
+            "grads": _host(whole), "params": _host(params),
+            "replicated": mine, "split": split, "launches": launches,
+            "step": int(new["step"])}
+
+
+def train_compress_codes(cfg, state, batch, spec):
+    """int8 compression on the mesh: {leaf: the gathered codes of a split
+    leaf equal ``compress_leaf`` of the gathered gradient, codes and
+    scale bit for bit}."""
+    mesh = _mesh(spec)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    template = train.param_template(cfg)
+    local = train.shard_state(state, mesh)
+    grads_fn = train.sharded_loss_and_grads(cfg, mesh)
+    _, _, grads = grads_fn(local["params"], batch)
+    codes, scales, _ = compress_grads(grads, None, 8, grads_fn.splits)
+    whole_codes = train.gather_state(codes, mesh, template)
+    whole_grads = train.gather_state(grads, mesh, template)
+    out = {}
+    for name, is_split, c, s, g in zip(
+            _named(template), grads_fn.splits.split, leaves(whole_codes),
+            leaves(scales), leaves(whole_grads)):
+        if is_split:
+            want_c, want_s, _ = compress_leaf(g, None, 8)
+            out[name] = torch.equal(c, want_c) and torch.equal(s, want_s)
+    return out
+
+
+def train_save(cfg, state, directory, spec, compress_bits=0):
+    """Save this rank's slices of ``state`` as a mesh checkpoint."""
+    mesh = _mesh(spec)
+    specs = train.tree_specs(mesh, state)
+    return ckpt.save_checkpoint(directory, 3, train.shard_state(state, mesh),
+                                {"data_step": 3}, mesh=mesh, specs=specs)
+
+
+def train_restore(cfg, state, directory, spec):
+    """Restore a (single-process) checkpoint onto the mesh: whether every
+    leaf equals this rank's slice of ``state`` bit for bit, and the
+    step."""
+    mesh = _mesh(spec)
+    want = train.shard_state(state, mesh)
+    blank = tree_map(torch.zeros_like, want)
+    got, step, _ = ckpt.restore_checkpoint(
+        directory, blank, mesh=mesh, specs=train.tree_specs(mesh, state))
+    return step, all(torch.equal(a, b) for a, b in zip(leaves(got),
+                                                       leaves(want)))
+
+
+def train_save_fails(state, directory, spec):
+    """A mesh checkpoint whose write fails on rank 0: the exception type
+    every rank raises."""
+    mesh = _mesh(spec)
+    try:
+        ckpt.save_checkpoint(directory, 1, train.shard_state(state, mesh),
+                             mesh=mesh, specs=train.tree_specs(mesh, state))
+    except OSError as e:
+        return type(e).__name__
+    return None

@@ -119,6 +119,22 @@ package. Phases, each of which raises on failure:
     nibbles, plane padding, the (E, T, ·) glue, the combine, attention,
     the router); then the PIM kernel at the path's ten shapes (M = 4096
     and 8) bit for bit and timed as for hymba;
+12b. the encoder-decoder and the VLM prefix served: whisper-medium (24
+    encoder + 24 decoder layers, d_model 1024, 16 heads, d_ff 4096, vocab
+    51865) and paligemma-3b (18 layers, d_model 2048, 8 heads on 1 KV
+    head, head_dim 256, d_ff 16384, vocab 257216, 256 stub patches of dim
+    1152) at full width, random weights from seed 0: first at
+    ``FAMILY_EXACT_LAYERS`` (2) layers of each stack, the prefill logits
+    and 16 decode steps' logits on ``exact-cuda`` bit-identical to
+    ``exact-torch``; then serving's set-up (each layer of both stacks
+    programmed at w4a4 on ``exact-cuda`` as it is drawn) at full depth and
+    the static loop with ``request_inputs``'s stub frames or patches
+    (batch 8, prompt 512, 16 new tokens; a warm-up and ``LM_REQUESTS``
+    (2) timed): B1 launches per prefill and per decode
+    step as ``family_b1_launches`` gives them (whisper 384 and 192,
+    paligemma 126 and 126), no other kernel; prefill and decode times,
+    tokens/s, resident and peak memory, and one request's device idle
+    share;
 13. plan persistence: qwen3-4b at full width (36 layers, d_model 2560,
     32 heads on 8 KV heads, head_dim 128, d_ff 9728, vocab 151936,
     qk-norm, tied embeddings; random weights from seed 0) through
@@ -130,7 +146,7 @@ package. Phases, each of which raises on failure:
     step); the set-up's parts timed (digest, programming, save, sha256);
 14. continuous batching: ``serve_continuous(qwen3-4b, ...)`` through the
     same directory (its set-up restores the plans: digest, load and the
-    load's sha256 share timed) with 8 slots and 8 Poisson requests at
+    load's sha256 share timed) with 8 slots and 6 Poisson requests at
     0.5 per step (seed 0), prompts 128-512, 4-16 new tokens: launches by
     route (whole prefill on the wgmma route, decode at M = 8 on the
     small-M route, none other), tokens/s, TTFT and latency percentiles
@@ -178,7 +194,7 @@ package. Phases, each of which raises on failure:
     slots: each rank's 36 x 7 projections split 5 by columns (B1 on each
     rank's half of N) and 2 by rows (B2 on each rank's half of K, the
     int32 partials all-reduced before the dequant), 180 B1 and 72 B2
-    launches per prefill and per decode step, the 8 token streams equal
+    launches per prefill and per decode step, the 6 token streams equal
     phase 14's bit for bit; prefill ms per request, decode ms per step
     and tokens/s beside single-device and each rank's resident and peak
     memory from that run; then a second, instrumented run of the trace's
@@ -224,6 +240,19 @@ package. Phases, each of which raises on failure:
     of one step by stage;
 20. checkpoint and restart on the card at a reduced gemma3-1b: a run
     resumed from a step-6 checkpoint against the unbroken run;
+20b. the encoder-decoder and the VLM prefix trained with
+    ``attn_backend="cuda"``, float32, random weights from seed 0:
+    paligemma-3b at full width and depth (batch 2 x 512 text tokens after
+    its 256-patch prefix: the flash kernels' prefix-LM branch) and
+    whisper-medium at full width on ``WHISPER_TRAIN_LAYERS`` (2) layers
+    of each stack (batch 2 x 1024 tokens and 1024 frames: the encoder's
+    non-causal branch, the decoder's causal one): the loss and gradient
+    norm against the ``"jnp"`` route on one state within
+    ``TRAIN_LOSS_REL`` / ``TRAIN_GNORM_REL``, every gradient leaf within
+    ``FAMILY_LEAF_GAP_REL``, the flash launches by pass and mask branch
+    (``flash_attention.BRANCH_LAUNCHES``), then a warm-up and
+    ``TRAIN_STEPS`` timed AdamW steps with their launches, step time,
+    tokens/s and peak memory;
 21. sharded training (after the single-device references, freed): two
     ranks spawned on the one card over gloo, each training gemma3-1b at
     full width on a 1x2 mesh (``make_train_step(..., mesh=)``: each rank's
@@ -356,8 +385,10 @@ NOISE_SEED = 1234
 # relative, at most NOISY_SHARE of the outputs may differ, and each by at
 # most 2 codes of the top shift level.
 NOISY_SHARE = 1e-3
-# The LM paths: static serving of batch 8, prompt 512, 16 new tokens
-LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = 8, 512, 16, 3
+# The LM paths: static serving of batch 8, prompt 512, 16 new tokens; a
+# warm-up, then LM_REQUESTS timed requests (3 until whisper-medium and
+# paligemma-3b were served too: each path's requests are host-bound)
+LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = 8, 512, 16, 2
 # SSD kernel checks, (BH, L, P, N, chunk, decay): hymba-1.5b's and
 # mamba2-370m's scans at that batch and prompt, a ragged tail, and the
 # long-decay case (a = 1e-6, where exp(cl_i - cl_j) above the diagonal
@@ -1762,15 +1793,17 @@ def lm_kernel_checks(torch, dev, kern, ref, shapes):
     return err
 
 
-def lm_serve_requests(torch, serve_mod, params, cfg, tokens, counters):
+def lm_serve_requests(torch, serve_mod, params, cfg, tokens, counters,
+                      inputs=None):
     """A warm-up, then LM_REQUESTS requests through the static serving
-    loop, launch counts set to 0 just before and read just after;
-    per-request prefill and decode times (CUDA events)."""
-    serve_mod.static_loop(params, cfg, tokens, LM_GEN)
+    loop (``inputs``: the request's stub patches or frames), launch counts
+    set to 0 just before and read just after; per-request prefill and
+    decode times (CUDA events)."""
+    serve_mod.static_loop(params, cfg, tokens, LM_GEN, inputs=inputs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*counters)
-    outs = [serve_mod.static_loop(params, cfg, tokens, LM_GEN)
+    outs = [serve_mod.static_loop(params, cfg, tokens, LM_GEN, inputs=inputs)
             for _ in range(LM_REQUESTS)]
     torch.cuda.synchronize()
     launches = read_counts(*counters)
@@ -1795,16 +1828,18 @@ def lm_serve_requests(torch, serve_mod, params, cfg, tokens, counters):
         "launches": launches}
 
 
-def phase_counts(torch, lm, params, cfg, tokens, counters):
-    """Launch counts of one prefill and of one decode step alone."""
+def phase_counts(torch, lm, params, cfg, tokens, counters, inputs=None):
+    """Launch counts of one prefill and of one decode step alone (a VLM's
+    prefix takes the cache positions before the prompt's)."""
+    start = LM_PROMPT + (cfg.vision_tokens if inputs and "patches" in inputs
+                         else 0)
     reset_counts(*counters)
-    logits, cache = lm.prefill(params, cfg, {"tokens": tokens},
-                               LM_PROMPT + LM_GEN)
+    logits, cache = lm.prefill(params, cfg, dict(inputs or {}, tokens=tokens),
+                               start + LM_GEN)
     torch.cuda.synchronize()
     pre = read_counts(*counters)
     reset_counts(*counters)
-    lm.decode_step(params, cfg, cache, logits.argmax(-1)[:, None],
-                   LM_PROMPT)
+    lm.decode_step(params, cfg, cache, logits.argmax(-1)[:, None], start)
     torch.cuda.synchronize()
     return pre, read_counts(*counters)
 
@@ -2175,6 +2210,33 @@ def moe_layer_launches(cfg):
     return 4 + (3 if cfg.shared_experts else 0) + 3 * cfg.num_experts
 
 
+def exact_steps(torch, lm, planned, cfg, batch, start, what):
+    """``planned`` (on exact-cuda) against the same plans re-stamped to
+    exact-torch: the prefill logits and LM_GEN decode steps' logits (at
+    positions ``start`` on), bit for bit, on the tokens the kernel route
+    generates. Returns the seconds both routes took."""
+    plain = with_substrate(planned, "exact-torch")
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(planned, cfg, batch, start + LM_GEN)
+    want, ref_cache = lm.prefill(plain, cfg, batch, start + LM_GEN)
+    if not torch.equal(logits, want):
+        raise AssertionError(f"{what} exact-cuda prefill logits differ "
+                             "from exact-torch")
+    tok = logits.argmax(-1)[:, None]
+    for g in range(LM_GEN):
+        logits, cache = lm.decode_step(planned, cfg, cache, tok, start + g)
+        want, ref_cache = lm.decode_step(plain, cfg, ref_cache, tok,
+                                         start + g)
+        if not torch.equal(logits, want):
+            raise AssertionError(f"{what} decode step {g}: exact-cuda "
+                                 "logits differ from exact-torch")
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError(f"{what} logits not finite")
+    return time.perf_counter() - t0
+
+
 def moe_exactness(torch, dev, mods, cfg, tokens):
     """exact-cuda against exact-torch at full width and MOE_EXACT_LAYERS
     layers: the prefill logits and every decode step's, bit for bit, on
@@ -2185,32 +2247,10 @@ def moe_exactness(torch, dev, mods, cfg, tokens):
     planned = serve_mod.plan_params_for_pim(
         lm.init_lm(short, 0, device=dev),
         pim.PimConfig(weight_bits=4, act_bits=4, substrate="exact-cuda"))
-    plain = with_substrate(planned, "exact-torch")
-    t0 = time.perf_counter()
-    logits, cache = lm.prefill(planned, short, {"tokens": tokens},
-                               LM_PROMPT + LM_GEN)
-    want, ref_cache = lm.prefill(plain, short, {"tokens": tokens},
-                                 LM_PROMPT + LM_GEN)
-    if not torch.equal(logits, want):
-        raise AssertionError("moonshot exact-cuda prefill logits differ "
-                             "from exact-torch")
-    tok = logits.argmax(-1)[:, None]
-    for g in range(LM_GEN):
-        logits, cache = lm.decode_step(planned, short, cache, tok,
-                                       LM_PROMPT + g)
-        want, ref_cache = lm.decode_step(plain, short, ref_cache, tok,
-                                         LM_PROMPT + g)
-        if not torch.equal(logits, want):
-            raise AssertionError(f"moonshot decode step {g}: exact-cuda "
-                                 "logits differ from exact-torch")
-        tok = logits.argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
-    del planned, plain, cache, ref_cache
+    seconds = exact_steps(torch, lm, planned, short, {"tokens": tokens},
+                          LM_PROMPT, "moonshot")
+    del planned
     torch.cuda.empty_cache()
-    if not finite:
-        raise AssertionError("moonshot logits not finite")
     log(f"moonshot at full width and {MOE_EXACT_LAYERS} layers (exact-torch"
         " at 48 layers is slow on the card): prefill logits and all "
         f"{LM_GEN} decode steps' logits on exact-cuda bit-identical to "
@@ -2337,33 +2377,39 @@ def busy_and_window(device, events):
 
 
 def moe_request_profile(torch, run):
-    """One whole request profiled on the device alone (no host-side
-    events): busy time, the idle share over the window from its first
-    device activity to its last, and B1's device time and launches by
-    route."""
-    from torch.profiler import ProfilerActivity, profile
+    """One whole request profiled on the device alone (after a warm-up):
+    :func:`request_idle_share`'s numbers and B1's device time and
+    launches by route."""
     run()
     torch.cuda.synchronize()
+    result, device = request_idle_share(torch, run)
+    b1 = {label: [e.time_range.elapsed_us() for e in device
+                  if fragment in e.name]
+          for label, fragment in MOE_KERNELS.items()}
+    result.update({"b1_ms": {k: sum(v) / 1e3 for k, v in b1.items()},
+                   "b1_kernels": {k: len(v) for k, v in b1.items()}})
+    log(f"device-only profile of one moonshot request: busy "
+        f"{result['device_busy_ms']:.3f} ms of a {result['window_ms']:.3f} "
+        "ms window (first to last device activity), idle share "
+        f"{result['device_idle_share']:.4f}, {len(device)} device events; "
+        "B1 " + ", ".join(f"{k} {result['b1_ms'][k]:.3f} ms over "
+                          f"{result['b1_kernels'][k]} kernels" for k in b1))
+    return result
+
+
+def request_idle_share(torch, run):
+    """One whole request profiled on the device alone: busy time and the
+    idle share over the window from its first device activity to its
+    last; returns them and the device events."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     device = device_events(torch, prof)
     busy, window = busy_and_window(device, device)
-    b1 = {label: [e.time_range.elapsed_us() for e in device
-                  if fragment in e.name]
-          for label, fragment in MOE_KERNELS.items()}
-    result = {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-              "device_idle_share": 1.0 - busy / window,
-              "device_events": len(device),
-              "b1_ms": {k: sum(v) / 1e3 for k, v in b1.items()},
-              "b1_kernels": {k: len(v) for k, v in b1.items()}}
-    log(f"device-only profile of one moonshot request: busy "
-        f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window (first to "
-        f"last device activity), idle share "
-        f"{result['device_idle_share']:.4f}, {len(device)} device events; "
-        "B1 " + ", ".join(f"{k} {result['b1_ms'][k]:.3f} ms over "
-                          f"{result['b1_kernels'][k]} kernels" for k in b1))
-    return result
+    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / window,
+            "device_events": len(device)}, device
 
 
 def moe_phase_launches(torch, mods, planned, cfg, tokens, counters):
@@ -2501,14 +2547,275 @@ def moonshot_path(torch, dev, mods, counters):
 
 
 # ---------------------------------------------------------------------------
+# The encoder-decoder and the VLM prefix: whisper-medium and paligemma-3b
+# ---------------------------------------------------------------------------
+FAMILIES = ("whisper-medium", "paligemma-3b")
+# exact-cuda against exact-torch at full width on this many layers of each
+# stack (the plain substrate's products at full depth cost more than the
+# served requests)
+FAMILY_EXACT_LAYERS = 2
+# whisper-medium trains at full width on this many layers of each stack
+# (depth changes no kernel shape); paligemma-3b at full depth
+WHISPER_TRAIN_LAYERS = 2
+WHISPER_TRAIN_SEQ = 1024   # decoder tokens; the stub frames are as long
+# a gradient leaf of the "cuda" route within this share of the "jnp"
+# route's largest entry of that leaf (the flash backward's bound,
+# FLASH_BWD_REL: float32 sums in another order through the recomputed
+# probabilities)
+FAMILY_LEAF_GAP_REL = 1e-3
+
+
+def family_b1_launches(cfg):
+    """B1 launches of one prefill and of one decode step: per decoder
+    layer q, k, v, o and the MLP's (up, down; gate too when gated); an
+    encoder's layers the same in prefill only; a decoder's
+    cross-attention q, k, v, o in prefill and q, o in a decode step (its
+    K/V are cached)."""
+    layer = 4 + (3 if cfg.gated_mlp else 2)
+    prefill = (cfg.encoder_layers + cfg.num_layers) * layer
+    step = cfg.num_layers * layer
+    if cfg.encoder_layers:
+        prefill += cfg.num_layers * 4
+        step += cfg.num_layers * 2
+    return prefill, step
+
+
+def family_cfg(mods, arch, layers=None):
+    """``arch``'s config, with ``layers`` layers in each stack if given."""
+    import dataclasses
+    cfg = mods["configs"].get_config(arch)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               encoder_layers=min(cfg.encoder_layers, layers))
+
+
+def family_exactness(torch, dev, mods, cfg, smi):
+    """exact-cuda against exact-torch at full width and FAMILY_EXACT_LAYERS
+    layers of each stack (:func:`exact_steps`), the request's stub frames
+    or patches included."""
+    serve_mod = mods["serve"]
+    short = family_cfg(mods, cfg.name, FAMILY_EXACT_LAYERS)
+    planned = serve_mod._program(short, mods["pim"].PimConfig(
+        weight_bits=4, act_bits=4, substrate="exact-cuda"), dev)
+    tokens, inputs = serve_mod.request_inputs(short, LM_BATCH, LM_PROMPT, dev)
+    seconds = exact_steps(torch, mods["lm"], planned, short,
+                          dict(inputs, tokens=tokens),
+                          LM_PROMPT + short.vision_tokens, cfg.name)
+    del planned
+    torch.cuda.empty_cache()
+    log(f"{cfg.name} at full width and {FAMILY_EXACT_LAYERS} layers of each "
+        f"stack: prefill logits and all {LM_GEN} decode steps' logits on "
+        f"exact-cuda bit-identical to exact-torch ({seconds:.1f} s for both "
+        f"routes) [{smi}]")
+    return {"layers": FAMILY_EXACT_LAYERS, "decode_steps": LM_GEN,
+            "bit_identical": True, "seconds": seconds}
+
+
+def family_serve_path(torch, dev, mods, counters, arch, smi):
+    """``arch`` at full width and depth, random weights from seed 0:
+    exact-cuda against exact-torch at FAMILY_EXACT_LAYERS, then serving's
+    set-up (each layer of both stacks programmed at w4a4 on exact-cuda as
+    it is drawn) and the static loop at batch 8, prompt 512 (whisper: 512
+    stub frames; paligemma: 256 stub patches before the prompt), 16 new
+    tokens: B1 launches per prefill and per decode step, no other kernel,
+    times, tokens/s, peak memory and the device's idle share."""
+    serve_mod, lm = mods["serve"], mods["lm"]
+    cfg = family_cfg(mods, arch)
+    out = {"config": {"arch": arch, "layers": cfg.num_layers,
+                      "encoder_layers": cfg.encoder_layers,
+                      "d_model": cfg.d_model, "heads": cfg.num_heads,
+                      "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab_size,
+                      "vision_tokens": cfg.vision_tokens,
+                      "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+                      "bits": "w4a4"}, "card": smi}
+    out["exactness"] = family_exactness(torch, dev, mods, cfg, smi)
+
+    t0 = time.perf_counter()
+    planned = serve_mod._program(cfg, mods["pim"].PimConfig(
+        weight_bits=4, act_bits=4, substrate="exact-cuda"), dev)
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+    out["resident_bytes"] = torch.cuda.memory_allocated()
+    tokens, inputs = serve_mod.request_inputs(cfg, LM_BATCH, LM_PROMPT, dev)
+    _, numbers = lm_serve_requests(torch, serve_mod, planned, cfg, tokens,
+                                   counters, inputs)
+    out.update(numbers)
+    pre, step = family_b1_launches(cfg)
+    want = {"pim_matmul_fused": (pre + LM_GEN * step) * LM_REQUESTS}
+    got = numbers["launches"]
+    if any(got[k] != v for k, v in want.items()) or any(
+            got[k] for k in got if k not in want):
+        raise AssertionError(f"{arch} launches {got}, expected {want} and "
+                             "no other kernel")
+    got_pre, got_step = phase_counts(torch, lm, planned, cfg, tokens,
+                                     counters, inputs)
+    if got_pre != dict.fromkeys(got_pre, 0) | {"pim_matmul_fused": pre} or \
+            got_step != dict.fromkeys(got_step, 0) | {
+                "pim_matmul_fused": step}:
+        raise AssertionError(f"{arch} launches per prefill {got_pre}, per "
+                             f"decode step {got_step}; expected {pre} and "
+                             f"{step} pim_matmul_fused, no other kernel")
+    out["b1_per_prefill"], out["b1_per_decode_step"] = pre, step
+    out["profile"], _ = request_idle_share(
+        torch, lambda: serve_mod.static_loop(planned, cfg, tokens, LM_GEN,
+                                             inputs=inputs))
+    log(f"{arch} served at full width ({cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; batch {LM_BATCH}, prompt {LM_PROMPT}"
+        + (f" + {cfg.vision_tokens} patches" if cfg.vision_tokens else "")
+        + (f", {LM_PROMPT} frames" if cfg.encoder_layers else "")
+        + f", {LM_GEN} new tokens, w4a4 on exact-cuda): B1 {pre} launches "
+        f"per prefill and {step} per decode step, no other kernel; prefill "
+        f"{', '.join(f'{t:.3f}' for t in out['prefill_ms'])} ms, decode "
+        f"{', '.join(f'{t:.3f}' for t in out['decode_ms_per_token'])} "
+        f"ms/token, {out['tokens_per_s']:.2f} tokens/s, set-up "
+        f"{out['program_s']:.1f} s, resident "
+        f"{out['resident_bytes'] / 2 ** 30:.3f} GiB, peak "
+        f"{out['peak_bytes'] / 2 ** 30:.3f} GiB; one request on the device: "
+        f"busy {out['profile']['device_busy_ms']:.3f} ms of "
+        f"{out['profile']['window_ms']:.3f} ms, idle share "
+        f"{out['profile']['device_idle_share']:.4f} [{smi}]")
+    del planned
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_train_path(torch, dev, mods, counters, arch, smi):
+    """``arch`` trained with attn_backend="cuda", float32 parameters from
+    seed 0: paligemma-3b at full width and depth (batch 2 x 512 text
+    tokens after its 256-patch prefix: B5's prefix-LM branch),
+    whisper-medium at full width on WHISPER_TRAIN_LAYERS layers of each
+    stack (batch 2 x WHISPER_TRAIN_SEQ tokens and as many frames: the
+    encoder's non-causal branch, the decoder's causal one). The loss and
+    gradient norm against the "jnp" route on one state (TRAIN_LOSS_REL,
+    TRAIN_GNORM_REL), every gradient leaf within FAMILY_LEAF_GAP_REL, the
+    flash launches by pass and mask branch; then AdamW steps (a warm-up
+    and TRAIN_STEPS timed)."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, LMDataIterator
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    train, lm, fkern = mods["train"], mods["lm"], mods["flash_kern"]
+    whisper = arch == "whisper-medium"
+    cfg = dataclasses.replace(
+        family_cfg(mods, arch, WHISPER_TRAIN_LAYERS if whisper else None),
+        attn_backend="cuda")
+    seq = WHISPER_TRAIN_SEQ if whisper else LM_PROMPT
+    it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=TRAIN_BATCH), cfg)
+    batches = [train.batch_to_device(next(it), dev)
+               for _ in range(TRAIN_STEPS + 2)]
+    out = {"config": {"arch": arch, "layers": cfg.num_layers,
+                      "encoder_layers": cfg.encoder_layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                      "batch": TRAIN_BATCH, "seq": seq,
+                      "prefix": cfg.vision_tokens}, "card": smi}
+    params = lm.init_lm(cfg, 0, device=dev)
+    leaves = mods["tree"].leaves
+    out["parameters"] = sum(p.numel() for p in leaves(params))
+    loss_j, _, grads_j = train.loss_and_grads(
+        params, dataclasses.replace(cfg, attn_backend="jnp"), batches[0])
+    reset_counts(*counters)
+    loss_c, _, grads = train.loss_and_grads(params, cfg, batches[0])
+    torch.cuda.synchronize()
+    once = read_counts(*counters)
+    branches = dict(fkern.BRANCH_LAUNCHES)
+    gnorm_j, gnorm_c = global_norm(grads_j).item(), global_norm(grads).item()
+    leaf_gap = max((g - gj).abs().max().item()
+                   / max(gj.abs().max().item(), 1e-30)
+                   for g, gj in zip(leaves(grads), leaves(grads_j)))
+    loss_j, loss_c = loss_j.item(), loss_c.item()
+    del params, grads, grads_j
+    torch.cuda.empty_cache()
+    n = cfg.num_layers
+    per_pass = {"non_causal": cfg.encoder_layers, "causal": n} if whisper \
+        else {"prefix_lm": n}
+    masked = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+    want_branches = {(p, b): c for p in masked for b, c in per_pass.items()}
+    attn_layers = n + cfg.encoder_layers
+    want = dict.fromkeys(masked, attn_layers)
+    want["flash_attention_bwd_sum"] = \
+        n if cfg.num_heads > cfg.num_kv_heads else 0
+    out["cuda_vs_jnp"] = {"loss_cuda": loss_c, "loss_jnp": loss_j,
+                          "grad_norm_cuda": gnorm_c, "grad_norm_jnp": gnorm_j,
+                          "max_leaf_grad_gap_rel": leaf_gap,
+                          "launches": once,
+                          "launches_by_branch": {
+                              f"{p}/{b}": c for (p, b), c in
+                              sorted(branches.items())}}
+    log(f"{arch} training, one state ({out['parameters']} float32 "
+        f"parameters, {cfg.encoder_layers} encoder + {n} decoder layers, "
+        f"batch {TRAIN_BATCH} x {seq}"
+        + (f" after {cfg.vision_tokens} patches" if cfg.vision_tokens
+           else f" and {seq} frames")
+        + f"): loss cuda {loss_c:.7f} vs jnp {loss_j:.7f} (rel "
+        f"{abs(loss_c - loss_j) / abs(loss_j):.3g}), gradient norm cuda "
+        f"{gnorm_c:.7g} vs jnp {gnorm_j:.7g} (rel "
+        f"{abs(gnorm_c - gnorm_j) / gnorm_j:.3g}), largest per-leaf "
+        f"gradient gap {leaf_gap:.3g} (limit {FAMILY_LEAF_GAP_REL}); flash "
+        f"launches {once}, by branch "
+        f"{out['cuda_vs_jnp']['launches_by_branch']} [{smi}]")
+    if abs(loss_c - loss_j) > TRAIN_LOSS_REL * abs(loss_j) or \
+            abs(gnorm_c - gnorm_j) > TRAIN_GNORM_REL * gnorm_j or \
+            leaf_gap > FAMILY_LEAF_GAP_REL or branches != want_branches or \
+            any(once[k] != v for k, v in want.items()) or \
+            not math.isfinite(loss_c):
+        raise AssertionError(f"{arch}: the cuda route differs from jnp or "
+                             f"launched other kernels: {out}; expected "
+                             f"{want}, by branch {want_branches}")
+
+    state = train.init_state(cfg, 0, device=dev)
+    step_fn = train.make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    state, _ = step_fn(state, batches[0])                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters)
+    step_ms, losses = [], []
+    for batch in batches[1:1 + TRAIN_STEPS]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+    launches = read_counts(*counters)
+    if any(launches[k] != v * TRAIN_STEPS for k, v in want.items()) or any(
+            launches[k] for k in launches if k not in want) or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{arch} training launches {launches} "
+                             f"(expected {want} per step and no other "
+                             f"kernel), losses {losses}")
+    med = statistics.median(step_ms)
+    out.update({"step_ms": step_ms, "step_ms_median": med,
+                "tokens_per_s": TRAIN_BATCH * seq / (med / 1e3),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "losses": losses, "launches": launches,
+                "launches_per_step": want})
+    log(f"{arch} training (AdamW, attn cuda): step "
+        + ", ".join(f"{t:.3f}" for t in step_ms)
+        + f" ms, {out['tokens_per_s']:.1f} text tokens/s, peak device "
+        f"memory {out['peak_bytes'] / 2 ** 30:.3f} GiB, losses "
+        + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; flash launches per step {want} [{smi}]")
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Plan persistence and continuous batching: qwen3-4b at full width
 # ---------------------------------------------------------------------------
 QWEN3 = "qwen3-4b"
 # the continuous path: slots, a Poisson trace (prompts 128-512, 4-16 new
 # tokens: serve_continuous's quarter-to-full ranges) and its variants
-# (8 requests since the sharded-training phase came, 32 before: the
-# continuous, ABFT and mesh runs each serve the whole trace, host-bound)
-CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 8, 0.5
+# (6 requests since whisper-medium and paligemma-3b were served too, 8
+# since the sharded-training phase came, 32 before: the continuous, ABFT
+# and mesh runs each serve the whole trace, host-bound)
+CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 6, 0.5
 CONT_CHUNK, CONT_PREFIX_CACHE, CONT_SHARED_PREFIX = 64, 16, 128
 CONT_WINDOW = 4            # sync_every of the fused-window variant
 CONT_VARIANT_REQUESTS = 6  # the trace's first requests, for variants
@@ -2713,7 +3020,7 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
     """(g) ``serve_continuous(qwen3-4b, ...)`` at full width through the
     plans (f) saved: the entry point draws the weights for their digest
     and restores the plans (set-up timed, with the sha256 time of the
-    load's reader threads), then serves 8 slots with 8 Poisson requests at 0.5
+    load's reader threads), then serves 8 slots with 6 Poisson requests at 0.5
     per step (seed 0), prompts 128-512, 4-16 new tokens: B1 launches by
     route (whole prefill on the wgmma route, decode at M = 8 on the
     small-M route), tokens/s, TTFT and latency percentiles, prefill ms
@@ -2951,7 +3258,7 @@ def qwen3_reliability_phase(torch, dev, mods, counters, cfg, params, base,
                             cont, smi):
     """(h) ABFT-verified continuous serving at full width: the restored
     plans (g) programmed once more with ``verify="always"``, then the
-    continuous trace of (g) (8 slots, 8 Poisson requests at 0.5 per step,
+    continuous trace of (g) (8 slots, 6 Poisson requests at 0.5 per step,
     seed 0) through ``ContinuousScheduler(..., reliability=)``: verify off,
     ``sample`` and ``always`` on clean plans, then ``always`` under
     REL_FAULTS (the default policy: repair after one strike, degrade
@@ -5092,6 +5399,9 @@ def main() -> int:
              f"{b1['decode_bound_ms']:.3f} ms); library_ms covers the "
              "prefill shapes (torch._int_mm takes M > 16)")))
     mark("moonshot")
+    families = {arch: family_serve_path(torch, dev, mods, counters, arch, smi)
+                for arch in FAMILIES}
+    mark("whisper and paligemma served")
     mods.update({"serving": serving, "engine": engine, "ckpt": ckpt,
                  "reliability": reliability, "analog_kern": akern})
     qwen3, qwen3_cont, qwen3_rel = qwen3_phases(torch, dev, mods, counters,
@@ -5130,6 +5440,10 @@ def main() -> int:
                              training["launches"], flash_err)
     restart = restart_phase(train)
     mark("training and restart")
+    families_trained = {
+        arch: family_train_path(torch, dev, mods, counters, arch, smi)
+        for arch in FAMILIES}
+    mark("whisper and paligemma trained")
     train_mesh = train_mesh_phase(torch, dev, mods, smi)
     mark("training mesh")
     phase_s = {name: round(t - prev, 1) for (name, t), (_, prev) in
@@ -5153,6 +5467,8 @@ def main() -> int:
              "hymba": listed(hymba), "hymba_shapes": lm_rows,
              "serve_entry": entry, "mamba2": mamba2,
              "moonshot": listed(moonshot), "moonshot_shapes": moe_rows,
+             "families_served": families,
+             "families_trained": families_trained,
              "qwen3_persist": qwen3, "qwen3_continuous": listed(qwen3_cont),
              "qwen3_shapes": q_rows,
              "qwen3_reliability": listed(qwen3_rel),

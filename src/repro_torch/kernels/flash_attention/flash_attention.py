@@ -12,7 +12,9 @@ sum of each kv head's query heads.
 
 Each kernel has its own wrapper, which checks device, dtype, shape and
 contiguity, allocates the outputs, launches on PyTorch's current stream,
-raises on a launch error and adds one to its entry of ``LAUNCHES``.
+raises on a launch error and adds one to its entry of ``LAUNCHES`` (the
+masked passes also to their (pass, mask branch) entry of
+``BRANCH_LAUNCHES``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkv": 0,
                             "flash_attention_bwd_sum": 0}
+# the masked passes' launches by (pass, mask branch): counted beside
+# LAUNCHES, in the same place
+BRANCH_LAUNCHES: Dict[Tuple[str, str], int] = {}
 MAX_D = 256   # the kernels' columns per lane are compiled for D <= 256
 
 _PTR = ctypes.c_void_p
@@ -36,6 +41,24 @@ _INT = ctypes.c_int
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    BRANCH_LAUNCHES.clear()
+
+
+def mask_branch(causal: bool, window: int, prefix_len: int) -> str:
+    """The mask's branch: ``non_causal`` (no mask), ``prefix_lm`` (causal
+    with a bidirectional prefix), ``window`` (causal, sliding) or
+    ``causal``."""
+    if not causal:
+        return "non_causal"
+    if prefix_len:
+        return "prefix_lm"
+    return "window" if window else "causal"
+
+
+def _count(name: str, causal: bool, window: int, prefix_len: int) -> None:
+    LAUNCHES[name] += 1
+    key = (name, mask_branch(causal, window, prefix_len))
+    BRANCH_LAUNCHES[key] = BRANCH_LAUNCHES.get(key, 0) + 1
 
 
 def _library() -> ctypes.CDLL:
@@ -118,7 +141,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         smem = lib.flash_smem_bytes(5 if q.dtype == torch.bfloat16 else 0, d)
         runtime.check(lib, rc, f"flash_fwd (d={d}: {smem} bytes of shared "
                                "memory per block)")
-    LAUNCHES["flash_attention_fwd"] += 1
+    _count("flash_attention_fwd", causal, window, prefix_len)
     return o, lse
 
 
@@ -158,7 +181,7 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
         runtime.check(lib, rc, f"flash_bwd_dq (d={d}: "
                                f"{lib.flash_smem_bytes(1, d)} bytes of "
                                "shared memory per block)")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    _count("flash_attention_bwd_dq", causal, window, prefix_len)
     return dq, delta
 
 
@@ -189,7 +212,7 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
         runtime.check(lib, rc, f"flash_bwd_dkv (d={d}: "
                                f"{lib.flash_smem_bytes(2, d)} bytes of "
                                "shared memory per block)")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    _count("flash_attention_bwd_dkv", causal, window, prefix_len)
     return dk, dv
 
 

@@ -12,8 +12,9 @@ Two serving modes:
     the same programmed plans, prefill interleaved with in-flight decode,
     retired slots refilled immediately.
 
-With ``--pim``, the attention (q/k/v/o), MLP and shared-expert
-(up/gate/down) projections of every layer are *programmed once* into
+With ``--pim``, the attention (q/k/v/o; an encoder's layers and a
+decoder's cross-attention too), MLP and shared-expert (up/gate/down)
+projections of every layer are *programmed once* into
 planned 'OPCM' form through :mod:`repro_torch.engine` (4-bit cells by
 default, nibble-decomposed and pre-padded), one ``DensePlan`` per layer,
 and every MoE expert stack into one ``ExpertStackedPlan`` per layer; the
@@ -22,7 +23,9 @@ serving matmuls drive activations past them on the substrate named by
 ``--pim-substrate`` (default ``exact-cuda``, the hand-written kernel; the
 JAX names are accepted). Weights the engine does not cover (SSM
 projections, embedding tables) are fake-quantized instead, so every
-substrate still models their cell-density quantization. ``--plan-dir
+substrate still models their cell-density quantization (the VLM's patch
+projector ``vproj_dh`` too: a float matmul on fake-quantized weights, as
+in the JAX package). ``--plan-dir
 DIR`` persists the programmed tree (:func:`repro_torch.engine.save_plans`)
 so that a restart restores it instead of programming again. An OPIMA
 hardware latency/energy estimate is reported next to the wall-clock
@@ -36,6 +39,12 @@ degradation machine replays each dispatch that trips a check on the
 golden ``exact-cuda`` fallback; ``--chaos-check`` first serves the trace
 fault-free and asserts the injected run's tokens equal it, with a
 detection for any detectable fault.
+
+The encoder-decoder (whisper) and the VLM prefix (paligemma) serve in
+static mode: the request's stub frames or patches are drawn after its
+tokens (:func:`request_inputs`), and :func:`static_loop` counts the VLM's
+prefix in the cache's positions. Continuous batching and meshes refuse
+them (ROADMAP A6b for the mesh).
 
 Meshes (``--mesh DP,TP``, :mod:`repro_torch.launch.mesh`): one process
 per rank, started by a launcher (``torchrun --standalone --nproc-per-node
@@ -52,6 +61,8 @@ capture decode in a CUDA graph).
 
 Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --batch 8 --prompt-len 512 --gen 16 --pim
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
       --batch 8 --prompt-len 512 --gen 16 --pim
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --pim --plan-dir /path/to/plans --continuous --num-slots 8 \
@@ -72,7 +83,7 @@ import json
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,8 +98,9 @@ from repro_torch.core.workloads import DenseSpec
 from repro_torch.engine import mesh as mesh_mod
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_serve_mesh
-from repro_torch.models.lm import (decode_step, init_lm, layer_trees,
-                                   prefill, stack_layers)
+from repro_torch.models.lm import (check_mesh_supported, decode_step,
+                                   init_lm, layer_trees, prefill,
+                                   stack_layers)
 from repro_torch.quant.quantize import fake_quantize
 
 # Weight suffixes the PIM deployment touches (layers.py naming
@@ -100,6 +112,9 @@ _PLANNED_PROJ_SUFFIXES = ("_dh", "_hd")
 _EXPERT_STACK_SUFFIXES = ("_edf", "_efd")
 # Blocks whose weights are planned (nested dicts are walked).
 _PLANNED_BLOCKS = ("attn", "xattn", "mlp", "moe")
+# The layer stacks of an LM's parameter tree: the decoder's and the
+# encoder's.
+_LAYER_STACKS = ("layers", "enc_layers")
 
 
 def _will_plan(keys: Sequence[str], name: str, x) -> bool:
@@ -171,10 +186,11 @@ def plan_layer(layer, cfg: PimConfig, prefix: Sequence[str] = ("layers",)):
 def plan_params_for_pim(params, cfg: PimConfig):
     """Program the deployable weights into planned 'OPCM' form.
 
-    Each layer of the stacked layer tree goes through :func:`plan_layer`,
-    so every (L, K, N) projection becomes a list of L plans and every
-    (L, E, K, N) expert stack a list of L expert-stacked plans
-    (``lm.layer_trees`` takes the lists' entries per layer,
+    Each layer of the stacked layer trees (the decoder's ``layers``, an
+    encoder's ``enc_layers``) goes through :func:`plan_layer`, tagged
+    with its stack's key, so every (L, K, N) projection becomes a list of
+    L plans and every (L, E, K, N) expert stack a list of L expert-stacked
+    plans (``lm.layer_trees`` takes the lists' entries per layer,
     ``layers.proj`` and ``moe.moe_apply`` dispatch them onto the engine).
     Quantize + nibble-decompose + kernel pre-pad happen here, once. The
     embedding tables are fake-quantized per output column. Serving's
@@ -187,7 +203,7 @@ def plan_params_for_pim(params, cfg: PimConfig):
         return stack_layers([plan_layer(lp, cfg, (key,))
                              for lp in layer_trees(layers, len(n))])
 
-    return {k: plan_layers(v, k) if k in ("layers", "enc_layers")
+    return {k: plan_layers(v, k) if k in _LAYER_STACKS
             else _quantize_leaf(k, v, cfg) for k, v in params.items()}
 
 
@@ -282,8 +298,8 @@ def _program(cfg: ModelConfig, pim_cfg: PimConfig, device, mesh=None):
     more than one layer of whole plans."""
     replicated = []
 
-    def layer_fn(layer):
-        planned = plan_layer(layer, pim_cfg)
+    def layer_fn(layer, stack):
+        planned = plan_layer(layer, pim_cfg, (stack,))
         if mesh is None:
             return planned
         planned, names = mesh_mod.place_plan_tree(planned, mesh)
@@ -294,7 +310,7 @@ def _program(cfg: ModelConfig, pim_cfg: PimConfig, device, mesh=None):
     params = init_lm(cfg, 0, device=device, layer_fn=layer_fn)
     if mesh is not None:
         mesh_mod.report_replicated(replicated, mesh)
-    return {k: v if k == "layers" else _quantize_leaf(k, v, pim_cfg)
+    return {k: v if k in _LAYER_STACKS else _quantize_leaf(k, v, pim_cfg)
             for k, v in params.items()}
 
 
@@ -331,8 +347,8 @@ def _params_digest(cfg: ModelConfig, device) -> str:
         updates.append(queues[key].submit(hashers[key].update,
                                           arr.reshape(-1).view(np.uint8)))
 
-    def hash_layer(layer):
-        for key, t in _dict_leaves(layer, ("layers",)):
+    def hash_layer(layer, stack):
+        for key, t in _dict_leaves(layer, (stack,)):
             feed(key, t)
         return {}
 
@@ -427,12 +443,14 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
     else, on its own device. Returns ``(cfg, params, substrate, pim_cfg,
     mesh)``, ``mesh`` None without a spec."""
     _not_ported(compile_cache_dir)
-    mesh = make_serve_mesh(mesh_spec, device) if mesh_spec else None
-    device = mesh.device if mesh is not None else resolve_device(device)
     cfg = get_config(arch)
     if layers or d_model:
         cfg = cfg.reduced(num_layers=layers or 2, d_model=d_model or 64,
                           vocab=min(cfg.vocab_size, 512))
+    if mesh_spec:
+        check_mesh_supported(cfg)
+    mesh = make_serve_mesh(mesh_spec, device) if mesh_spec else None
+    device = mesh.device if mesh is not None else resolve_device(device)
     substrate = _resolve_substrate(pim_substrate, pim_emulate)
     pim_cfg = PimConfig(weight_bits=pim_bits, act_bits=pim_bits,
                         substrate=substrate, verify=abft)
@@ -493,25 +511,54 @@ class _Clock:
         return start.elapsed_time(end) / 1e3
 
 
+def request_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The static request's inputs as the JAX package's serve draws them,
+    all from one ``np.random.default_rng(0)``: the (batch, prompt_len)
+    tokens, then the VLM's stub patches (batch, vision_tokens, vision_dim)
+    and the encoder's stub frames (batch, prompt_len, d_model: the frames
+    are as long as the prompt), both float32. Returns (tokens, the other
+    inputs by batch key)."""
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(batch, prompt_len))).to(device)
+    normal = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    inputs: Dict[str, torch.Tensor] = {}
+    if cfg.vision_tokens:
+        inputs["patches"] = normal(batch, cfg.vision_tokens, cfg.vision_dim)
+    if cfg.encoder_layers:
+        inputs["frames"] = normal(batch, prompt_len, cfg.d_model)
+    return tokens, inputs
+
+
 def static_loop(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
-                max_len: Optional[int] = None):
-    """The static serving loop: prefill the (B, S) prompt batch, then
-    ``gen`` greedy lock-step decode steps. Tokens stay on the device
+                max_len: Optional[int] = None,
+                inputs: Optional[Dict[str, torch.Tensor]] = None):
+    """The static serving loop: prefill the (B, S) prompt batch (with
+    ``inputs``, the batch's other entries: the VLM's ``patches``, the
+    encoder's ``frames``), then ``gen`` greedy lock-step decode steps. The
+    VLM's prefix takes cache positions before the prompt's: ``max_len``
+    defaults to S + prefix + ``gen`` and decode step g runs at position
+    S + prefix + g, as in the JAX package. Tokens stay on the device
     until the loop ends. Returns ``(generated (B, gen) tensor on the
     device, prefill seconds, decode seconds, prefill logits)``; on a card
     the times come from CUDA events around each phase."""
-    prompt_len = tokens.shape[1]
-    max_len = prompt_len + gen if max_len is None else max_len
+    batch = dict(inputs or {}, tokens=tokens)
+    start = tokens.shape[1]
+    if cfg.vision_tokens and "patches" in batch:
+        start += batch["patches"].shape[1]
+    max_len = start + gen if max_len is None else max_len
     clock = _Clock(tokens.device)
     t0 = clock.mark()
-    logits, cache = prefill(params, cfg, {"tokens": tokens}, max_len)
+    logits, cache = prefill(params, cfg, batch, max_len)
     t1 = clock.mark()
     first = logits
     out_tokens = []
     tok = torch.argmax(logits, -1)[:, None]
     for g in range(gen):
         out_tokens.append(tok)
-        logits, cache = decode_step(params, cfg, cache, tok, prompt_len + g)
+        logits, cache = decode_step(params, cfg, cache, tok, start + g)
         tok = torch.argmax(logits, -1)[:, None]
     t2 = clock.mark()
     generated = torch.cat(out_tokens, dim=1) if out_tokens else \
@@ -541,10 +588,9 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 16, gen: int = 8,
         plan_dir, mesh_spec=mesh, compile_cache_dir=compile_cache_dir,
         device=device)
     dev = dev_mesh.device if dev_mesh is not None else resolve_device(device)
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(batch, prompt_len))).to(dev)
-    generated, t_prefill, t_decode, _ = static_loop(params, cfg, tokens, gen)
+    tokens, inputs = request_inputs(cfg, batch, prompt_len, dev)
+    generated, t_prefill, t_decode, _ = static_loop(params, cfg, tokens, gen,
+                                                    inputs=inputs)
     total_s = t_prefill + t_decode
     generated = generated.cpu().numpy()
 

@@ -63,7 +63,8 @@ from repro_torch.distributed.sharding import (DATA_AXES, PartitionSpec as P,
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.layers import vocab_shard
-from repro_torch.models.lm import forward, init_lm, table_name
+from repro_torch.models.lm import (check_mesh_supported, forward, init_lm,
+                                   table_name)
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
                                      adamw_update)
 from repro_torch.optim.compression import (compress_grads, decompress_grads,
@@ -79,14 +80,17 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy, plus the MoE router losses for MoE
-    configs (``1e-2 * lb + 1e-3 * z``, with ``moe_lb`` among the metrics),
-    as in the JAX package. The target logit is taken with
+    """Mean next-token cross-entropy over the text positions (the VLM's
+    prefix positions' logits are dropped), plus the MoE router losses for
+    MoE configs (``1e-2 * lb + 1e-3 * z``, with ``moe_lb`` among the
+    metrics), as in the JAX package. The target logit is taken with
     ``torch.gather``: the JAX package contracts a one-hot over the vocab
     (shard-friendly there), which gives the same value, one product by 1
     plus exact zeros, but would add a (B*S, V) float32 tensor here. Under
     sharded training the cross-entropy is vocab-parallel."""
     logits, aux = forward(params, cfg, batch)
+    if cfg.vision_tokens and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:, :]   # text positions
     name = table_name(cfg)
     nll = cross_entropy(logits, batch["targets"],
                         vocab_shard(params[name], name))
@@ -302,7 +306,9 @@ def sharded_loss_and_grads(cfg: ModelConfig, mesh):
     each takes its block where the data axes divide it). The gradients
     are this rank's slices of the whole batch's gradient (averaged over
     the data ranks) and the loss is the global one. ``fn.splits`` marks
-    the leaves stored split over ``model``."""
+    the leaves stored split over ``model``. Raises for the
+    encoder-decoder and the VLM prefix (ROADMAP A6b)."""
+    check_mesh_supported(cfg)
     template = param_template(cfg)
     table = split_table(mesh, template)
 
@@ -405,6 +411,8 @@ def train_loop(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
                           vocab=min(cfg.vocab_size, 512))
     if attn_backend is not None:
         cfg = dataclasses.replace(cfg, attn_backend=attn_backend)
+    if mesh is not None:
+        check_mesh_supported(cfg)
     if isinstance(mesh, str):
         mesh = make_mesh(mesh, device, module="repro_torch.launch.train")
     dev = resolve_device(device) if mesh is None else mesh.device

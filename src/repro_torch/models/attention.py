@@ -1,6 +1,6 @@
 """Attention: GQA/MQA, qk-norm, QKV bias, sliding windows, RoPE; full and
-blockwise prefill and the KV-cache decode path (counterpart of
-``repro/models/attention.py``).
+blockwise prefill, the KV-cache decode path and the encoder-decoder
+cross-attention (counterpart of ``repro/models/attention.py``).
 
 All q/k/v/o projections go through :func:`repro_torch.models.layers.proj`,
 so projections programmed into PIM plans run on the plan's substrate.
@@ -320,3 +320,41 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder cross-attention (whisper)
+# ---------------------------------------------------------------------------
+def cross_attention_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                          num_heads: int, num_kv_heads: int, head_dim: int,
+                          return_kv: bool = False):
+    """Decoder queries over the encoder's output: no RoPE, no mask. K and
+    V are projected from ``enc_out`` here (float32 in prefill; the caller
+    stores them in the cache's dtype). Plain tensor ops around ``proj``,
+    as the JAX package computes it (its query and key lengths differ, and
+    it reaches no Pallas kernel)."""
+    b, s, _ = x.shape
+    t = enc_out.shape[1]
+    q = proj(x, p["wq_dh"]).reshape(b, s, num_heads, head_dim)
+    k = proj(enc_out, p["wk_dh"]).reshape(b, t, num_kv_heads, head_dim)
+    v = proj(enc_out, p["wv_dh"]).reshape(b, t, num_kv_heads, head_dim)
+    mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask).reshape(b, s, num_heads * head_dim)
+    out = proj(out, p["wo_hd"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def cross_attention_decode(p: Params, x: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor, num_heads: int,
+                           num_kv_heads: int, head_dim: int) -> torch.Tensor:
+    """Decode-time cross-attention against the encoder K/V that prefill
+    stored in the cache (in the cache's dtype, read as stored: a bf16
+    cache gives bf16 probabilities and output, as in JAX)."""
+    b, s, _ = x.shape
+    t = xk.shape[1]
+    q = proj(x, p["wq_dh"]).reshape(b, s, num_heads, head_dim)
+    mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, xk, xv, mask).reshape(b, s, num_heads * head_dim)
+    return proj(out, p["wo_hd"])

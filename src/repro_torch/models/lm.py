@@ -1,33 +1,51 @@
-"""The LM stack for the dense, MoE, SSM and hybrid architectures
-(counterpart of ``repro/models/lm.py``).
+"""The LM stack for every assigned architecture (counterpart of
+``repro/models/lm.py``).
 
-One parameterized decoder covering dense GQA/MQA attention (qk-norm, QKV
-bias, sliding windows, RoPE), gated MLPs or MoE FFNs (top-k routed
-experts, optional shared experts: :mod:`repro_torch.models.moe`), Mamba2
-SSD layers and hymba-style parallel attention + SSM blocks. Layer
-parameters are stacked along a leading layer axis, as in the JAX
-package, and the layers run as a Python loop over it
-(:func:`layer_trees` splits every stacked leaf once per call with
-``torch.unbind``; a leaf that is a list, such as the per-layer plans of
-``plan_params_for_pim``, gives its entries). Per-layer sliding windows
-are Python ints, so ``forward`` with ``attn_backend="cuda"`` reaches the
-flash-attention kernel (forward and backward), which JAX's scan over a
-traced window array never does. ``prefill`` passes no backend, as in the
-JAX package. ``cfg.remat`` checkpoints each layer
+One parameterized decoder (and an optional encoder) covering dense
+GQA/MQA attention (qk-norm, QKV bias, sliding windows, RoPE), gated MLPs
+or MoE FFNs (top-k routed experts, optional shared experts:
+:mod:`repro_torch.models.moe`), Mamba2 SSD layers, hymba-style parallel
+attention + SSM blocks, the whisper-style encoder-decoder with
+cross-attention and the paligemma-style VLM prefix (stub patch
+embeddings through the ``vproj_dh`` projector). Layer parameters are
+stacked along a leading layer axis, as in the JAX package, and the layers
+run as a Python loop over it (:func:`layer_trees` splits every stacked
+leaf once per call with ``torch.unbind``; a leaf that is a list, such as
+the per-layer plans of ``plan_params_for_pim``, gives its entries).
+Per-layer sliding windows are Python ints, so ``forward`` with
+``attn_backend="cuda"`` reaches the flash-attention kernel (forward and
+backward), which JAX's scan over a traced window array never does.
+``prefill`` passes no backend to the decoder's attention, as in the JAX
+package. ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``), the counterpart of ``jax.checkpoint``.
+
+The two input families thread through every layer as JAX threads them:
+- ``prefix_len``: :func:`_embed_inputs` puts ``patches @ vproj_dh`` before
+  the token embeddings and returns the patch count, and each decoder
+  layer's self-attention takes it as a prefix-LM mask (the prefix's
+  positions attend to each other in both directions). The logits cover the
+  prefix positions too; the loss drops them
+  (``launch.train.lm_loss``), and a cache's positions count them.
+- ``enc_out``: :func:`encode` runs the encoder stack on ``frames``
+  (non-causal, window 0 on every layer, ``cfg.attn_backend`` passed on)
+  and each decoder layer cross-attends to its output after the mixer
+  (``lnx_d``, ``xattn``). ``prefill`` stores the cross-attention's K/V in
+  the cache (``xk``/``xv``, in ``cache_dtype``); ``decode_step`` reads
+  them there.
+``prefill_chunk`` refuses both families, as in the JAX package.
 
 Under a training ``ShardingContext`` (``launch.train.make_train_step(...,
 mesh=)``) ``forward`` runs this rank's part of a tensor-parallel step:
 the layers' call sites name their leaves, the embedding is vocab-parallel
 and the logits it returns are this rank's block of the vocab, masked at
-the block's offset (``launch.train.cross_entropy`` reduces them).
-
-Not ported yet, and raising: the encoder-decoder with cross-attention
-(whisper) and the VLM prefix (paligemma) (ROADMAP A6).
+the block's offset (``launch.train.cross_entropy`` reduces them). The
+encoder-decoder and the VLM prefix have no mesh route
+(:func:`check_mesh_supported`; ROADMAP A6b).
 
 API:
   init_lm(cfg, gen, device[, layer_fn])       -> params
   forward(params, cfg, batch)                 -> logits, aux
+  encode(params, cfg, frames)                 -> encoder output
   prefill(params, cfg, batch, max_len)        -> logits, cache
   prefill_chunk(params, cfg, cache, tok, at)  -> logits, cache
   decode_step(params, cfg, cache, token, idx) -> logits, cache
@@ -45,31 +63,35 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.layers import (Params, embed, embedding_init,
+from repro_torch.models.layers import (Params, dense_init, embed,
+                                       embedding_init, matmul_promote,
                                        mlp_apply, mlp_init, rms_norm,
                                        unembed, vocab_shard)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the JAX LM stack the port does not have."""
-    if cfg.encoder_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder with cross-attention is not "
-            "ported yet (ROADMAP A6, whisper)")
-    if cfg.vision_tokens > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the VLM prefix is not ported yet (ROADMAP A6, "
-            "paligemma)")
+    """Raise for a block type the LM stack does not know."""
     if cfg.block_type not in ("attn", "ssm", "hybrid"):
         raise ValueError(f"unknown block_type {cfg.block_type!r}")
+
+
+def check_mesh_supported(cfg: ModelConfig) -> None:
+    """Raise for the families that have no mesh route: neither
+    cross-attention nor the patch projector ``vproj_dh`` has a split
+    route."""
+    if cfg.encoder_layers or cfg.vision_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder and the VLM prefix do not run "
+            "on a mesh yet (ROADMAP A6b)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, device,
+                cross_attention: bool = False) -> Params:
     p: Params = {"ln1_d": torch.zeros((cfg.d_model,), device=device)}
-    if cfg.block_type in ("attn", "hybrid"):
+    if cfg.block_type in ("attn", "hybrid") or cross_attention:
         p["attn"] = attn.attention_init(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias, device=device)
@@ -77,6 +99,11 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
         p["ssm"] = ssm_mod.ssm_init(
             gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
             cfg.ssm_head_dim, cfg.ssm_groups, device=device)
+    if cross_attention:
+        p["lnx_d"] = torch.zeros((cfg.d_model,), device=device)
+        p["xattn"] = attn.attention_init(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            device=device)
     if cfg.d_ff > 0 or cfg.is_moe:
         p["ln2_d"] = torch.zeros((cfg.d_model,), device=device)
         if cfg.is_moe:
@@ -106,29 +133,45 @@ def init_lm(cfg: ModelConfig, gen: Union[int, torch.Generator],
     """Random parameters from ``gen`` (a ``torch.Generator`` on
     ``device``, or an int seed for one), layers stacked along a leading
     axis. ``device=None`` means CUDA. The numbers are drawn in a fixed
-    order: the embedding, the layers in order, the unembedding.
+    order, that of the JAX package's key split: the embedding, the
+    decoder layers in order (with cross-attention when the config has an
+    encoder), the unembedding, the encoder layers in order, the patch
+    projector ``vproj_dh``.
 
-    ``layer_fn``, if given, maps each layer's tree as soon as it is drawn
-    (serving programs it into plans there), so only one layer's float
-    weights exist at a time; the result equals mapping every layer of the
-    stacked tree afterwards, bit for bit."""
+    ``layer_fn``, if given, maps each layer's tree as soon as it is drawn,
+    called as ``layer_fn(tree, stack)`` with ``stack`` the stack's key
+    (``"layers"`` or ``"enc_layers"``; serving programs the layer into
+    plans there), so only one layer's float weights exist at a time; the
+    result equals mapping every layer of the stacked trees afterwards,
+    bit for bit."""
     check_supported(cfg)
     device = resolve_device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=device).manual_seed(int(gen))
+
+    def stack(key, n, cross_attention=False):
+        layers = []
+        for _ in range(n):
+            layer = _init_layer(cfg, gen, device, cross_attention)
+            layers.append(layer if layer_fn is None else layer_fn(layer, key))
+        return stack_layers(layers)
+
     params: Params = {
         "embed_vd": embedding_init(gen, cfg.padded_vocab, cfg.d_model,
                                    device=device),
         "final_norm_d": torch.zeros((cfg.d_model,), device=device),
     }
-    layers = []
-    for _ in range(cfg.num_layers):
-        layer = _init_layer(cfg, gen, device)
-        layers.append(layer if layer_fn is None else layer_fn(layer))
-    params["layers"] = stack_layers(layers)
+    params["layers"] = stack("layers", cfg.num_layers,
+                             cross_attention=cfg.encoder_layers > 0)
     if not cfg.tie_embeddings:
         params["unembed_vd"] = embedding_init(gen, cfg.padded_vocab,
                                               cfg.d_model, device=device)
+    if cfg.encoder_layers:
+        params["enc_layers"] = stack("enc_layers", cfg.encoder_layers)
+        params["enc_norm_d"] = torch.zeros((cfg.d_model,), device=device)
+    if cfg.vision_tokens:
+        params["vproj_dh"] = dense_init(gen, cfg.vision_dim, cfg.d_model,
+                                        device=device)
     return params
 
 
@@ -187,75 +230,126 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# forward (training)
+# forward (training) / encoder
 # ---------------------------------------------------------------------------
 def _decoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   positions: torch.Tensor, window: int
-                   ) -> Tuple[torch.Tensor, dict]:
+                   positions: torch.Tensor, window: int, prefix_len: int = 0,
+                   enc_out: Optional[torch.Tensor] = None,
+                   causal: bool = True) -> Tuple[torch.Tensor, dict]:
     aux: dict = {}
     h = rms_norm(x, p["ln1_d"], cfg.norm_eps)
     outs = []
     if cfg.block_type in ("attn", "hybrid"):
         outs.append(attn.attention_block(
             p["attn"], h, positions, cfg.num_heads, cfg.num_kv_heads,
-            cfg.head_dim, cfg.rope_theta, window=window, causal=True,
+            cfg.head_dim, cfg.rope_theta, window=window, causal=causal,
             norm_eps=cfg.norm_eps, block=cfg.attn_block,
             blockwise_threshold=cfg.blockwise_threshold,
-            backend=cfg.attn_backend))
+            prefix_len=prefix_len, backend=cfg.attn_backend))
     if cfg.block_type in ("ssm", "hybrid"):
         outs.append(ssm_mod.ssm_apply(
             p["ssm"], h, cfg.ssm_state, cfg.ssm_expand, cfg.ssm_head_dim,
             cfg.ssm_groups, backend=cfg.ssd_backend, chunk=cfg.ssd_chunk))
     x = x + _mix(outs)
+    if enc_out is not None:
+        h = rms_norm(x, p["lnx_d"], cfg.norm_eps)
+        x = x + attn.cross_attention_block(
+            p["xattn"], h, enc_out, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim)
     if "ln2_d" in p:
         h = rms_norm(x, p["ln2_d"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h, aux)
     return x, aux
 
 
-def _embed_inputs(params: Params, batch: Dict[str, Any]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    tokens = batch["tokens"]
-    x = embed(params["embed_vd"], tokens, "embed_vd")
-    b, s = tokens.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    return x, positions
+def _stack(cfg: ModelConfig, layers: Params, x: torch.Tensor,
+           positions: torch.Tensor, prefix_len: int,
+           enc_out: Optional[torch.Tensor], causal: bool = True,
+           num_layers: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+    """The layers of a stack in order: the decoder's (its per-layer
+    windows) or, with ``num_layers``, the encoder's (window 0 on every
+    layer); the MoE router losses summed over the layers."""
+    windows = _windows(cfg) if num_layers is None else [0] * num_layers
+    lb, z = 0.0, 0.0
+    for lp, window in zip(layer_trees(layers, len(windows)), windows):
+        if cfg.remat:
+            x, aux = checkpoint(_decoder_layer, cfg, lp, x, positions,
+                                window, prefix_len, enc_out, causal,
+                                use_reentrant=False)
+        else:
+            x, aux = _decoder_layer(cfg, lp, x, positions, window,
+                                    prefix_len, enc_out, causal)
+        lb = lb + aux.get("moe_lb_loss", 0.0)
+        z = z + aux.get("moe_z_loss", 0.0)
+    return x, {"moe_lb_loss": lb, "moe_z_loss": z}
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """The whisper encoder: ``frames`` are stub embeddings (B, S_enc,
+    d_model), taken in the parameters' dtype; bidirectional attention
+    (``causal=False``), window 0 on every layer, ``cfg.attn_backend`` as
+    the decoder's forward takes it."""
+    x = frames.to(params["enc_norm_d"].dtype)
+    x, _ = _stack(cfg, params["enc_layers"], x, _positions(x), 0, None,
+                  causal=False, num_layers=cfg.encoder_layers)
+    return rms_norm(x, params["enc_norm_d"], cfg.norm_eps)
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Token embeddings, with the VLM's projected patches before them;
+    returns (x, positions, prefix_len), prefix_len the patch count (0
+    without patches)."""
+    x = embed(params["embed_vd"], batch["tokens"], "embed_vd")
+    prefix_len = 0
+    if cfg.vision_tokens and "patches" in batch:
+        xv = matmul_promote(batch["patches"], params["vproj_dh"])
+        x = torch.cat([xv.to(x.dtype), x], dim=1)
+        prefix_len = batch["patches"].shape[1]
+    return x, _positions(x), prefix_len
+
+
+def _encoder_output(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+                    ) -> Optional[torch.Tensor]:
+    return encode(params, cfg, batch["frames"]) if cfg.encoder_layers \
+        else None
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, dict]:
-    """Training forward. batch: tokens (B, S). Returns (logits (B, S, V),
-    aux); aux holds the MoE router losses summed over the layers (0.0
+    """Training forward. batch: tokens (B, S) [+ patches (B, P, vision_dim)
+    | frames (B, S_enc, d_model)]. Returns (logits (B, P + S, V), aux);
+    aux holds the MoE router losses summed over the decoder's layers (0.0
     without MoE layers), as in the JAX package. Under sharded training
     the logits are this rank's block of the vocab where the table is
     split (``layers.vocab_shard`` of the table gives its offset)."""
     check_supported(cfg)
-    x, positions = _embed_inputs(params, batch)
-    layers = layer_trees(params["layers"], cfg.num_layers)
-    lb, z = 0.0, 0.0
-    for lp, window in zip(layers, _windows(cfg)):
-        if cfg.remat:
-            x, aux = checkpoint(_decoder_layer, cfg, lp, x, positions,
-                                window, use_reentrant=False)
-        else:
-            x, aux = _decoder_layer(cfg, lp, x, positions, window)
-        lb = lb + aux.get("moe_lb_loss", 0.0)
-        z = z + aux.get("moe_z_loss", 0.0)
+    x, positions, prefix_len = _embed_inputs(params, cfg, batch)
+    enc_out = _encoder_output(params, cfg, batch)
+    x, aux = _stack(cfg, params["layers"], x, positions, prefix_len, enc_out)
     x = rms_norm(x, params["final_norm_d"], cfg.norm_eps)
     name = table_name(cfg)
     shard = vocab_shard(params[name], name)
     logits = _vocab_mask(cfg, unembed(params[name], x, name),
                          0 if shard is None else shard[2])
-    return logits, {"moe_lb_loss": lb, "moe_z_loss": z}
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """KV cache (L, B, S, kv, hd) in ``dtype`` for attention layers; SSM
-    state (L, B, H, N, P) and conv tails (L, B, CONV_K-1, conv) in f32."""
+    state (L, B, H, N, P) and conv tails (L, B, CONV_K-1, conv) in f32;
+    with an encoder, the cross-attention's K/V ``xk``/``xv`` (L, B,
+    enc_len, kv, hd) in ``dtype``."""
     check_supported(cfg)
     cache: Dict[str, torch.Tensor] = {}
     l = cfg.num_layers
@@ -271,6 +365,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                       cfg.ssm_head_dim), device=device)
         cache["conv_tail"] = torch.zeros((l, batch, ssm_mod.CONV_K - 1,
                                           conv_dim), device=device)
+    if cfg.encoder_layers:
+        xkv = attn.init_kv_cache(batch, enc_len, cfg.num_kv_heads,
+                                 cfg.head_dim, dtype, layers=l, device=device)
+        cache["xk"], cache["xv"] = xkv["k"], xkv["v"]
     return cache
 
 
@@ -278,18 +376,24 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_len: int, cache_dtype=torch.bfloat16,
             logits_index: Optional[Union[int, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Process the prompt and build the KV/SSM cache sized to
-    ``max_len``. Returns (logits (B, V) at the last position, or at
-    ``logits_index``, and the cache).
+    """Process the prompt (batch: tokens [+ patches | frames], as
+    :func:`forward` takes it) and build the cache sized to ``max_len``
+    positions, which count the VLM's prefix. Returns (logits (B, V) at the
+    last position, or at ``logits_index``, and the cache).
 
-    As in the JAX package, attention here runs the default ``"jnp"``
-    backend whatever ``cfg.attn_backend`` says; the SSM layers run
+    As in the JAX package, the decoder's attention here runs the default
+    ``"jnp"`` backend whatever ``cfg.attn_backend`` says (the encoder
+    passes it on, as :func:`encode` does); the SSM layers run
     ``cfg.ssd_backend`` (one SSD scan per SSM layer)."""
-    x, positions = _embed_inputs(params, batch)
+    x, positions, prefix_len = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     if max_len < s:
-        raise ValueError(f"cache max_len={max_len} < prompt length {s}")
-    cache = init_cache(cfg, b, max_len, dtype=cache_dtype, device=x.device)
+        raise ValueError(f"cache max_len={max_len} < prompt length {s} "
+                         f"(includes {prefix_len} prefix tokens)")
+    enc_out = _encoder_output(params, cfg, batch)
+    cache = init_cache(cfg, b, max_len,
+                       enc_len=0 if enc_out is None else enc_out.shape[1],
+                       dtype=cache_dtype, device=x.device)
     layers = layer_trees(params["layers"], cfg.num_layers)
     for i, (lp, window) in enumerate(zip(layers, _windows(cfg))):
         h = rms_norm(x, lp["ln1_d"], cfg.norm_eps)
@@ -300,7 +404,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                 cfg.head_dim, cfg.rope_theta, window=window, causal=True,
                 norm_eps=cfg.norm_eps, block=cfg.attn_block,
                 blockwise_threshold=cfg.blockwise_threshold,
-                return_kv=True)
+                prefix_len=prefix_len, return_kv=True)
             outs.append(out)
             cache["k"][i, :, :s] = k.to(cache_dtype)
             cache["v"][i, :, :s] = v.to(cache_dtype)
@@ -313,6 +417,14 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             cache["state"][i] = state
             cache["conv_tail"][i] = tail
         x = x + _mix(outs)
+        if enc_out is not None:
+            h = rms_norm(x, lp["lnx_d"], cfg.norm_eps)
+            out, (xk, xv) = attn.cross_attention_block(
+                lp["xattn"], h, enc_out, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, return_kv=True)
+            x = x + out
+            cache["xk"][i] = xk.to(cache_dtype)
+            cache["xv"][i] = xv.to(cache_dtype)
         if "ln2_d" in lp:
             h = rms_norm(x, lp["ln2_d"], cfg.norm_eps)
             x = x + _ffn(cfg, lp, h, None)
@@ -398,9 +510,11 @@ def decode_step(params: Params, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor], token: torch.Tensor,
                 index: Union[int, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token decode. token: (B, 1); index: the current position, a
-    Python int shared by the batch or a (B,) per-row tensor. The cache is
-    updated in place and returned. Returns (logits (B, V), cache)."""
+    """One-token decode. token: (B, 1); index: the current position (the
+    VLM's prefix counts), a Python int shared by the batch or a (B,)
+    per-row tensor. The cache is updated in place and returned; an
+    encoder-decoder's cross-attention reads the encoder K/V prefill
+    stored. Returns (logits (B, V), cache)."""
     x = embed(params["embed_vd"], token)
     layers = layer_trees(params["layers"], cfg.num_layers)
     for i, (lp, window) in enumerate(zip(layers, _windows(cfg))):
@@ -422,6 +536,11 @@ def decode_step(params: Params, cfg: ModelConfig,
             cache["state"][i] = st["state"]
             cache["conv_tail"][i] = st["conv_tail"]
         x = x + _mix(outs)
+        if cfg.encoder_layers:
+            h = rms_norm(x, lp["lnx_d"], cfg.norm_eps)
+            x = x + attn.cross_attention_decode(
+                lp["xattn"], h, cache["xk"][i], cache["xv"][i],
+                cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
         if "ln2_d" in lp:
             h = rms_norm(x, lp["ln2_d"], cfg.norm_eps)
             x = x + _ffn(cfg, lp, h, None)

@@ -37,7 +37,6 @@ from repro.models import layers as j_layers
 from repro.models import lm as j_lm
 from repro.models import ssm as j_ssm
 from repro_torch import convert
-from repro_torch.configs.base import get_config
 from repro_torch.core.pim import DensePlan, PimConfig
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import attention as t_attn
@@ -311,13 +310,6 @@ def test_token_stop_mask():
     want = j_lm.token_stop_mask(jnp.asarray(toks.numpy()), jnp.asarray([5, 7]))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert not bool(t_lm.token_stop_mask(toks, []).any())
-
-
-@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced(num_layers=2, d_model=64, vocab=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_lm.init_lm(cfg, 0, device="cpu")
 
 
 def test_forward_rejects_unported_attention_backend():

@@ -146,7 +146,7 @@ package. Phases, each of which raises on failure:
     step); the set-up's parts timed (digest, programming, save, sha256);
 14. continuous batching: ``serve_continuous(qwen3-4b, ...)`` through the
     same directory (its set-up restores the plans: digest, load and the
-    load's sha256 share timed) with 8 slots and 6 Poisson requests at
+    load's sha256 share timed) with 8 slots and 4 Poisson requests at
     0.5 per step (seed 0), prompts 128-512, 4-16 new tokens: launches by
     route (whole prefill on the wgmma route, decode at M = 8 on the
     small-M route, none other), tokens/s, TTFT and latency percentiles
@@ -154,7 +154,7 @@ package. Phases, each of which raises on failure:
     per step; the restored plans' static request equal to phase 13's bit
     for bit (prefill logits and tokens); on the restored plans
     ``sync_every`` 4 = 1, chunked prefill (64) = whole and a prefix-cache
-    hit = a miss (shared prefix 128) on the trace's first 6 requests,
+    hit = a miss (shared prefix 128) on the trace's 4 requests,
     four requests' streams = ``static_generate`` at the slots' shapes,
     and at 2 layers ``exact-cuda`` = ``exact-torch`` for the whole trace
     (token streams and stop reasons); one fused decode window profiled
@@ -198,7 +198,8 @@ package. Phases, each of which raises on failure:
     phase 14's bit for bit; prefill ms per request, decode ms per step
     and tokens/s beside single-device and each rank's resident and peak
     memory from that run; then a second, instrumented run of the trace's
-    first 4 requests for the collectives' time and the row split's K-block
+    first ``MESH_TRACED`` (2) requests for the collectives' time and the
+    row split's K-block
     copies;
     each split at kernel level at qwen3-4b's shapes (M = 512 and 8) equal
     to the unsplit plan and B2 to its plain version; moonshot-v1-16b-a3b
@@ -265,7 +266,25 @@ package. Phases, each of which raises on failure:
     held likewise step by step, the replicated leaves equal across the
     ranks, 26 launches of each flash kernel per rank and step at 2 query
     heads on 1 KV head; per rank the step time, the collectives per step
-    by kind and their share of a synced step, peak and resident memory.
+    by kind and their share of a synced step, peak and resident memory;
+22. the front doors: the four examples of ``examples/torch/`` that serve
+    (``quickstart``, ``cnn_pim_inference``, ``serve_pim_lm``,
+    ``continuous_serving``), each in-process at its own default sizes on
+    the card, with each one's B1, B3 and B4 launches and wall time
+    (quickstart and the CNN example reach B3 and B4 through
+    ``analog-cuda``); ``train_lm`` at its real-hardware size (12 layers,
+    d_model 768, batch 32 x 1024, ``attn_backend="cuda"``) for 50 steps,
+    which writes its step-50 checkpoint, then for 60 from the same
+    directory: it must resume from step 50, and its first loss must equal
+    (within ``FRONT_RESUME_REL``) the step-50 checkpoint's loss on the
+    data's step-50 batch, with each run's B5 launches; and the dry-run
+    (``repro_torch.launch.dryrun``), which ran in a process of its own
+    beside the other phases, on the CPU only (no card visible to it):
+    every config of ``DRYRUN_ARCHS`` x each applicable shape on the 16x16
+    ``pod`` mesh ``ok`` or ``skipped``, never ``FAILED``, and gemma3-1b's
+    ``train_4k`` cell on the ``1,2`` mesh, whose per-rank float32 state
+    bytes must equal, as integers, the real local state of each rank of
+    phase 21's 1x2 mesh.
 
 Each path's launch counts are set to 0 just before its requests and read
 just after (B1's also by route, held to what the route chooser gives the
@@ -2812,13 +2831,14 @@ def family_train_path(torch, dev, mods, counters, arch, smi):
 QWEN3 = "qwen3-4b"
 # the continuous path: slots, a Poisson trace (prompts 128-512, 4-16 new
 # tokens: serve_continuous's quarter-to-full ranges) and its variants
-# (6 requests since whisper-medium and paligemma-3b were served too, 8
-# since the sharded-training phase came, 32 before: the continuous, ABFT
-# and mesh runs each serve the whole trace, host-bound)
-CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 6, 0.5
+# (4 requests since the front-doors phase came, 6 since whisper-medium
+# and paligemma-3b were served too, 8 since the sharded-training phase
+# came, 32 before: the continuous, ABFT and mesh runs each serve the whole
+# trace, host-bound)
+CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 4, 0.5
 CONT_CHUNK, CONT_PREFIX_CACHE, CONT_SHARED_PREFIX = 64, 16, 128
 CONT_WINDOW = 4            # sync_every of the fused-window variant
-CONT_VARIANT_REQUESTS = 6  # the trace's first requests, for variants
+CONT_VARIANT_REQUESTS = 4  # the trace's first requests, for variants
 CONT_STATIC_CHECKS = 4     # requests held to their static streams
 CONT_EXACT_LAYERS = 2      # exact-cuda against exact-torch at this depth
 
@@ -3020,8 +3040,9 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
     """(g) ``serve_continuous(qwen3-4b, ...)`` at full width through the
     plans (f) saved: the entry point draws the weights for their digest
     and restores the plans (set-up timed, with the sha256 time of the
-    load's reader threads), then serves 8 slots with 6 Poisson requests at 0.5
-    per step (seed 0), prompts 128-512, 4-16 new tokens: B1 launches by
+    load's reader threads), then serves 8 slots with CONT_REQUESTS (4)
+    Poisson requests at 0.5 per step (seed 0), prompts 128-512, 4-16 new
+    tokens: B1 launches by
     route (whole prefill on the wgmma route, decode at M = 8 on the
     small-M route), tokens/s, TTFT and latency percentiles, prefill ms
     per admitted request, decode ms per step. The restored plans' static
@@ -3258,8 +3279,9 @@ def qwen3_reliability_phase(torch, dev, mods, counters, cfg, params, base,
                             cont, smi):
     """(h) ABFT-verified continuous serving at full width: the restored
     plans (g) programmed once more with ``verify="always"``, then the
-    continuous trace of (g) (8 slots, 6 Poisson requests at 0.5 per step,
-    seed 0) through ``ContinuousScheduler(..., reliability=)``: verify off,
+    continuous trace of (g) (8 slots, CONT_REQUESTS Poisson requests at
+    0.5 per step, seed 0) through
+    ``ContinuousScheduler(..., reliability=)``: verify off,
     ``sample`` and ``always`` on clean plans, then ``always`` under
     REL_FAULTS (the default policy: repair after one strike, degrade
     after three repairs) with the chaos check against the verify-off
@@ -3632,8 +3654,9 @@ def reliability_checks(torch, dev, mods):
 MESH_SPEC, MESH_RANKS = "1,2", 2
 MESH_EXACT_LAYERS = 2     # moonshot's expert split and the stamped directory
 MESH_TIMEOUT_S = 900      # both ranks' whole run, set-up included
-MESH_TRACED = 4           # requests of the instrumented second run (8
-                          # until the sharded-training phase came)
+MESH_TRACED = 2           # requests of the instrumented second run (8
+                          # until the sharded-training phase came, 4 until
+                          # the front-doors phase)
 # per layer and forward step: q, k, v, gate, up split by columns (B1), o and
 # down by rows (B2)
 MESH_COL, MESH_ROW = 5, 2
@@ -4948,6 +4971,7 @@ def train_mesh_run(torch, mods, mesh, cfg, ref):
     dev = mesh.device
     batches = gemma_batches(mods, cfg, dev, 1 + TRAIN_STEPS)
     state = train.init_state(cfg, 0, device=dev, mesh=mesh)
+    state_bytes = sum(t.nbytes for t in tree.leaves(state))
     template = train.param_template(cfg)
     heads = Counter()
     real = fops.flash_attention_cuda
@@ -4962,7 +4986,8 @@ def train_mesh_run(torch, mods, mesh, cfg, ref):
         loss, _, grads = grads_fn(state["params"], batches[0])
     out = {"loss": loss.item(),
            "grad_norm": global_norm(grads, grads_fn.splits).item(),
-           "grad_launches": read_counts(fkern), "grad_heads": dict(heads)}
+           "grad_launches": read_counts(fkern), "grad_heads": dict(heads),
+           "state_bytes": state_bytes}
     whole = train.gather_state(grads, mesh, template)
     del grads
     if mesh.rank == 0:
@@ -5227,6 +5252,227 @@ def flash_entries(rows, windows, launches, err):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The front doors: the examples, and the dry-run
+# ---------------------------------------------------------------------------
+EXAMPLES = ROOT / "examples" / "torch"
+SERVING_EXAMPLES = ("quickstart", "cnn_pim_inference", "serve_pim_lm",
+                    "continuous_serving")
+# train_lm at the size its docstring names for real hardware, cut to 50
+# steps (the hard-coded checkpoint's step), then resumed to 60
+FRONT_TRAIN = {"layers": 12, "d_model": 768, "batch": 32, "seq": 1024}
+FRONT_DEVICE = "cuda"
+FRONT_RESUME_REL = 1e-5
+# the configs chip_smoke drives, for the dry-run's pod sweep
+DRYRUN_ARCHS = ("hymba-1.5b", "mamba2-370m", "moonshot-v1-16b-a3b",
+                "whisper-medium", "paligemma-3b", "qwen3-4b", "gemma3-1b")
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_JOB = r"""
+import json, sys, time
+from repro_torch.launch import dryrun
+archs = sys.argv[2].split(",")
+t0 = time.perf_counter()
+cells = [dryrun.run_cell(a, s, "pod", save=False, verbose=False)
+         for a in archs for s in dryrun.SHAPES]
+sweep_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+mesh = dryrun.run_cell("gemma3-1b", "train_4k", "1,2", save=False,
+                       verbose=False)
+json.dump({"cells": cells, "sweep_s": sweep_s, "mesh_cell": mesh,
+           "mesh_cell_s": time.perf_counter() - t0},
+          open(sys.argv[1], "w"), default=str)
+"""
+
+
+def start_dryrun_job():
+    """Start the dry-run sweep in a process of its own, on the CPU only
+    (no card visible to it, one thread): it runs beside the card's phases
+    and :func:`front_doors_phase` collects it. Returns (process, result
+    file, log file)."""
+    import os
+    work = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    out, err = work / "dryrun.json", work / "dryrun.log"
+    with open(err, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_JOB, str(out),
+             ",".join(DRYRUN_ARCHS)], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, out, err
+
+
+def load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, name, argv, counters):
+    """One example's ``main(argv)`` on the card, in-process, its output
+    kept (and echoed): (result, output lines, launches, wall s)."""
+    import contextlib
+    import io
+    mod = load_example(name)
+    reset_counts(*counters)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts(*counters).items() if v}
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  [{name}] {line}")
+    return res, lines, launches, wall
+
+
+def front_train(torch, mods, counters, smi):
+    """``train_lm`` for 50 steps, then for 60 from the same directory: it
+    resumes from step 50 and its first loss is the step-50 checkpoint's
+    loss on the data's step-50 batch."""
+    import dataclasses
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.data.pipeline import DataConfig, LMDataIterator
+    train = mods["train"]
+    size = FRONT_TRAIN
+    ck = Path(tempfile.mkdtemp(prefix="train_lm_"))
+    try:
+        args = ["--layers", str(size["layers"]), "--d-model",
+                str(size["d_model"]), "--batch", str(size["batch"]),
+                "--seq", str(size["seq"]), "--attn-backend", "cuda",
+                "--device", FRONT_DEVICE, "--ckpt-dir", str(ck)]
+        first, _, l1, w1 = run_example(torch, "train_lm",
+                                       ["--steps", "50"] + args, counters)
+        second, lines, l2, w2 = run_example(torch, "train_lm",
+                                            ["--steps", "60"] + args,
+                                            counters)
+        if "[train] resumed from step 50" not in lines:
+            raise AssertionError(f"train_lm did not resume from step 50: "
+                                 f"{lines[:3]}")
+        cfg = mods["configs"].get_config("gemma3-1b").reduced(
+            num_layers=size["layers"], d_model=size["d_model"], vocab=512)
+        cfg = dataclasses.replace(cfg, attn_backend="cuda")
+        blank = train.init_state(cfg, 0, device=FRONT_DEVICE)
+        state, step, extras = restore_checkpoint(str(ck), blank)
+        it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=size["seq"],
+                                       global_batch=size["batch"]), cfg)
+        it.restore(extras["data_step"])
+        with torch.no_grad():
+            _, m = train.lm_loss(state["params"], cfg, train.batch_to_device(
+                next(it), FRONT_DEVICE))
+        want = m["loss"].item()
+        del state, blank
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    gap = abs(second["first_loss"] - want) / abs(want)
+    log(f"front doors, train_lm (gemma3-1b reduced to {size['layers']} "
+        f"layers, d_model {size['d_model']}, batch {size['batch']} x "
+        f"{size['seq']}, attn cuda; {smi}): 50 steps {w1:.1f} s, "
+        f"loss {first['first_loss']:.4f} -> {first['last_loss']:.4f}, B5 "
+        f"{l1}; resumed at step {step} to 60 in {w2:.1f} s, first loss "
+        f"{second['first_loss']:.6f} against the checkpoint's "
+        f"{want:.6f} (rel {gap:.2g}), last {second['last_loss']:.4f}, B5 "
+        f"{l2}")
+    if step != 50 or not gap <= FRONT_RESUME_REL or \
+            not second["first_loss"] < first["first_loss"] or \
+            not all(l1.get(k, 0) > 0 and l2.get(k, 0) > 0
+                    for k in FLASH_KERNELS):
+        raise AssertionError(f"train_lm resume: step {step}, gap {gap}, "
+                             f"losses {first} / {second}, B5 {l1} / {l2}")
+    return {"first": first, "second": second, "first_s": w1,
+            "second_s": w2, "first_launches": l1, "second_launches": l2,
+            "checkpoint_loss": want, "resume_rel": gap}
+
+
+def front_dryrun(job, train_mesh, smi):
+    """Collect the dry-run job: every sweep cell ``ok`` or ``skipped``,
+    and the 1x2 gemma3-1b cell's float32 state bytes per rank equal to
+    each rank's real local state in phase 21."""
+    proc, out, err = job
+    t0 = time.perf_counter()
+    try:
+        code = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("the dry-run job did not end in "
+                             f"{DRYRUN_TIMEOUT_S} s")
+    waited = time.perf_counter() - t0
+    text = err.read_text()
+    if code != 0:
+        raise AssertionError(f"the dry-run job exited with {code}: "
+                             f"{text[-3000:]}")
+    res = json.loads(out.read_text())
+    shutil.rmtree(out.parent, ignore_errors=True)
+    cells = res["cells"]
+    status = Counter(c["status"] for c in cells)
+    bad = [(c["arch"], c["shape"], c.get("error")) for c in cells
+           if c["status"] not in ("ok", "skipped")]
+    mesh = res["mesh_cell"]
+    real = [r["runs"]["1,2"]["state_bytes"] for r in train_mesh["ranks"]]
+    want = mesh.get("bytes_per_rank", {}).get("state_f32")
+    log(f"front doors, dry-run (CPU only, beside the card's phases): "
+        f"{len(cells)} pod cells of {len(DRYRUN_ARCHS)} configs in "
+        f"{res['sweep_s']:.1f} s, {dict(status)}; waited {waited:.1f} s "
+        "for it after the card's phases")
+    for c in cells:
+        if c["status"] == "ok":
+            r = c["roofline"]
+            log(f"  dryrun {c['arch']} x {c['shape']} x pod: bytes/rank "
+                f"{c['bytes_per_rank']['total'] / 2 ** 30:.3f} GiB, flops "
+                f"{c['flops']:.4g} ({c['flops_route']}), collectives "
+                f"{c['collective_total']:.4g} B, compute "
+                f"{r['compute_s'] * 1e3:.3f} ms, memory "
+                f"{r['memory_s'] * 1e3:.3f} ms, collective "
+                f"{r['collective_s'] * 1e3:.3f} ms (H100 rates)"
+                + (f", {c['assumed']}" if "assumed" in c else ""))
+    log(f"front doors, dry-run gemma3-1b x train_4k x 1,2 "
+        f"({mesh['status']}, {res['mesh_cell_s']:.1f} s): float32 state "
+        f"{want} bytes a rank; phase 21's ranks hold {real} ({smi})")
+    if bad or mesh["status"] != "ok" or any(r != want for r in real):
+        raise AssertionError(f"dry-run: failed cells {bad}, mesh cell "
+                             f"{mesh.get('error')}, state bytes {want} "
+                             f"against the ranks' {real}")
+    return {"sweep_s": res["sweep_s"], "status": dict(status),
+            "cells": cells, "mesh_cell": mesh, "ranks_state_bytes": real,
+            "waited_s": waited}
+
+
+def front_doors_phase(torch, mods, counters, job, train_mesh, smi):
+    """Phase 22: the four serving examples at their default sizes on the
+    card, ``train_lm`` with its resume, and the dry-run's results."""
+    out = {"examples": {}}
+    for name in SERVING_EXAMPLES:
+        res, lines, launches, wall = run_example(
+            torch, name, ["--device", FRONT_DEVICE], counters)
+        b1 = launches.get("pim_matmul_fused", 0)
+        b3 = launches.get("analog_fullscale", 0)
+        b4 = launches.get("analog_readout", 0)
+        log(f"front doors, {name} on the card ({smi}): {wall:.2f} s, B1 "
+            f"{b1}, B3 {b3}, B4 {b4} launches")
+        analog = name in ("quickstart", "cnn_pim_inference")
+        if b1 == 0 or analog and (b3 == 0 or b4 == 0):
+            raise AssertionError(f"{name}: launches {launches}")
+        if name == "quickstart" and not (res["exact"] and res["twin"]):
+            raise AssertionError("quickstart: exact-cuda differs from the "
+                                 "integer oracle or exact-torch")
+        if name == "cnn_pim_inference" and not \
+                res["acc_pim"] >= res["acc_fp"] - 0.1:
+            raise AssertionError(f"cnn_pim_inference: accuracies {res}")
+        out["examples"][name] = {"wall_s": wall, "launches": launches,
+                                 "lines": lines}
+    out["train_lm"] = front_train(torch, mods, counters, smi)
+    out["dryrun"] = front_dryrun(job, train_mesh, smi)
+    return out
+
+
 def study_phase(table2):
     """The ADC ablation and Table II on the card; each row printed."""
     out = {}
@@ -5261,6 +5507,30 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on "
               "an NVIDIA GPU only", file=sys.stderr)
         return 1
+
+    # every plain version that runs on the card here (the SSD scan's
+    # chunked form, the LM's float matmuls) runs in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(smi)
+    log(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+    dryrun_job = start_dryrun_job()
+    try:
+        return run_phases(torch, opts, smi, t_start, dryrun_job)
+    finally:
+        if dryrun_job[0].poll() is None:
+            dryrun_job[0].kill()
+            dryrun_job[0].wait()
+        shutil.rmtree(dryrun_job[1].parent, ignore_errors=True)
+
+
+def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     from repro_torch import configs
     from repro_torch.benchmarks_impl import table2
     from repro_torch.core import pim, workloads
@@ -5283,20 +5553,7 @@ def main() -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train
     from repro_torch.models import attention, cnn, lm, moe, ssm
-
-    # every plain version that runs on the card here (the SSD scan's
-    # chunked form, the LM's float matmuls) runs in full float32, not TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    log(smi)
-    log(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}")
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     runtime.build_all()
@@ -5446,6 +5703,9 @@ def main() -> int:
     mark("whisper and paligemma trained")
     train_mesh = train_mesh_phase(torch, dev, mods, smi)
     mark("training mesh")
+    front = front_doors_phase(torch, mods, counters, dryrun_job, train_mesh,
+                              smi)
+    mark("front doors")
     phase_s = {name: round(t - prev, 1) for (name, t), (_, prev) in
                zip(marks, [("start", t_start)] + marks[:-1])}
     log(f"phase seconds: {phase_s}")
@@ -5476,7 +5736,7 @@ def main() -> int:
              "mesh": mesh,
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "train_mesh": train_mesh,
-             "phase_s": phase_s,
+             "front_doors": front, "phase_s": phase_s,
              "kernels": kernels},
             indent=1, default=str))
     log(json.dumps({"kernels": kernels}))

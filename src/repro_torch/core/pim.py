@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -614,6 +614,86 @@ def depthwise_emulate_matmul(x: torch.Tensor, plan: DepthwisePlan,
     dequantized per-channel filters."""
     return torch.einsum("...kc,kc->...c", x.to(torch.float32),
                         plan.dequantized())
+
+
+# ---------------------------------------------------------------------------
+# Legacy entry points (dispatch through repro_torch.engine)
+# ---------------------------------------------------------------------------
+PlannedWeights = DensePlan
+PlannedDepthwiseWeights = DepthwisePlan
+
+
+def _coerce_plan(w_q: Union[DensePlan, QTensor], cfg: PimConfig
+                 ) -> DensePlan:
+    if isinstance(w_q, DensePlan):
+        return w_q
+    # Legacy QTensor callers: plan on the fly (decomposition per call).
+    return plan_from_qtensor(w_q, cfg)
+
+
+def pim_matmul(x: torch.Tensor, w_q: Union[DensePlan, QTensor],
+               cfg: Optional[PimConfig] = None,
+               rng: Optional[torch.Generator] = None,
+               act_scale_axis: int = -1,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Matrix multiply through the OPIMA PIM datapath (legacy wrapper).
+
+    Dispatches through the substrate registry in :mod:`repro_torch.engine`;
+    the route is named by ``(cfg or plan.cfg).resolved_substrate`` (on a
+    CUDA tensor ``exact-cuda`` launches the PIM matmul kernel and
+    ``analog-cuda`` the two analog readout kernels). New code should call
+    ``engine.matmul(x, plan)`` directly.
+
+    Args:
+      x: float activations, shape (..., K).
+      w_q: planned weights (K, N) from :func:`prepare_weights` (a legacy
+        :class:`QTensor` is planned on the fly).
+      cfg: PIM operating point; defaults to the plan's own config, whose
+        ``weight_bits`` are then adopted from the codes. An explicit cfg of
+        another width trips ``engine.matmul``'s guard.
+      rng: CPU ``torch.Generator`` for the analog substrates' read noise
+        (``None`` -> deterministic ADC-only readout).
+      act_scale_axis: axis for dynamic activation scales (per-row default;
+        kept for the reference's signature, as there).
+      bias: optional (N,) float bias, applied inside the kernel's fused
+        epilogue on the kernel routes (after dequantization on all).
+
+    Returns:
+      float32 result of shape (..., N), de-quantized (+ bias).
+    """
+    if cfg is None:
+        cfg = w_q.cfg if isinstance(w_q, Plan) else DEFAULT_PIM
+        plan = _coerce_plan(w_q, cfg)
+        if cfg.weight_bits != plan.bits:
+            cfg = dataclasses.replace(cfg, weight_bits=plan.bits)
+    else:
+        plan = _coerce_plan(w_q, cfg)
+    # imported here: the engine imports this module
+    from repro_torch.engine import api as engine_api
+    return engine_api.matmul(x, plan, cfg=cfg, bias=bias, rng=rng)
+
+
+def pim_depthwise_matmul(x: torch.Tensor,
+                         w_q: Union[DepthwisePlan, torch.Tensor],
+                         cfg: Optional[PimConfig] = None) -> torch.Tensor:
+    """Grouped (depthwise) convolution (legacy wrapper; see
+    :func:`depthwise_exact_matmul`). x: (..., K, C) -> (..., C); float
+    filters (K, C) are programmed on the fly."""
+    if not isinstance(w_q, DepthwisePlan):
+        w_q = prepare_depthwise_weights(w_q, cfg or DEFAULT_PIM)
+    if cfg is None:
+        cfg = w_q.cfg
+    from repro_torch.engine import api as engine_api
+    return engine_api.matmul(x, w_q, cfg=cfg)
+
+
+def pim_linear(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None,
+               cfg: PimConfig = DEFAULT_PIM,
+               rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Float-weight convenience wrapper: plan on the fly + PIM matmul with
+    the bias fused into the kernel epilogue."""
+    return pim_matmul(x, prepare_weights(w, cfg), cfg, rng, bias=b)
 
 
 def reference_quantized_matmul(x: torch.Tensor, w_q, cfg: PimConfig =

@@ -221,8 +221,10 @@ def _local(t: torch.Tensor, mesh, spec: P) -> torch.Tensor:
 
 
 def shard_state(state: PyTree, mesh) -> PyTree:
-    """This rank's slices of a global state (or params) tree, each a
-    contiguous copy of its own, as :func:`tree_specs` splits it."""
+    """This rank's slices of a global state (or params) tree, as
+    :func:`tree_specs` splits it: each split leaf a contiguous copy of its
+    own, each whole leaf the input's own tensor (a step that updates the
+    result in place updates those leaves of ``state`` too)."""
     return unflatten_like(state, [
         _local(t, mesh, spec).clone() if split_dims(mesh, spec) else t
         for t, spec in zip(leaves(state), tree_specs(mesh, state))])

@@ -41,8 +41,9 @@ are formed, so both are the global batch's.
 """
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,6 +110,21 @@ def _route(router_de: torch.Tensor, x: torch.Tensor, k: int, ctx=None
     return probs, ids, lb, z
 
 
+def expert_counts(flat_ids: torch.Tensor, experts: int,
+                  num_experts: int) -> List[int]:
+    """Host ints: how many of ``flat_ids`` name each expert ``0 ..
+    experts - 1`` (``torch.bincount``; larger ids, such as the
+    expert-parallel trash bucket, are not counted). On the meta device
+    (the dry-run's shape stand-ins, which hold no ids) the assignment is
+    taken as balanced: each of the ``num_experts`` experts receives
+    ``n / num_experts`` of the n ids (the first ``n % num_experts`` one
+    more)."""
+    if not flat_ids.is_meta:
+        return torch.bincount(flat_ids, minlength=experts)[:experts].tolist()
+    n = flat_ids.numel()
+    return [n // num_experts + (e < n % num_experts) for e in range(experts)]
+
+
 def _expert_ffn_local(xs: torch.Tensor, group_sizes, wi: torch.Tensor,
                       wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """xs: (R, D) rows sorted by expert; group_sizes: E host ints. Each
@@ -135,7 +151,7 @@ def _moe_local(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
     order = torch.argsort(flat_ids, stable=True)
     token_of = order // k
     xs = x2[token_of].to(torch.float32)               # (T*k, D)
-    group_sizes = torch.bincount(flat_ids, minlength=num_experts).tolist()
+    group_sizes = expert_counts(flat_ids, num_experts, num_experts)
     ys = _expert_ffn_local(xs, group_sizes, wi.to(torch.float32),
                            wg.to(torch.float32), wo.to(torch.float32))
     ys = ys * probs.reshape(-1)[order][:, None]
@@ -279,8 +295,8 @@ def _moe_ep_body(x2: torch.Tensor, probs: torch.Tensor, ids: torch.Tensor,
     cap = t * k if capacity_factor is None else \
         max(1, min(t * k, int(t * k / ep_size * capacity_factor)))
     keep = order[:cap]                       # local assignments sort first
-    counts = torch.bincount(flat_ids, minlength=e_local + 1)[:e_local]
-    cum = torch.clamp(torch.cumsum(counts, 0), max=cap).tolist()
+    counts = expert_counts(flat_ids, e_local, num_experts)
+    cum = [min(c, cap) for c in itertools.accumulate(counts)]
     group_sizes = [b - a for a, b in zip([0] + cum[:-1], cum)]
     rows = cum[-1] if cum else 0
     ys = torch.zeros((cap, x2.shape[1]), dtype=torch.float32,

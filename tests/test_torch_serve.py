@@ -210,6 +210,12 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+import importlib.util, pathlib
+for path in sorted(pathlib.Path("examples/torch").glob("*.py")):
+    spec = importlib.util.spec_from_file_location(
+        "torch_example_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append("examples/torch/" + path.name)
 import chip_smoke
 tree = ast.parse(open(chip_smoke.__file__).read())
 for node in ast.walk(tree):
@@ -229,7 +235,8 @@ missing = sorted(set(NEW_MODULES) - set(names))
 print(len(names), "modules;", "forbidden:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
-# modules the walk must reach (the training slice's among them)
+# modules the walk must reach (the training slice's among them), and the
+# examples it imports from their files
 NEW_MODULES = (
     "repro_torch.kernels.flash_attention.flash_attention",
     "repro_torch.kernels.flash_attention.ops",
@@ -241,7 +248,11 @@ NEW_MODULES = (
     "repro_torch.serving.prefix", "repro_torch.serving.scheduler",
     "repro_torch.serving.slots", "repro_torch.serving.stream",
     "repro_torch.distributed.sharding", "repro_torch.engine.mesh",
-    "repro_torch.launch.mesh", "repro_torch.distributed.collectives")
+    "repro_torch.launch.mesh", "repro_torch.distributed.collectives",
+    "repro_torch.launch.dryrun", "repro_torch.core.baselines",
+    "examples/torch/quickstart.py", "examples/torch/cnn_pim_inference.py",
+    "examples/torch/serve_pim_lm.py",
+    "examples/torch/continuous_serving.py", "examples/torch/train_lm.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():

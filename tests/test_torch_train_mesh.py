@@ -256,6 +256,33 @@ def test_sharded_step_matches_single_process(ranks, arch, spec):
             np.testing.assert_array_equal(leaf, first["replicated"][name])
 
 
+REPEATS = 5
+
+
+def test_sharded_step_repeats(ranks):
+    """moonshot's 4x1 step, repeated in the one group: every repeat holds
+    the single-process step as the test above does, and no rank writes
+    into the state it was handed (a request's tensors reach the ranks in
+    storage shared with this process and with each other, so a rank that
+    updated them in place would update every rank's copy)."""
+    arch, spec = "moonshot-v1-16b-a3b", "4,1"
+    batch = _batch(arch)
+    want = _single(arch, batch)
+    pristine = leaves(_state(arch))
+    for repeat in range(REPEATS):
+        state = _state(arch)
+        replies = ranks.run("train_mesh_step", cfg=_tcfg(arch), state=state,
+                            batch=batch, opt=OPT, spec=spec)
+        for a, b in zip(leaves(state), pristine):
+            assert torch.equal(a, b), repeat
+        for got in replies:
+            np.testing.assert_allclose(got["step_loss"], want["step_loss"],
+                                       **SCALAR)
+            for name, p in want["params"].items():
+                gap = np.abs(got["params"][name] - p).max()
+                assert gap <= PARAM_ATOL, (repeat, name, gap)
+
+
 def test_sharded_loss_matches_jax(ranks):
     """The 2x2 step's loss against JAX's own jitted step on that state."""
     arch = "qwen3-4b"

@@ -48,6 +48,17 @@ def _rand(shape, seed):
         shape).astype(np.float32))
 
 
+def _own(tree):
+    """``tree`` with every tensor copied into this process's memory. A
+    request's CPU tensors arrive in storage that torch's multiprocessing
+    reductions share with the parent and with every other rank (the
+    parent's tensor is moved to shared memory when it is queued), so a
+    request that updates its arguments in place (a train step on a
+    replicated leaf) would otherwise update every rank's copy at once."""
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
 def serve_rank(rank, world, init_file, inbox, outbox, device="cpu"):
     torch.set_num_threads(1)
     warnings.simplefilter("ignore")
@@ -60,6 +71,7 @@ def serve_rank(rank, world, init_file, inbox, outbox, device="cpu"):
                 break
             name, kwargs = request
             try:
+                kwargs = {k: _own(v) for k, v in kwargs.items()}
                 outbox.put((rank, "ok", globals()[name](**kwargs)))
             except Exception:  # noqa: BLE001: the parent reports it
                 outbox.put((rank, "error", traceback.format_exc()))

@@ -155,7 +155,7 @@ package. Phases, each of which raises on failure:
     for bit (prefill logits and tokens); on the restored plans
     ``sync_every`` 4 = 1, chunked prefill (64) = whole and a prefix-cache
     hit = a miss (shared prefix 128) on the trace's 4 requests,
-    four requests' streams = ``static_generate`` at the slots' shapes,
+    two requests' streams = ``static_generate`` at the slots' shapes,
     and at 2 layers ``exact-cuda`` = ``exact-torch`` for the whole trace
     (token streams and stop reasons); one fused decode window profiled
     (idle share); then the PIM kernel at the path's ten shapes (M = 512
@@ -180,6 +180,18 @@ package. Phases, each of which raises on failure:
     B1 with and without its row-sum epilogue at the verified run's
     shapes (M = 512 and 8), bit for bit, timed in turns with cold
     weights;
+15b. the sanitizers and the lint (A13), on phase 14's restored plans:
+    the trace's first 4 requests through 8 slots in CUDA's sync debug
+    mode "warn" (the synchronizing calls per decode dispatch and per
+    decode step call, with their source lines), then unarmed and armed
+    in turns (``Sanitizer``: mode "error" around every decode step, the
+    compile counter: prefill, insert and decode once each), streams
+    equal, decode ms per step each beside the card's name and power
+    limit; beside it, in subprocesses, the serve CLI's ``--continuous
+    --sanitize`` on a reduced qwen3 with ``--compile-cache-dir`` at this
+    run's kernel build directory (0 ``nvcc`` builds, every library
+    loaded from there) and ``python -m repro_torch.analysis`` (0
+    findings);
 16. ABFT on expert stacks and on the analog route, at full width and 2
     layers: moonshot-v1-16b-a3b with ``REL_MOE_FAULT`` in one expert
     stack, ``exact-cuda`` and ``exact-torch`` equal in per-tag violation
@@ -2839,8 +2851,17 @@ CONT_SLOTS, CONT_REQUESTS, CONT_RATE = 8, 4, 0.5
 CONT_CHUNK, CONT_PREFIX_CACHE, CONT_SHARED_PREFIX = 64, 16, 128
 CONT_WINDOW = 4            # sync_every of the fused-window variant
 CONT_VARIANT_REQUESTS = 4  # the trace's first requests, for variants
-CONT_STATIC_CHECKS = 4     # requests held to their static streams
+CONT_STATIC_CHECKS = 2     # requests held to their static streams (4
+#                            before the sanitize phase was added)
 CONT_EXACT_LAYERS = 2      # exact-cuda against exact-torch at this depth
+SAN_REQUESTS = 4           # the trace's first requests, served armed
+# the serve CLI's sanitized run on a reduced qwen3 (with the kernel
+# build directory this run filled as its compile cache)
+SAN_CLI = ("--arch", QWEN3, "--layers", "2", "--d-model", "64", "--pim",
+           "--continuous", "--num-slots", "4", "--requests", "8",
+           "--prompt-len", "16", "--gen", "4", "--sync-every", "2",
+           "--prefill-chunk", "8", "--sanitize")
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 class patched:
@@ -2964,7 +2985,7 @@ def qwen3_program_phase(torch, dev, mods, counters, plan_dir):
 
 def qwen3_phases(torch, dev, mods, counters, smi):
     """(f) and (g) over one fresh plan directory, deleted afterwards, then
-    (h) on (g)'s restored plans."""
+    (h) and the sanitizers on (g)'s restored plans."""
     plan_dir = tempfile.mkdtemp(prefix="qwen3_plans_")
     try:
         program, logits, generated, cfg = qwen3_program_phase(
@@ -2975,9 +2996,226 @@ def qwen3_phases(torch, dev, mods, counters, smi):
         shutil.rmtree(plan_dir, ignore_errors=True)
     rel = qwen3_reliability_phase(torch, dev, mods, counters, cfg, params,
                                   base, cont, smi)
+    san = sanitize_phase(torch, mods, counters, cfg, params, base, smi)
     del params
     torch.cuda.empty_cache()
-    return program, cont, rel
+    return program, cont, rel, san
+
+
+def sync_census(torch, serving, params, cfg, reqs, **geometry):
+    """Serve ``reqs`` once with CUDA's sync debug mode at "warn" and count
+    the synchronizing calls it reports (as the reliability tests' ``_syncs``
+    does): per ``generate`` call (the whole decode dispatch, with its
+    placement of the step inputs and its one copy of the results) and per
+    decode step call inside it (``_decode_fn`` / ``_window_fn``, the
+    window a sanitizer guards), with the source line of each of the
+    latter. Uses only ``ContinuousScheduler`` and the engine's
+    ``generate`` / ``_decode_fn`` / ``_window_fn``, so it runs on an older
+    checkout of the port too. Returns the counts and the streams."""
+    import warnings
+    Engine = serving.ServingEngine
+    sched = serving.ContinuousScheduler(params, cfg, **geometry)
+    sched.warmup()
+    spans = {"generate": [], "step": []}
+    caught = []
+
+    def spanned(key, fn):
+        def wrapper(*args, **kwargs):
+            start = len(caught)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[key].append((start, len(caught)))
+        return wrapper
+
+    with warnings.catch_warnings(record=True) as caught, patched(
+            (Engine, "generate", spanned("generate", Engine.generate)),
+            (Engine, "_decode_fn", spanned("step", Engine._decode_fn)),
+            (Engine, "_window_fn", spanned("step", Engine._window_fn))):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run = sched.run(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    is_sync = [SYNC_WARNING in str(w.message) for w in caught]
+
+    def count(key):
+        return sum(sum(is_sync[a:b]) for a, b in spans[key])
+
+    sites = Counter()
+    for a, b in spans["step"]:
+        for w, s in zip(caught[a:b], is_sync[a:b]):
+            if s:
+                path = Path(w.filename)
+                parts = path.parts
+                name = "/".join(parts[parts.index("src") + 1:]) \
+                    if "src" in parts else path.name
+                sites[f"{name}:{w.lineno}"] += 1
+    calls = {k: len(v) for k, v in spans.items()}
+    return {"generate_calls": calls["generate"],
+            "step_calls": calls["step"],
+            "syncs_per_generate": count("generate") / max(1,
+                                                         calls["generate"]),
+            "syncs_per_step": count("step") / max(1, calls["step"]),
+            "step_sites": dict(sites), "streams": streams(run.completions),
+            "decode_steps": run.metrics["decode_steps"]}
+
+
+def start_serve_cli(args, out_json):
+    """``python -m repro_torch.launch.serve`` in a subprocess (the
+    checkout's own ``src``), writing ``--metrics-json`` to ``out_json``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args,
+         "--metrics-json", str(out_json)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def start_lint():
+    """``python -m repro_torch.analysis`` over its defaults
+    (``src/repro_torch``, ``examples/torch``) in a subprocess."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--no-ruff"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish(job, what, timeout=300):
+    out, _ = job.communicate(timeout=timeout)
+    if job.returncode != 0:
+        raise AssertionError(f"{what} exited {job.returncode}:\n"
+                             f"{out[-4000:]}")
+    return out
+
+
+def sanitize_phase(torch, mods, counters, cfg, params, base, smi):
+    """(h2) The runtime sanitizers and the lint on the card. qwen3-4b at
+    full width on (g)'s restored plans (B1 on exact-cuda), the trace's
+    first SAN_REQUESTS requests through 8 slots: the synchronizing calls
+    per decode dispatch and per decode step in sync debug mode "warn"
+    (:func:`sync_census`), then the same requests unarmed and armed in
+    turns, twice each (``Sanitizer``: sync debug mode "error" around every
+    decode step, the compile counter over warm-up and run), timed on the
+    host clock around ``generate``. The armed streams equal the unarmed
+    ones and (g)'s;
+    the counter sees prefill, insert and decode once each; no decode step
+    synchronizes. Beside it, in subprocesses: the serve CLI's
+    ``--continuous --sanitize`` on a reduced qwen3 with
+    ``--compile-cache-dir`` at this run's kernel build directory (0
+    ``nvcc`` builds, every library loaded from there), and
+    ``python -m repro_torch.analysis`` (0 findings)."""
+    from repro_torch.analysis.sanitize import Sanitizer
+    from repro_torch.kernels import runtime
+    serving = mods["serving"]
+    Engine = serving.ServingEngine
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="sanitize_"))
+    cli_json = tmp / "serve.json"
+    cli = start_serve_cli(SAN_CLI + ("--compile-cache-dir",
+                                     str(runtime.build_dir())), cli_json)
+    lint = start_lint()
+    geometry = dict(num_slots=CONT_SLOTS, prompt_pad=LM_PROMPT,
+                    max_len=LM_PROMPT + LM_GEN)
+    reqs = qwen3_trace(serving, cfg)[:SAN_REQUESTS]
+    try:
+        census = sync_census(torch, serving, params, cfg, reqs, **geometry)
+        cli_log = finish(cli, "serve --continuous --sanitize")
+        lint_log = finish(lint, "python -m repro_torch.analysis")
+    finally:
+        for job in (cli, lint):
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+    cli_res = json.loads(cli_json.read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def serve_once(sanitizer):
+        sched = serving.ContinuousScheduler(params, cfg, sanitizer=sanitizer,
+                                            **geometry)
+        v = {}
+        names = ("prefill", "insert", "decode", "decode_window", "nvcc:")
+        with patched((Engine, "generate", timed(v, "decode_s",
+                                                Engine.generate))), \
+                Sanitizer().compile_counter(names) as counter:
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            sched.warmup()
+            run = sched.run(reqs)
+            launches = read_counts(*counters)
+        return run, v["decode_s"] * 1e3 / run.metrics["decode_steps"], \
+            counter, launches
+
+    turns = [serve_once(s) for s in (None, Sanitizer(), None, Sanitizer())]
+    plain, armed, counter, launches = (turns[0][0], turns[1][0],
+                                       turns[1][2], turns[1][3])
+    plain_ms = [t[1] for t in turns[0::2]]
+    armed_ms = [t[1] for t in turns[1::2]]
+    failures = []
+    got, want = streams(armed.completions), streams(plain.completions)
+    if got != want or any(streams(t[0].completions) != want
+                          for t in turns[2:]):
+        failures.append("armed streams differ from the unarmed run's")
+    if any(base[k] != want[k] for k in want):
+        failures.append("unarmed streams differ from the continuous "
+                        "phase's")
+    if census["streams"] != want:
+        failures.append("the census run's streams differ")
+    for t in turns[1::2]:
+        try:
+            t[2].expect(prefill=1, insert=1, decode=1)
+        except AssertionError as e:
+            failures.append(str(e))
+    m = armed.metrics
+    want_b1 = qwen3_launches(cfg) * (m["prefills"] + m["decode_steps"] + 2)
+    if launches["pim_matmul_fused"] != want_b1:
+        failures.append(f"armed run: B1 launches {launches}, expected "
+                        f"{want_b1}")
+    if census["syncs_per_step"] != 0:
+        failures.append(f"decode steps synchronize: {census['step_sites']}")
+    cli_san = cli_res.get("sanitize", {})
+    cc = cli_res.get("compile_cache", {})
+    nvcc = {k: v for k, v in cli_san.get("compiles", {}).items()
+            if k.startswith("nvcc:")}
+    libs = cc.get("libraries", {})
+    if nvcc or not libs or any(
+            Path(p).parent != Path(cc["dir"]) for p in libs.values()):
+        failures.append(f"serve --compile-cache-dir: builds {nvcc}, "
+                        f"libraries {libs} (dir {cc.get('dir')})")
+    if "repro-lint: 0 finding(s)" not in lint_log:
+        failures.append(f"lint: {lint_log[-2000:]}")
+    seconds = time.perf_counter() - t_phase
+    out = {"census": {k: v for k, v in census.items() if k != "streams"},
+           "decode_ms_per_step": {"unarmed": plain_ms, "armed": armed_ms,
+                                  "order": "unarmed, armed, unarmed, armed"},
+           "compiles": dict(counter.counts), "launches": launches,
+           "requests": SAN_REQUESTS, "decode_steps": m["decode_steps"],
+           "cli": {"args": list(SAN_CLI), "sanitize": cli_san,
+                   "compile_cache": cc,
+                   "tokens": cli_res.get("generated_tokens")},
+           "lint": lint_log.strip().splitlines()[-2:], "card": smi,
+           "seconds": seconds, "failures": failures}
+    log(f"sanitize ({smi}): qwen3-4b, {SAN_REQUESTS} requests through "
+        f"{CONT_SLOTS} slots, {m['decode_steps']} decode steps; sync debug "
+        f"mode 'warn': {census['syncs_per_generate']:.2f} synchronizing "
+        f"calls per decode dispatch ({census['generate_calls']} dispatches:"
+        f" the inputs' placement and the one copy of the results), "
+        f"{census['syncs_per_step']:.2f} per decode step call "
+        f"{census['step_sites'] or ''}; decode ms per step in turns: "
+        f"unarmed {plain_ms[0]:.2f}, armed {armed_ms[0]:.2f}, unarmed "
+        f"{plain_ms[1]:.2f}, armed {armed_ms[1]:.2f} ('error' in every "
+        f"decode step); "
+        f"compiles {dict(counter.counts)}; B1 {launches['pim_matmul_fused']}"
+        f" launches; streams armed = unarmed = the continuous phase's: "
+        f"{got == want}; serve CLI --sanitize --compile-cache-dir: "
+        f"compiles {cli_san.get('compiles')}, libraries {libs}; lint: "
+        f"{out['lint'][-1]}; {seconds:.1f} s")
+    if failures:
+        raise AssertionError("sanitize phase: " + "; ".join(failures))
+    return out
 
 
 def qwen3_trace(serving, cfg, shared=0):
@@ -3051,8 +3289,8 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
     chunked prefill (64) = whole, a prefix-cache hit = a miss (shared
     prefix 128, chunks of 64), each on the trace's first
     CONT_VARIANT_REQUESTS requests (a request's tokens never depend on
-    the others), four requests' streams = their static streams at the
-    slots' shapes, and at 2 layers exact-cuda = exact-torch for the whole
+    the others), CONT_STATIC_CHECKS (2) requests' streams = their static
+    streams at the slots' shapes, and at 2 layers exact-cuda = exact-torch for the whole
     trace; one fused window profiled."""
     serving, serve_mod, kern = mods["serving"], mods["serve"], \
         mods["pim_kern"]
@@ -5661,8 +5899,8 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     mark("whisper and paligemma served")
     mods.update({"serving": serving, "engine": engine, "ckpt": ckpt,
                  "reliability": reliability, "analog_kern": akern})
-    qwen3, qwen3_cont, qwen3_rel = qwen3_phases(torch, dev, mods, counters,
-                                                smi)
+    qwen3, qwen3_cont, qwen3_rel, sanitized = qwen3_phases(
+        torch, dev, mods, counters, smi)
     q_err = lm_kernel_checks(torch, dev, kern, ref, qwen3_cont["shapes"])
     q_rows = shape_numbers(torch, dev, kern, ref, qwen3_cont["shapes"],
                            with_bias=False)
@@ -5708,6 +5946,7 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     mark("front doors")
     phase_s = {name: round(t - prev, 1) for (name, t), (_, prev) in
                zip(marks, [("start", t_start)] + marks[:-1])}
+    phase_s["sanitize (in qwen3)"] = round(sanitized["seconds"], 1)
     log(f"phase seconds: {phase_s}")
     log(f"command time after the card query: "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -5733,6 +5972,7 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
              "qwen3_shapes": q_rows,
              "qwen3_reliability": listed(qwen3_rel),
              "rowsum_shapes": rel_rows, "reliability_checks": rel_checks,
+             "sanitize": sanitized,
              "mesh": mesh,
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "train_mesh": train_mesh,

@@ -35,8 +35,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=3)
     ap.add_argument("--sanitize", action="store_true",
-                    help="arm the runtime sanitizers (not ported yet: "
-                         "raises, ROADMAP A13)")
+                    help="arm the runtime sanitizers: a host-read guard "
+                         "around every decode step and the compile "
+                         "counter (repro_torch.analysis.sanitize)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
@@ -61,6 +62,9 @@ def main(argv=None) -> dict:
     print(f"  TTFT p50/p90 = {res['ttft_steps_p50']:.1f}/"
           f"{res['ttft_steps_p90']:.1f} steps, latency p50/p90 = "
           f"{res['latency_steps_p50']:.1f}/{res['latency_steps_p90']:.1f}")
+    if args.sanitize:
+        print(f"  sanitize: decode host-read guard armed, compiles "
+              f"{res['sanitize']['compiles']}")
     print("\nper-request completions:")
     for r in res["requests"]:
         toks = " ".join(str(t) for t in r["tokens"].tolist())

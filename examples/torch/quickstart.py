@@ -61,15 +61,18 @@ def main(argv=None) -> dict:
     plan = engine.program(wmat, cfg)                 # 'program' the cells
     y = engine.matmul(x, plan)                       # nibble MACs+shift-add
     ref = reference_quantized_matmul(x, plan, cfg)
+    # repro-lint: disable=RPR101 (the demo reads its check once, to print it)
     exact = bool(torch.equal(y, ref))
     print(f"   bit-exact vs int oracle: {exact}")
     y_torch = engine.matmul(x, plan, cfg=PimConfig(substrate="exact-torch"))
+    # repro-lint: disable=RPR101 (the demo reads its check once, to print it)
     twin = bool(torch.equal(y, y_torch))
     print(f"   exact-torch twin bit-identical: {twin}")
     plan_a = engine.program(wmat, PimConfig(substrate="analog-cuda",
                                             adc_bits=5))
     y_analog = engine.matmul(x, plan_a,
                              rng=torch.Generator().manual_seed(2))
+    # repro-lint: disable=RPR101 (the demo reads its error once, to print it)
     rel = float(torch.linalg.norm(y_analog - ref) / torch.linalg.norm(ref))
     print(f"   analog readout (5-bit ADC + scattering noise): "
           f"rel err {rel:.3f}")

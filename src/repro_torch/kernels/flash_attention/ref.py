@@ -34,7 +34,7 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
     ok = ok | (kp < prefix_len)
     if window > 0:
         ok = ok & (((qp - kp) < window) | (kp < prefix_len))
-    return torch.where(ok, logits, torch.tensor(NEG_INF, device=q.device))
+    return torch.where(ok, logits, NEG_INF)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -273,6 +273,10 @@ def yardstick_fused(symbol: str, a_planes: torch.Tensor,
     pa, pw, m, k, n = _check_planes(
         a_planes, w_planes, k_major=symbol == "pim_matmul_fused_kmajor")
     dev = a_planes.device
+    _check_vector("a_scale", a_scale, (m, 1), dev)
+    _check_vector("w_scale", w_scale, (1, n), dev)
+    if bias is not None:
+        _check_vector("bias", bias, (1, n), dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     rowsum = torch.zeros((m,), dtype=torch.int32, device=dev) \
         if want_rowsum else None

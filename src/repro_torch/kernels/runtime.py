@@ -7,9 +7,15 @@ version; a CUDA tensor launches the hand-written kernel or raises.
 
 Kernels are CUDA C++ sources under ``repro_torch/csrc``. Each source is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
-plain C interface, loaded with :mod:`ctypes`. The libraries live under
-``<checkout>/build/kernels`` keyed by a hash of the sources and flags, and
-are built at first use. A missing ``nvcc`` or a failed build raises:
+plain C interface, loaded with :mod:`ctypes`. The libraries live in the
+build directory (``<checkout>/build/kernels`` unless
+:func:`set_build_dir` chose another: serve's ``--compile-cache-dir``)
+keyed by a hash of the sources and flags, and are built at first use, so
+a restart pointed at a filled directory loads each library found there
+and runs ``nvcc`` only for a source whose hash is new. Each build is one
+compile for the armed
+:class:`~repro_torch.analysis.sanitize.CompileCounter` (``nvcc:<source>``).
+A missing ``nvcc``, a failed build or an unwritable directory raises:
 nothing falls back.
 """
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.analysis.sanitize import record_compile
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # <checkout>/build/kernels (src/repro_torch/kernels -> checkout root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -33,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOADED_FROM: Dict[str, Path] = {}
 _LOCK = threading.Lock()
+_build_dir = BUILD_DIR
 
 
 def resolve_device(device: Union[None, str, torch.device] = None
@@ -76,6 +86,32 @@ def _headers() -> Sequence[Path]:
     return sorted(CSRC_DIR.glob("*.cuh"))
 
 
+def build_dir() -> Path:
+    """The directory the kernel libraries are built into and loaded
+    from."""
+    return _build_dir
+
+
+def set_build_dir(path: Union[str, Path]) -> Path:
+    """Build and load the kernel libraries in ``path`` from now on
+    (created if missing). Libraries already loaded stay loaded. An
+    unwritable directory raises."""
+    global _build_dir
+    p = Path(path).resolve()
+    p.mkdir(parents=True, exist_ok=True)
+    if not os.access(p, os.W_OK | os.X_OK):
+        raise PermissionError(f"kernel build directory {p} is not "
+                              "writable")
+    with _LOCK:
+        _build_dir = p
+    return p
+
+
+def loaded_libraries() -> Dict[str, str]:
+    """Source name -> the path each loaded library came from."""
+    return {name: str(path) for name, path in sorted(_LOADED_FROM.items())}
+
+
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives: keyed by a hash of
     the source, the shared headers and the compiler flags."""
@@ -84,7 +120,7 @@ def library_path(name: str) -> Path:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return _build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):
@@ -95,12 +131,13 @@ def _start_build(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    record_compile(f"nvcc:{name}")
     return proc, tmp, out
 
 
@@ -137,7 +174,9 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        path = library_path(name)
+        lib = ctypes.CDLL(str(path))
+        _LOADED_FROM[name] = path
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

@@ -55,9 +55,14 @@ shard_plan_tree`: column splits for ``_dh`` projections, row splits for
 loop, the split matmuls ending in collectives. Only rank 0 prints and
 writes ``--metrics-json``.
 
-Not ported yet, and raising: ``--sanitize`` (A13) and the compile cache
-(the port has no compiled step functions; ROADMAP path glue item 2 would
-capture decode in a CUDA graph).
+Sanitizers (``--sanitize``, continuous mode; :mod:`repro_torch.analysis.
+sanitize`): every decode step call runs under a host-read guard (CUDA's
+sync debug mode "error" on the card), warm-up and run go under the
+compile counter, which must count each step at one signature, and the
+result gains a ``sanitize`` section. ``--compile-cache-dir DIR`` is the
+port's compile cache: the kernel libraries are built into and loaded from
+``DIR`` (:func:`enable_compile_cache`), so a restart runs ``nvcc`` only
+for a source whose hash is new.
 
 Run (full width, on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
@@ -96,6 +101,7 @@ from repro_torch.core.perfmodel import network_perf, total_power_w
 from repro_torch.core.pim import PimConfig
 from repro_torch.core.workloads import DenseSpec
 from repro_torch.engine import mesh as mesh_mod
+from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models.lm import (check_mesh_supported, decode_step,
@@ -281,12 +287,14 @@ def _say(msg: str) -> None:
         print(msg)
 
 
-def _not_ported(compile_cache_dir) -> None:
-    if compile_cache_dir:
-        raise NotImplementedError(
-            "compile_cache_dir: the port runs its step functions eagerly "
-            "and has nothing to cache; a captured decode step would be its "
-            "first (ROADMAP path glue item 2, CUDA-graph decode)")
+def enable_compile_cache(cache_dir: str) -> None:
+    """Point the kernel runtime's build directory at ``cache_dir``, so a
+    serve restart loads each kernel library found there and runs ``nvcc``
+    only for a source whose hash (source, shared headers, flags) is new:
+    the port's compiled executables are those libraries, as a JAX
+    restart reuses its compiled executables from disk. An unwritable
+    directory raises."""
+    runtime.set_build_dir(cache_dir)
 
 
 def _program(cfg: ModelConfig, pim_cfg: PimConfig, device, mesh=None):
@@ -428,6 +436,14 @@ def _pim_params(cfg: ModelConfig, pim_cfg: PimConfig,
     return planned
 
 
+def _cache_fields(result: Dict[str, Any], compile_cache_dir) -> None:
+    """With a compile cache: its directory and where each loaded kernel
+    library came from."""
+    if compile_cache_dir:
+        result["compile_cache"] = {"dir": str(runtime.build_dir()),
+                                   "libraries": runtime.loaded_libraries()}
+
+
 def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
            pim: bool, pim_bits: int, pim_emulate: bool,
            pim_substrate: Optional[str], plan_dir: Optional[str],
@@ -441,8 +457,10 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
     the programmed plans over it (:mod:`repro_torch.engine.mesh`); each
     rank then holds its slice of the split plans and all of everything
     else, on its own device. Returns ``(cfg, params, substrate, pim_cfg,
-    mesh)``, ``mesh`` None without a spec."""
-    _not_ported(compile_cache_dir)
+    mesh)``, ``mesh`` None without a spec. ``compile_cache_dir`` sets the
+    kernel build directory (:func:`enable_compile_cache`)."""
+    if compile_cache_dir:
+        enable_compile_cache(compile_cache_dir)
     cfg = get_config(arch)
     if layers or d_model:
         cfg = cfg.reduced(num_layers=layers or 2, d_model=d_model or 64,
@@ -626,6 +644,7 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 16, gen: int = 8,
         "emitted_tokens": sum(len(e) for e in emitted),
     }
     _mesh_fields(result, mesh, dev_mesh)
+    _cache_fields(result, compile_cache_dir)
     if pim:
         result["pim_substrate"] = substrate
         result.update(opima_lm_estimate(cfg, batch, prompt_len, gen,
@@ -668,13 +687,6 @@ def _load_trace(trace_file: str, vocab: int, seed: int) -> List[Any]:
             shared_prefix_len=int(rec.get("shared_prefix_len", 0)),
             deadline=float(deadline) if deadline is not None else None))
     return reqs
-
-
-def _not_ported_continuous(sanitize: bool) -> None:
-    if sanitize:
-        raise NotImplementedError(
-            "--sanitize: the runtime sanitizers are not ported yet "
-            "(ROADMAP A13)")
 
 
 def chaos_verdict(golden_tokens: Dict[Any, np.ndarray], run,
@@ -760,11 +772,14 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
     detectable fault, a detection. ``mesh`` ("dp,tp") serves on a mesh of
     launched ranks (see :func:`_setup`): every rank runs the scheduler
     over its slice of the plans, and only rank 0 writes
-    ``metrics_json``. ``sanitize`` (ROADMAP A13) raises."""
+    ``metrics_json``. ``sanitize`` arms the runtime sanitizers: each
+    decode step call under the host-read guard, warm-up and run under
+    the compile counter (each step at one signature), and the result's
+    ``sanitize`` section (the JAX package's fields; ``compiles`` also
+    names each ``nvcc`` build as ``nvcc:<source>``)."""
     from repro_torch.serving import ContinuousScheduler, poisson_trace
     if shared_prefix < 0:
         raise ValueError("shared_prefix must be >= 0")
-    _not_ported_continuous(sanitize)
     if inject_faults and not pim:
         raise ValueError("--inject-faults requires --pim (faults target "
                          "programmed plans)")
@@ -795,6 +810,10 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
             shared_prefix_len=shared_prefix)
         prompt_pad = prompt_len + shared_prefix
         max_len = prompt_pad + gen
+    sanitizer = None
+    if sanitize:
+        from repro_torch.analysis.sanitize import Sanitizer
+        sanitizer = Sanitizer(transfer_guard=True)
     golden_tokens = None
     if chaos_check:
         # fault-free reference pass over the same trace and plans: the
@@ -822,14 +841,31 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
     sched = ContinuousScheduler(params, cfg, num_slots=num_slots,
                                 prompt_pad=prompt_pad, max_len=max_len,
                                 sync_every=sync_every, mesh=dev_mesh,
+                                sanitizer=sanitizer,
                                 stop_tokens=stop_tokens,
                                 eos_token=eos_token,
                                 prefill_chunk=prefill_chunk,
                                 prefix_cache=prefix_cache,
                                 admission_policy=admission_policy,
                                 reliability=manager)
-    sched.warmup()   # keep first-call costs out of the metered run
-    run = sched.run(requests)
+    if sanitizer is not None:
+        # every decode step call runs under the host-read guard, and the
+        # compile counter proves each step ran at one signature (first
+        # seen in warm-up); chunked mode runs prefill_chunk instead of
+        # the whole prefill. Kernel builds count as nvcc:<source>.
+        prefill_name = ("prefill_chunk" if sched.prefill_chunk is not None
+                        else "prefill")
+        names = (prefill_name, "insert", "decode", "decode_window", "nvcc:")
+        with sanitizer.compile_counter(names) as counter:
+            sched.warmup()
+            run = sched.run(requests)
+        expected = {prefill_name: 1, "insert": 1, "decode": 1}
+        if sync_every > 1:
+            expected["decode_window"] = 1
+        counter.expect(**expected)
+    else:
+        sched.warmup()   # keep first-call costs out of the metered run
+        run = sched.run(requests)
 
     result: Dict[str, Any] = dict(run.metrics)
     if manager is not None:
@@ -837,6 +873,10 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
         result["injection_report"] = manager.injection_report
     if golden_tokens is not None:
         result["chaos_check"] = chaos_verdict(golden_tokens, run, manager)
+    if sanitizer is not None:
+        result["sanitize"] = {**sanitizer.report(),
+                              "compiles": dict(counter.counts)}
+    _cache_fields(result, compile_cache_dir)
     result["arch"] = cfg.name
     _mesh_fields(result, mesh, dev_mesh)
     result["requests"] = [
@@ -898,8 +938,8 @@ def main() -> None:
                          "nccl when every rank has a card of its own, else "
                          "gloo")
     ap.add_argument("--compile-cache-dir", default=None,
-                    help="not ported: the port has no compiled step "
-                         "functions (ROADMAP path glue item 2)")
+                    help="build and load the kernel libraries here, so a "
+                         "restart runs nvcc only for a changed source")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching: Poisson/trace arrivals "
                          "through the slot scheduler (repro_torch/serving)")
@@ -956,11 +996,13 @@ def main() -> None:
                          "first and assert the injected run produced "
                          "identical tokens and >=1 detection")
     ap.add_argument("--sanitize", action="store_true",
-                    help="not ported yet (ROADMAP A13)")
+                    help="arm the runtime sanitizers (continuous mode): "
+                         "a host-read guard around every decode step "
+                         "(CUDA sync debug mode 'error' on the card) and "
+                         "a one-signature-per-step compile counter")
     ap.add_argument("--metrics-json", default=None,
                     help="write the structured run metrics to this path")
     args = ap.parse_args()
-    _not_ported_continuous(args.sanitize)
     stop_tokens = tuple(
         int(t) for t in args.stop_tokens.split(",") if t.strip()
     ) if args.stop_tokens else ()
@@ -976,7 +1018,8 @@ def main() -> None:
                 arrival_rate=args.arrival_rate, trace_file=args.trace_file,
                 seed=args.seed, sync_every=args.sync_every, mesh=args.mesh,
                 compile_cache_dir=args.compile_cache_dir,
-                metrics_json=args.metrics_json, stop_tokens=stop_tokens,
+                metrics_json=args.metrics_json, sanitize=args.sanitize,
+                stop_tokens=stop_tokens,
                 eos_token=args.eos_token, prefill_chunk=args.prefill_chunk,
                 prefix_cache=args.prefix_cache,
                 shared_prefix=args.shared_prefix, abft=args.abft,
@@ -1030,12 +1073,19 @@ def _print_result(res: Dict[str, Any], args, stop_tokens) -> None:
         print(f"[serve] stop reasons: {res['stop_reasons']}" + (
             f"; prefix cache: {res['prefix_cache']}"
             if res.get("prefix_cache") else ""))
+        if args.sanitize:
+            print(f"[serve] sanitize: decode host-read guard armed, "
+                  f"compiles {res['sanitize']['compiles']}")
     else:
         print(f"[serve] prefill {res['prefill_s']*1e3:.1f}ms, "
               f"decode {res['decode_s_per_token']*1e3:.1f}ms/tok")
         print(f"[serve] tokens:\n{res['generated']}")
         if stop_tokens or args.eos_token is not None:
             print(f"[serve] stop reasons: {res['stop_reasons']}")
+    if res.get("compile_cache"):
+        cc = res["compile_cache"]
+        print(f"[serve] compile cache {cc['dir']}: libraries "
+              f"{cc['libraries']}")
     if "pim_substrate" in res:
         print(f"[serve] pim_substrate = {res['pim_substrate']}")
     for k, v in res.items():

@@ -181,9 +181,8 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
         torch.float32)
     logits = logits / math.sqrt(d)
     m = mask if mask.dim() == 3 else mask[None]
-    logits = torch.where(m[:, None, None], logits,
-                         torch.tensor(NEG_INF, dtype=logits.dtype,
-                                      device=logits.device))
+    # a Python scalar, not a tensor made from one: no host->device copy
+    logits = torch.where(m[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkrst,btkd->bskrd", probs, v)
     return out.reshape(b, s, h, d)
@@ -211,7 +210,6 @@ def blockwise_attention(q, k, v, positions, window: int = 0, causal=True,
                        device=q.device)
     l_run = torch.zeros((b, kvh, rep, s), dtype=torch.float32,
                         device=q.device)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
     for start in range(0, s, block):
         kc = k[:, start:start + block]
         vc = v[:, start:start + block]
@@ -219,7 +217,7 @@ def blockwise_attention(q, k, v, positions, window: int = 0, causal=True,
         logits = torch.einsum("bskrd,btkd->bkrst", qg.to(torch.float32),
                               kc.to(torch.float32))
         mask = _mask(positions, pc, window, causal, prefix_len)
-        logits = torch.where(mask[:, None, None], logits, neg)
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
         m_new = torch.maximum(m_run, logits.amax(dim=-1))
         scale = torch.exp(m_run - m_new)
         p = torch.exp(logits - m_new[..., None])

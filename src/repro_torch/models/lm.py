@@ -198,8 +198,8 @@ def _vocab_mask(cfg: ModelConfig, logits: torch.Tensor, offset: int = 0
         return logits
     pad = torch.arange(offset, offset + logits.shape[-1],
                        device=logits.device) >= cfg.vocab_size
-    bias = torch.where(pad, torch.tensor(-1e30, device=logits.device),
-                       torch.tensor(0.0, device=logits.device))
+    # Python scalars (float32 by the default dtype), no host->device copy
+    bias = torch.where(pad, -1e30, 0.0)
     return logits + bias.to(logits.dtype)
 
 
@@ -454,10 +454,15 @@ def _row(x: torch.Tensor, index: Optional[Union[int, torch.Tensor]]
 
 def token_stop_mask(tokens: torch.Tensor, stop_tokens) -> torch.Tensor:
     """Per-row stop detection on the device. tokens: (...,) int token ids;
-    stop_tokens: (K,) stop set (K == 0 never stops). Returns a boolean
-    tensor of tokens' shape."""
-    stop = torch.as_tensor(stop_tokens, dtype=torch.int32,
-                           device=tokens.device)
+    stop_tokens: (K,) stop set (K == 0 never stops), a tensor (the
+    serving engine's, already on the device: no copy) or host ints (one
+    host-to-device copy). Returns a boolean tensor of tokens' shape."""
+    if torch.is_tensor(stop_tokens):
+        stop = stop_tokens.to(device=tokens.device, dtype=torch.int32)
+    else:
+        # repro-lint: disable=RPR101 (host ints; the engine passes a tensor)
+        stop = torch.as_tensor(stop_tokens, dtype=torch.int32,
+                               device=tokens.device)
     if stop.dim() != 1:
         raise ValueError(f"stop_tokens must be 1-D, got {tuple(stop.shape)}")
     if stop.shape[0] == 0:

@@ -120,6 +120,7 @@ def expert_counts(flat_ids: torch.Tensor, experts: int,
     ``n / num_experts`` of the n ids (the first ``n % num_experts`` one
     more)."""
     if not flat_ids.is_meta:
+        # repro-lint: disable=RPR101 (group sizes: one a layer, float route)
         return torch.bincount(flat_ids, minlength=experts)[:experts].tolist()
     n = flat_ids.numel()
     return [n // num_experts + (e < n % num_experts) for e in range(experts)]

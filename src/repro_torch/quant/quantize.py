@@ -26,6 +26,7 @@ def qmax(bits: int) -> int:
 
 
 @dataclasses.dataclass
+# repro-lint: disable=RPR301 (made and read within one call; no tree holds it)
 class QTensor:
     """Integer codes + float scale. ``values`` are int8 for widths up to 8
     bits (nibble decomposition is a separate step, see

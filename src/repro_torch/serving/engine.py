@@ -64,7 +64,19 @@ distinct step-input shape signatures run (prefill and chunk calls,
 single steps and windows, inserts), and ``fallback_traces`` those of the
 fallback replays (warm-up included): the counterpart of the JAX engine's
 compile-once counters; on fixed slot geometry each stays 1 (decode, 2
-with windows). Out of scope, and raising: ``sanitizer=`` (ROADMAP A13).
+with windows). Each new signature is also told to the armed
+:class:`~repro_torch.analysis.sanitize.CompileCounter`, under the JAX
+engine's jit names (``prefill``, ``prefill_chunk``, ``insert``,
+``decode``, ``decode_window``; ``<name>_fb`` for a fallback replay).
+
+Sanitizers (``sanitizer=``, a duck-typed
+:class:`~repro_torch.analysis.sanitize.Sanitizer`): its ``decode_guard``
+wraps each decode step call (``_decode_fn`` / ``_window_fn``) inside the
+dispatch, so a blocking host read there raises. The placement of the
+step's inputs before it and ``_fetch``'s one copy after it stay outside,
+and a fallback replay runs unguarded, as in the JAX engine. Inside its
+``session()``, ``nan_debug`` folds a NaN count of each dispatch's float
+outputs into that one copy, and a NaN raises ``FloatingPointError``.
 
 Meshes (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh`): every rank
 runs the engine over params whose plans are split over the mesh
@@ -75,6 +87,7 @@ data axes, which is placement only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -82,6 +95,8 @@ from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree
+from repro_torch.analysis.sanitize import record_compile
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.reliability import abft
@@ -170,11 +185,10 @@ class PrefillTask:
         return self.prefix is not None
 
 
-def _not_ported(sanitizer) -> None:
-    if sanitizer is not None:
-        raise NotImplementedError(
-            "ServingEngine(sanitizer=): the runtime sanitizers are not "
-            "ported yet (ROADMAP A13)")
+# step name (the JAX engine's jit name) -> its signature set
+_STEP_KINDS = {"prefill": "prefill", "prefill_chunk": "prefill",
+               "insert": "insert", "decode": "decode",
+               "decode_window": "decode"}
 
 
 class ServingEngine:
@@ -186,7 +200,8 @@ class ServingEngine:
     ABFT-verified serving with retry on its fallback, repair and
     degraded mode; the engine then serves ``reliability.serving_params()``.
     ``mesh`` is the mesh the params' plans were split over (recorded; the
-    split plans carry it themselves).
+    split plans carry it themselves). ``sanitizer`` arms the runtime
+    sanitizers (see the module docstring).
     """
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
@@ -197,7 +212,6 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache_capacity: int = 0,
                  mesh=None, sanitizer=None, reliability=None):
-        _not_ported(sanitizer)
         slots_mod.check_slot_compatible(cfg)
         if prompt_pad > max_len:
             raise ValueError(f"prompt_pad={prompt_pad} exceeds "
@@ -211,6 +225,7 @@ class ServingEngine:
         self.params = params
         self.cfg = cfg
         self.mesh = mesh
+        self.sanitizer = sanitizer
         self.num_slots = num_slots
         self.prompt_pad = prompt_pad
         self.max_len = max_len
@@ -261,14 +276,16 @@ class ServingEngine:
     def fallback_traces(self) -> int:
         return len(self._signatures["fallback"])
 
-    def _note(self, kind: str, fallback: bool, *shapes) -> None:
-        """Record a step's input signature: under ``kind``, or, for a
-        fallback replay, under "fallback" keyed by ``kind`` too."""
+    def _note(self, name: str, fallback: bool, *shapes) -> None:
+        """Record the input signature of step ``name``: under its kind,
+        or, for a fallback replay, under "fallback" keyed by the kind too.
+        A new signature is one compile for the armed compile counters."""
+        kind = _STEP_KINDS[name]
         sig = tuple(tuple(s) for s in shapes)
-        if fallback:
-            self._signatures["fallback"].add((kind,) + sig)
-        else:
-            self._signatures[kind].add(sig)
+        key, sig = ("fallback", (kind,) + sig) if fallback else (kind, sig)
+        if sig not in self._signatures[key]:
+            self._signatures[key].add(sig)
+            record_compile(f"{name}_fb" if fallback else name)
 
     # ------------------------------------------------------------------
     # step functions
@@ -285,7 +302,8 @@ class ServingEngine:
     def _chunk_fn(self, params, scratch, toks: torch.Tensor, start: int,
                   li: int, fallback: bool = False):
         """One chunk into ``scratch``, written in place."""
-        self._note("prefill", fallback, toks.shape, scratch["k"].shape)
+        self._note("prefill_chunk", fallback, toks.shape,
+                   scratch["k"].shape)
         logits, scratch = lm.prefill_chunk(params, self.cfg, scratch, toks,
                                            start, logits_index=li)
         return torch.argmax(logits, -1)[0], scratch
@@ -308,8 +326,8 @@ class ServingEngine:
         reached); frozen rows recompute their previous step verbatim
         (same token, same position -> bit-identical KV rewrite), so
         nothing after a stop token is ever marked valid."""
-        self._note("decode", fallback, toks.shape, pos.shape, done.shape,
-                   left.shape)
+        self._note("decode_window", fallback, toks.shape, pos.shape,
+                   done.shape, left.shape)
         toks_seq, valid_seq = [], []
         for _ in range(window_len):
             logits, cache = lm.decode_step(params, self.cfg, cache, toks,
@@ -394,25 +412,34 @@ class ServingEngine:
     # tokens; the degradation machine around every verified dispatch
     # ------------------------------------------------------------------
     @staticmethod
-    def _dispatch(fn, *args):
+    def _dispatch(fn, *args, guard=None):
         """Run one step function inside an ABFT collect scope: every
-        verified matmul's count stays on the device. Returns the output
-        and the closed scope (its tags and per-tag count vector)."""
+        verified matmul's count stays on the device. ``guard`` (a context
+        manager) wraps the step call alone. Returns the output and the
+        closed scope (its tags and per-tag count vector)."""
         with abft.collect_scope() as scope:
-            out = fn(*args)
+            with guard if guard is not None else contextlib.nullcontext():
+                out = fn(*args)
         return out, scope
 
     @staticmethod
     def _fetch(tensors: Sequence[torch.Tensor],
-               scope: abft.CollectScope) -> List[np.ndarray]:
+               scope: abft.CollectScope,
+               nan_of: Sequence[torch.Tensor] = ()) -> List[np.ndarray]:
         """The dispatch's one device-to-host copy: ``tensors`` (integer or
         bool, as int64) and the scope's per-tag counts together; the
-        counts go to the fault log. Nothing to read means no sync."""
+        counts go to the fault log. With ``nan_of`` (float tensors), their
+        NaN count rides along, and a NaN raises ``FloatingPointError``.
+        Nothing to read means no sync."""
+        if not (tensors or scope.names or nan_of):
+            return []
         parts = [t.reshape(-1).to(torch.int64) for t in tensors]
         if scope.names:
             parts.append(scope.counts().to(torch.int64))
-        if not parts:
-            return []
+        if nan_of:
+            parts.append(torch.stack([torch.isnan(t).sum() for t in nan_of])
+                         .sum().reshape(1))
+        # repro-lint: disable=RPR101 (the dispatch's one sanctioned read)
         host = (torch.cat(parts) if len(parts) > 1
                 else parts[0]).cpu().numpy()
         out, at = [], 0
@@ -420,8 +447,20 @@ class ServingEngine:
             out.append(host[at:at + t.numel()].reshape(tuple(t.shape)))
             at += t.numel()
         if scope.names:
-            abft.deliver(scope.names, host[at:])
+            abft.deliver(scope.names, host[at:at + len(scope.names)])
+        if nan_of and host[-1]:
+            raise FloatingPointError(
+                f"NaN in a dispatch's float outputs ({int(host[-1])} "
+                "values; the sanitizer's nan_debug)")
         return out
+
+    def _nan_inputs(self, out) -> List[torch.Tensor]:
+        """The float tensors of a dispatch's output when the sanitizer's
+        NaN check is armed, else none."""
+        if self.sanitizer is None or not self.sanitizer.nan_armed:
+            return []
+        return [t for t in tree.leaves(out)
+                if torch.is_tensor(t) and t.is_floating_point()]
 
     def _after_violation(self) -> None:
         """Post-retry bookkeeping: re-program plans whose strike count
@@ -434,20 +473,25 @@ class ServingEngine:
             if self.prefix_cache is not None:
                 self.prefix_cache.invalidate_all()
 
-    def _checked(self, run, reads, restore=None):
+    def _checked(self, run, reads, restore=None, guarded: bool = False):
         """One dispatch under the degradation machine. ``run(params,
         fallback)`` dispatches the step; ``reads(out)`` names the tensors
         the host reads from it. Without a manager, or with a degraded one,
         the step runs once (on the fallback when degraded). Otherwise the
         manager drains after it, and a dispatch that tripped is replayed
         on the golden fallback, after ``restore()`` (if given) has put
-        back what the dispatch wrote in place. Returns the output and the
-        host copies of ``reads(out)``."""
+        back what the dispatch wrote in place. ``guarded`` runs the first
+        dispatch's step under the sanitizer's decode guard (a replay runs
+        unguarded). Returns the output and the host copies of
+        ``reads(out)``."""
         man = self.reliability
         degraded = man is not None and man.degraded
+        guard = (self.sanitizer.decode_guard(self.device)
+                 if guarded and self.sanitizer is not None else None)
         out, scope = self._dispatch(
-            run, man.fallback if degraded else self.params, degraded)
-        host = self._fetch(reads(out), scope)
+            run, man.fallback if degraded else self.params, degraded,
+            guard=guard)
+        host = self._fetch(reads(out), scope, self._nan_inputs(out))
         if man is None or degraded:
             return out, host
         bad = man.drain()
@@ -457,7 +501,7 @@ class ServingEngine:
             if restore is not None:
                 restore()
             out, scope = self._dispatch(run, man.fallback, True)
-            host = self._fetch(reads(out), scope)
+            host = self._fetch(reads(out), scope, self._nan_inputs(out))
             man.note_retry(time.perf_counter() - t0)
             self._after_violation()
         return out, host
@@ -722,7 +766,7 @@ class ServingEngine:
                 lambda params, fb: self._window_fn(
                     params, cache, tok_dev, pos_dev, done_dev, left_dev, w,
                     fb),
-                lambda out: [out[0], out[1]], restore)
+                lambda out: [out[0], out[1]], restore, guarded=True)
             valid_seq = valid_seq.astype(bool)
         else:
             # a replay needs no restore: the step writes each row's one
@@ -731,7 +775,7 @@ class ServingEngine:
             out, (nxt,) = self._checked(
                 lambda params, fb: self._decode_fn(params, cache, tok_dev,
                                                    pos_dev, fb),
-                lambda out: [out[0]])
+                lambda out: [out[0]], guarded=True)
             toks_seq = nxt[None]
             valid_seq = ~done_vec[None]
         state.cache = out[2]

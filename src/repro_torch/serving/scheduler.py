@@ -168,6 +168,7 @@ def static_generate(params, cfg: ModelConfig, tokens: np.ndarray,
         tok = torch.argmax(logits, -1)[:, None]
         out.append(tok[0, 0])
     # one sync at the end instead of one per generated token
+    # repro-lint: disable=RPR101 (the request's one read, after its loop)
     return torch.stack(out).cpu().numpy().astype(np.int32)
 
 
@@ -181,8 +182,9 @@ class ContinuousScheduler:
     ``reliability=`` (a :class:`~repro_torch.reliability.
     ReliabilityManager`) passes to the engine, and the run's metrics gain
     its ``reliability`` section. ``mesh=`` passes to the engine (the
-    params' plans split over it). Out of scope, and raising in the
-    engine: ``sanitizer=`` (ROADMAP A13).
+    params' plans split over it), and so does ``sanitizer=`` (a
+    :class:`~repro_torch.analysis.sanitize.Sanitizer`: the host-read
+    guard around each decode step).
     """
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,

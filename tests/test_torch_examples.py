@@ -183,11 +183,16 @@ def test_continuous_serving(capsys):
     assert any(l.startswith("  req 0: arrival ") for l in lines)
 
 
-def test_continuous_serving_sanitize_names_its_item():
-    with pytest.raises(NotImplementedError, match="A13"):
-        _example("continuous_serving").main(["--device", "cpu",
-                                             "--requests", "1",
-                                             "--sanitize"])
+def test_continuous_serving_sanitize_names_its_item(capsys):
+    """A13 is ported: ``--sanitize`` arms the guard and the compile
+    counter, and the example prints what it counted, as JAX's does."""
+    res = _example("continuous_serving").main(["--device", "cpu",
+                                                "--requests", "1",
+                                                "--sanitize"])
+    assert res["sanitize"]["compiles"] == {"prefill": 1, "insert": 1,
+                                           "decode": 1}
+    assert "  sanitize: decode host-read guard armed, compiles {'prefill': " \
+           "1, 'insert': 1, 'decode': 1}" in capsys.readouterr().out
 
 
 def test_train_lm_resumes(tmp_path, capsys):

@@ -91,11 +91,32 @@ def test_opima_lm_estimate_equals_jax(bits):
     (True, {"inject_faults": "faults.json"}, "A9"),
     (True, {"chaos_check": True}, "A9"),
     (True, {"sanitize": True}, "A13")])
-def test_unported_serve_options_raise(continuous, kwargs, item, tmp_path):
-    """Options of later items raise naming them; A9's and A11's options
-    are ported and run (A9 with JAX's guards; a one-rank ``mesh="1,1"``
-    in this process, and a mesh of more ranks than the run has raises
-    naming the launch command)."""
+def test_unported_serve_options_raise(continuous, kwargs, item, tmp_path,
+                                      monkeypatch):
+    """Options of later items raise naming them; A9's, A11's and A13's
+    options and the compile cache are ported and run (A9 with JAX's
+    guards; a one-rank ``mesh="1,1"`` in this process, and a mesh of more
+    ranks than the run has raises naming the launch command; A13's
+    ``sanitize`` with JAX's ``sanitize`` section; the compile cache as the
+    kernel build directory)."""
+    if "compile_cache_dir" in kwargs:
+        from repro_torch.kernels import runtime
+        monkeypatch.setattr(runtime, "_build_dir", runtime.build_dir())
+        res = t_serve.serve("qwen2.5-3b", device="cpu", **SMALL,
+                            compile_cache_dir=str(tmp_path / "cc"))
+        assert res["compile_cache"] == {
+            "dir": str((tmp_path / "cc").resolve()), "libraries": {}}
+        assert runtime.library_path("pim_matmul").parent == \
+            (tmp_path / "cc").resolve()
+        return
+    if "sanitize" in kwargs:
+        res = t_serve.serve_continuous("qwen2.5-3b", device="cpu", layers=1,
+                                       d_model=32, num_requests=3,
+                                       prompt_len=8, gen=3, **kwargs)
+        assert res["sanitize"]["transfer_guard"] is True
+        assert res["sanitize"]["compiles"] == {"prefill": 1, "insert": 1,
+                                               "decode": 1}
+        return
     if item == "A9":
         _reliability_option_runs(kwargs, tmp_path)
         return
@@ -194,10 +215,21 @@ def test_cli_static_and_continuous(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "[serve] reliability: 3 faults injected" in res.stdout
     assert "chaos check passed" in res.stdout
+    # A13 is ported: --sanitize arms the guard and the compile counter
+    res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen3-4b",
+                "--layers", "1", "--d-model", "32", "--continuous",
+                "--num-slots", "2", "--requests", "3", "--prompt-len", "8",
+                "--gen", "3", "--sync-every", "2", "--device", "cpu",
+                "--sanitize", "--compile-cache-dir", str(tmp_path / "cc")])
+    assert res.returncode == 0, res.stderr
+    assert "[serve] sanitize: decode host-read guard armed, compiles " \
+           "{'prefill': 1, 'insert': 1, 'decode': 1, 'decode_window': 1}" \
+        in res.stdout
+    assert f"[serve] compile cache {(tmp_path / 'cc').resolve()}" \
+        in res.stdout
     # --mesh is ported (A11): a mesh of more ranks than the run has names
     # the launch command
-    for flag, item in ((["--sanitize"], "A13"),
-                       (["--mesh", "1,2"], "torchrun --standalone")):
+    for flag, item in ((["--mesh", "1,2"], "torchrun --standalone"),):
         res = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen2.5-3b",
                     "--continuous", "--device", "cpu", *flag])
         assert res.returncode != 0 and item in res.stderr, flag

@@ -24,6 +24,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).parent))
 from hypo_compat import given, settings, st  # noqa: E402
 
+from repro_torch.analysis.sanitize import Sanitizer
 from repro_torch.configs.base import get_config
 from repro_torch.core.pim import PimConfig
 from repro_torch.launch import serve as t_serve
@@ -496,14 +497,25 @@ def test_serve_static_stop_reason_metrics_json(tmp_path):
 # what the port leaves to later items
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A11"),
-                                     ({"sanitizer": object()}, "A13"),
+                                     ({"sanitizer": Sanitizer()}, "A13"),
                                      ({"reliability": True}, "A9")])
 def test_engine_options_of_later_items_raise(kw, item):
-    """``sanitizer=`` raises naming its item; A9 and A11 are ported, so
-    ``reliability=`` takes a manager and the engine serves its params,
-    with the fallback replays' signatures counted, and ``mesh=`` is
-    recorded (the params' plans carry their splits)."""
+    """A9, A11 and A13 are ported, so ``reliability=`` takes a manager
+    and the engine serves its params, with the fallback replays'
+    signatures counted, ``mesh=`` is recorded (the params' plans carry
+    their splits), and ``sanitizer=`` guards each decode step, which a
+    clean step passes."""
     cfg, params = _params()
+    if item == "A13":
+        eng = ServingEngine(params, cfg, num_slots=1, prompt_pad=4,
+                            max_len=8, **kw)
+        assert eng.sanitizer is kw["sanitizer"]
+        state = eng.init_state()
+        state, _ = eng.insert(eng.prefill(np.arange(3)), state,
+                              max_new_tokens=3)
+        state, res = eng.generate(state)
+        assert len(res.events) == 1
+        return
     if item == "A11":
         eng = ServingEngine(params, cfg, num_slots=1, prompt_pad=4,
                             max_len=8, **kw)

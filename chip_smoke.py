@@ -206,20 +206,31 @@ package. Phases, each of which raises on failure:
     slots: each rank's 36 x 7 projections split 5 by columns (B1 on each
     rank's half of N) and 2 by rows (B2 on each rank's half of K, the
     int32 partials all-reduced before the dequant), 180 B1 and 72 B2
-    launches per prefill and per decode step, the 6 token streams equal
-    phase 14's bit for bit; prefill ms per request, decode ms per step
+    launches per prefill and per decode step, the trace's token streams
+    equal phase 14's bit for bit; prefill ms per request, decode ms per step
     and tokens/s beside single-device and each rank's resident and peak
     memory from that run; then a second, instrumented run of the trace's
-    first ``MESH_TRACED`` (2) requests for the collectives' time and the
-    row split's K-block
-    copies;
-    each split at kernel level at qwen3-4b's shapes (M = 512 and 8) equal
-    to the unsplit plan and B2 to its plain version; moonshot-v1-16b-a3b
-    at 2 layers with its 64 experts split 32 a rank, on ``exact-cuda`` and
-    ``analog-cuda``, prefill and decode logits equal the whole plans'; a
-    stamped plan directory (qwen3-4b, 2 layers) saved on the mesh and
+    first ``MESH_TRACED`` (1) request for the collectives' time and the
+    row split's K-block copies; then, on the same ranks, whisper-medium
+    and paligemma-3b at full width and depth through serving's set-up on
+    the mesh (both stacks' plans and the cross-attention's placed by leaf
+    name, the patch projector whole) and one timed static request of
+    phase 12b's (batch 8, prompt 512, stub frames or patches, 16 new
+    tokens; no warm-up of its own): tokens equal phase 12b's bit for bit,
+    B1 and B2 launches by route as the placed plans give them (whisper
+    264 and 120 per prefill, 120 and 72 per decode step; paligemma 90 and
+    36 each), no other kernel, prefill and decode times, collectives,
+    resident and peak memory, the plans left whole; each split at kernel
+    level at qwen3-4b's, whisper's and paligemma's shapes (M = 512 and 8)
+    equal to the unsplit plan and B2 to its plain version;
+    moonshot-v1-16b-a3b at ``MESH_EXACT_LAYERS`` (1) layer with its 64
+    experts split 32 a rank, on ``exact-cuda`` and ``analog-cuda``,
+    prefill and decode logits equal the whole plans'; a stamped plan
+    directory (qwen3-4b, ``MESH_EXACT_LAYERS`` layer) saved on the mesh and
     restored with ``load_plans(mesh=)``, equal logits; then B2 and B1 at
-    the mesh path's shapes, bit for bit and timed as for hymba;
+    the mesh path's shapes, bit for bit and timed as for hymba, and at
+    whisper's and paligemma's split shapes bit for bit and timed beside
+    their bound;
 18. the flash-attention kernels against their plain versions: the
     forward on the JAX kernel test's cases in float32 and bfloat16 (within
     the tolerances stated at ``FLASH_RTOL``), then the forward and the
@@ -265,20 +276,29 @@ package. Phases, each of which raises on failure:
     ``FAMILY_LEAF_GAP_REL``, the flash launches by pass and mask branch
     (``flash_attention.BRANCH_LAUNCHES``), then a warm-up and
     ``TRAIN_STEPS`` timed AdamW steps with their launches, step time,
-    tokens/s and peak memory;
+    tokens/s and peak memory; the "cuda" route's numbers are phase 21's
+    references for the two families;
 21. sharded training (after the single-device references, freed): two
     ranks spawned on the one card over gloo, each training gemma3-1b at
-    full width on a 1x2 mesh (``make_train_step(..., mesh=)``: each rank's
-    2 query heads on the 1 KV head, the FFN hidden and the vocab split)
-    and at 2 layers on a 2x1 data-parallel mesh: the sharded loss and
-    gradient norm on one state within ``TRAIN_LOSS_REL`` /
-    ``TRAIN_GNORM_REL`` of the single-device ones, the gathered gradient's
-    largest leaf gap within ``TRAIN_LEAF_GAP_REL`` (with the control that
-    the check sees a lost half-block), a warm-up and ``TRAIN_STEPS`` steps
-    held likewise step by step, the replicated leaves equal across the
-    ranks, 26 launches of each flash kernel per rank and step at 2 query
-    heads on 1 KV head; per rank the step time, the collectives per step
-    by kind and their share of a synced step, peak and resident memory;
+    full width on a 1x2 mesh at ``TRAIN_MESH_GEMMA_LAYERS`` (6) of its 26
+    layers (``make_train_step(..., mesh=)``: each rank's 2 query heads on
+    the 1 KV head, the FFN hidden and the vocab split) and at 2 layers on
+    a 2x1 data-parallel mesh, then on the 1x2 mesh paligemma-3b at full
+    width and depth (4 query heads a rank on its 1 KV head, the patch
+    projector split) and whisper-medium at 2 + 2 layers (8 heads a rank
+    on 8 KV heads, the encoder and the cross-attention split), held to
+    phase 20b's steps: the sharded loss and gradient norm on one state
+    within ``TRAIN_LOSS_REL`` / ``TRAIN_GNORM_REL`` of the single-device
+    ones, the gathered gradient's largest leaf gap within
+    ``TRAIN_LEAF_GAP_REL`` (with the control that the check sees a lost
+    half-block; the families' stacked leaves at their first and last
+    layer), a warm-up and ``TRAIN_STEPS`` steps held likewise step by
+    step, the parameters after them within ``TRAIN_PARAM_ATOL``, the
+    replicated leaves equal across the ranks, each flash kernel once per
+    attention layer, rank and step (the families' also by mask branch) at
+    the rank's query and KV heads; per rank the step time, the
+    collectives per step by kind and their share of a synced step, peak
+    and resident memory;
 22. the front doors: the four examples of ``examples/torch/`` that serve
     (``quickstart``, ``cnn_pim_inference``, ``serve_pim_lm``,
     ``continuous_serving``), each in-process at its own default sizes on
@@ -293,10 +313,10 @@ package. Phases, each of which raises on failure:
     (``repro_torch.launch.dryrun``), which ran in a process of its own
     beside the other phases, on the CPU only (no card visible to it):
     every config of ``DRYRUN_ARCHS`` x each applicable shape on the 16x16
-    ``pod`` mesh ``ok`` or ``skipped``, never ``FAILED``, and gemma3-1b's
-    ``train_4k`` cell on the ``1,2`` mesh, whose per-rank float32 state
-    bytes must equal, as integers, the real local state of each rank of
-    phase 21's 1x2 mesh.
+    ``pod`` mesh ``ok`` or ``skipped``, never ``FAILED``, and the
+    ``train_4k`` cell of paligemma-3b on the ``1,2`` mesh, whose per-rank
+    float32 state bytes must equal, as integers, the real local state of
+    each rank of phase 21's paligemma-3b run.
 
 Each path's launch counts are set to 0 just before its requests and read
 just after (B1's also by route, held to what the route chooser gives the
@@ -2670,9 +2690,10 @@ def family_serve_path(torch, dev, mods, counters, arch, smi):
     out["program_s"] = time.perf_counter() - t0
     out["resident_bytes"] = torch.cuda.memory_allocated()
     tokens, inputs = serve_mod.request_inputs(cfg, LM_BATCH, LM_PROMPT, dev)
-    _, numbers = lm_serve_requests(torch, serve_mod, planned, cfg, tokens,
-                                   counters, inputs)
+    first, numbers = lm_serve_requests(torch, serve_mod, planned, cfg, tokens,
+                                       counters, inputs)
     out.update(numbers)
+    out["tokens"] = first[0].cpu().tolist()     # the mesh phase's reference
     pre, step = family_b1_launches(cfg)
     want = {"pim_matmul_fused": (pre + LM_GEN * step) * LM_REQUESTS}
     got = numbers["launches"]
@@ -2713,7 +2734,47 @@ def family_serve_path(torch, dev, mods, counters, arch, smi):
     return out
 
 
-def family_train_path(torch, dev, mods, counters, arch, smi):
+def family_train_cfg(mods, arch):
+    """The family's training config: attn_backend "cuda", whisper-medium
+    at WHISPER_TRAIN_LAYERS layers of each stack, paligemma-3b whole."""
+    import dataclasses
+    whisper = arch == "whisper-medium"
+    return dataclasses.replace(
+        family_cfg(mods, arch, WHISPER_TRAIN_LAYERS if whisper else None),
+        attn_backend="cuda")
+
+
+def family_train_seq(cfg):
+    return WHISPER_TRAIN_SEQ if cfg.encoder_layers else LM_PROMPT
+
+
+def family_flash_launches(cfg):
+    """Flash launches per training step of a family: each masked kernel
+    once per attention layer (an encoder's non-causal, a decoder's causal
+    or, after a VLM prefix, prefix-LM), the head sum once per decoder
+    layer where query heads share a KV head; and the same by (kernel,
+    mask branch)."""
+    n = cfg.num_layers
+    per_pass = {"non_causal": cfg.encoder_layers, "causal": n} \
+        if cfg.encoder_layers else {"prefix_lm": n}
+    masked = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+    want = dict.fromkeys(masked, n + cfg.encoder_layers)
+    want["flash_attention_bwd_sum"] = \
+        n if cfg.num_heads > cfg.num_kv_heads else 0
+    return want, {(p, b): c for p in masked for b, c in per_pass.items()}
+
+
+def leaf_ends(tree_mod, tree, ends=True):
+    """Leaf name -> the leaf on the host; with ``ends``, a stacked leaf's
+    first and last layer only (what a mesh run's gathered leaves are held
+    to where the whole tree would cost too much)."""
+    return {"/".join(path): (t[[0, -1]] if ends and path[0] in STACKS
+                             else t).detach().cpu()
+            for path, t in tree_mod.flatten_with_path(tree)}
+
+
+def family_train_path(torch, dev, mods, counters, arch, smi, ref_dir):
     """``arch`` trained with attn_backend="cuda", float32 parameters from
     seed 0: paligemma-3b at full width and depth (batch 2 x 512 text
     tokens after its 256-patch prefix: B5's prefix-LM branch),
@@ -2723,20 +2784,16 @@ def family_train_path(torch, dev, mods, counters, arch, smi):
     gradient norm against the "jnp" route on one state (TRAIN_LOSS_REL,
     TRAIN_GNORM_REL), every gradient leaf within FAMILY_LEAF_GAP_REL, the
     flash launches by pass and mask branch; then AdamW steps (a warm-up
-    and TRAIN_STEPS timed)."""
+    and TRAIN_STEPS timed). The "cuda" route's
+    loss, gradient norm, gradient and steps are the sharded-training
+    phase's reference (``out["reference"]``; the gradient's and the last
+    parameters' :func:`leaf_ends` saved under ``ref_dir``)."""
     import dataclasses
-    from repro_torch.data.pipeline import DataConfig, LMDataIterator
     from repro_torch.optim.adamw import AdamWConfig, global_norm
     train, lm, fkern = mods["train"], mods["lm"], mods["flash_kern"]
-    whisper = arch == "whisper-medium"
-    cfg = dataclasses.replace(
-        family_cfg(mods, arch, WHISPER_TRAIN_LAYERS if whisper else None),
-        attn_backend="cuda")
-    seq = WHISPER_TRAIN_SEQ if whisper else LM_PROMPT
-    it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                   global_batch=TRAIN_BATCH), cfg)
-    batches = [train.batch_to_device(next(it), dev)
-               for _ in range(TRAIN_STEPS + 2)]
+    cfg = family_train_cfg(mods, arch)
+    seq = family_train_seq(cfg)
+    batches = train_batches(mods, cfg, seq, dev, TRAIN_STEPS + 2)
     out = {"config": {"arch": arch, "layers": cfg.num_layers,
                       "encoder_layers": cfg.encoder_layers,
                       "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -2757,18 +2814,15 @@ def family_train_path(torch, dev, mods, counters, arch, smi):
                    / max(gj.abs().max().item(), 1e-30)
                    for g, gj in zip(leaves(grads), leaves(grads_j)))
     loss_j, loss_c = loss_j.item(), loss_c.item()
+    reference = {"loss": loss_c, "grad_norm": gnorm_c,
+                 "grads": str(ref_dir / f"grads_{arch}.pt"),
+                 "params": str(ref_dir / f"params_{arch}.pt"),
+                 "ends": True}
+    torch.save(leaf_ends(mods["tree"], grads), reference["grads"])
     del params, grads, grads_j
     torch.cuda.empty_cache()
     n = cfg.num_layers
-    per_pass = {"non_causal": cfg.encoder_layers, "causal": n} if whisper \
-        else {"prefix_lm": n}
-    masked = ("flash_attention_fwd", "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv")
-    want_branches = {(p, b): c for p in masked for b, c in per_pass.items()}
-    attn_layers = n + cfg.encoder_layers
-    want = dict.fromkeys(masked, attn_layers)
-    want["flash_attention_bwd_sum"] = \
-        n if cfg.num_heads > cfg.num_kv_heads else 0
+    want, want_branches = family_flash_launches(cfg)
     out["cuda_vs_jnp"] = {"loss_cuda": loss_c, "loss_jnp": loss_j,
                           "grad_norm_cuda": gnorm_c, "grad_norm_jnp": gnorm_j,
                           "max_leaf_grad_gap_rel": leaf_gap,
@@ -2799,7 +2853,9 @@ def family_train_path(torch, dev, mods, counters, arch, smi):
 
     state = train.init_state(cfg, 0, device=dev)
     step_fn = train.make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
-    state, _ = step_fn(state, batches[0])                 # warm-up
+    state, metrics = step_fn(state, batches[0])           # warm-up
+    reference["steps"] = [[metrics["loss"].item(),
+                           metrics["grad_norm"].item()]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*counters)
@@ -2813,6 +2869,7 @@ def family_train_path(torch, dev, mods, counters, arch, smi):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(metrics["loss"].item())
+        reference["steps"].append([losses[-1], metrics["grad_norm"].item()])
     launches = read_counts(*counters)
     if any(launches[k] != v * TRAIN_STEPS for k, v in want.items()) or any(
             launches[k] for k in launches if k not in want) or \
@@ -2832,6 +2889,9 @@ def family_train_path(torch, dev, mods, counters, arch, smi):
         f"memory {out['peak_bytes'] / 2 ** 30:.3f} GiB, losses "
         + ", ".join(f"{x:.5f}" for x in losses)
         + f"; flash launches per step {want} [{smi}]")
+    torch.save(leaf_ends(mods["tree"], state["params"]),
+               reference["params"])
+    out["reference"] = reference
     del state, batches
     torch.cuda.empty_cache()
     return out
@@ -3890,19 +3950,39 @@ def reliability_checks(torch, dev, mods):
 # The mesh: qwen3-4b on a 1x2 mesh of two ranks sharing the card
 # ---------------------------------------------------------------------------
 MESH_SPEC, MESH_RANKS = "1,2", 2
-MESH_EXACT_LAYERS = 2     # moonshot's expert split and the stamped directory
+# moonshot's expert split and the stamped directory (2 until whisper-medium
+# and paligemma-3b were served on the mesh; cut for the time limit)
+MESH_EXACT_LAYERS = 1
 MESH_TIMEOUT_S = 900      # both ranks' whole run, set-up included
-MESH_TRACED = 2           # requests of the instrumented second run (8
+MESH_TRACED = 1           # requests of the instrumented second run (8
                           # until the sharded-training phase came, 4 until
-                          # the front-doors phase)
+                          # the front-doors phase, 2 until whisper-medium
+                          # and paligemma-3b were served on the mesh)
 # per layer and forward step: q, k, v, gate, up split by columns (B1), o and
 # down by rows (B2)
 MESH_COL, MESH_ROW = 5, 2
-# (K, N, kind) of qwen3-4b's projections checked at kernel level, and one
+# (K, N, kind) of the projections checked at kernel level: qwen3-4b's, then
+# whisper-medium's (q/k/v of both attentions, the MLP's up; o and down) and
+# paligemma-3b's (q, k/v of its one KV head, gate/up; o and down); and one
 # moonshot expert stack's up projection (experts, K, N)
 MESH_CHECKS = ((2560, 4096, "col"), (2560, 1024, "col"), (2560, 9728, "col"),
-               (4096, 2560, "row"), (9728, 2560, "row"))
+               (4096, 2560, "row"), (9728, 2560, "row"),
+               (1024, 1024, "col"), (1024, 4096, "col"),
+               (1024, 1024, "row"), (4096, 1024, "row"),
+               (2048, 2048, "col"), (2048, 256, "col"), (2048, 16384, "col"),
+               (2048, 2048, "row"), (16384, 2048, "row"))
 MESH_EXPERT_CHECK = (4, 2048, 1408)
+# the cross-attention's k and v run in prefill only (decode reads them from
+# the cache)
+CROSS_KV = (("xattn", "wk_dh"), ("xattn", "wv_dh"))
+# (B1, B2) launches per rank per prefill and per decode step of the families
+# on the 1x2 mesh with every plan split: q, k, v and the MLP's up (and gate)
+# by columns, o and down by rows, in every layer of both stacks; whisper's
+# cross-attention k and v in prefill only
+FAMILY_MESH_LAUNCHES = {
+    "whisper-medium": {"prefill": (24 * 4 + 24 * 7, 24 * 2 + 24 * 3),
+                       "decode": (24 * 5, 24 * 3)},
+    "paligemma-3b": {"prefill": (18 * 5, 18 * 2), "decode": (18 * 5, 18 * 2)}}
 
 
 def mesh_rank(rank, world, init_file, task_file, out_file):
@@ -3937,6 +4017,8 @@ def mesh_rank(rank, world, init_file, task_file, out_file):
         out["serve"] = mesh_serve(torch, mods, task)
         out["moonshot"] = mesh_moonshot(torch, mods, mesh)
         out["persist"] = mesh_persist(torch, mods, mesh, task["plan_dir"])
+        out["families"] = {arch: mesh_family_serve(torch, mods, arch, want)
+                           for arch, want in task["families"].items()}
         Path(out_file).write_text(json.dumps(out, default=str))
     finally:
         dist.destroy_process_group()
@@ -4248,19 +4330,225 @@ def mesh_persist(torch, mods, mesh, plan_dir):
             "kinds": dict(restored_kinds), "equal": True}
 
 
-def mesh_phase(torch, dev, mods, single, smi):
+def stack_plans(tree, keys=()):
+    """(keys below the layer, plan) of every plan of one layer stack (its
+    per-layer lists)."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in stack_plans(v, keys + (k,))]
+    return [(keys, p) for p in tree] if isinstance(tree, list) else []
+
+
+def family_mesh_plan(params):
+    """What a family's placed plans launch: B2 (``pim_matmul_int``) for a
+    row split, B1 (``pim_matmul_fused``) for a column split or a plan the
+    walk left whole. Returns (entry point, K, N) as each rank's kernel
+    sees them -> launches per prefill (every plan of both stacks) and per
+    decode step (the decoder's, but the cross-attention's k and v), and
+    the names of the plans left whole."""
+    per = {"prefill": Counter(), "decode": Counter()}
+    whole = []
+    for stack in ("enc_layers", "layers"):
+        for keys, plan in stack_plans(params.get(stack, {})):
+            row = plan.shard is not None and plan.shard.kind == "row"
+            if plan.shard is None:
+                whole.append("/".join((stack,) + keys))
+            key = ("pim_matmul_int" if row else "pim_matmul_fused",
+                   *plan.planes.shape[-2:])
+            per["prefill"][key] += 1
+            if stack == "layers" and keys not in CROSS_KV:
+                per["decode"][key] += 1
+    return per, whole
+
+
+def coll_text(c):
+    """Seconds, calls and bytes of each collective kind in ``c``."""
+    return ", ".join(
+        f"{kind} {c.get(kind + '_s', 0.0):.3f} s in "
+        f"{c.get(kind + '_s_calls', 0)} calls, "
+        f"{c.get(kind + '_bytes', 0) / 1e9:.3f} GB"
+        for kind in ("all_gather", "all_reduce"))
+
+
+def mesh_family_serve(torch, mods, arch, want):
+    """whisper-medium or paligemma-3b served on the mesh at full width and
+    depth: serving's set-up (``serve._setup(..., mesh_spec=)``: each layer
+    of both stacks programmed at w4a4 on exact-cuda and placed as it is
+    drawn), then one timed static request of ``family_serve_path`` (batch
+    8, prompt 512, its stub frames or patches, 16 new tokens) with no
+    warm-up of its own (cut for the time limit: the ranks are warm from
+    qwen3-4b's run, and a family's gloo-bound prefill takes seconds), its
+    launch counts and collectives set to 0 just before and read just
+    after: the tokens equal the single-device
+    ``want`` bit for bit, no plan is left whole, B1 and B2 launches per
+    prefill and decode step as ``FAMILY_MESH_LAUNCHES`` and by route as the
+    route chooser gives them, no other kernel; prefill and decode times
+    (CUDA events; the device synchronized around every collective, whose
+    own host seconds and bytes are read for prefill and decode apart),
+    resident and peak memory."""
+    serve_mod, kern, akern, mesh_mod = (mods["serve"], mods["kern"],
+                                        mods["akern"], mods["mesh"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, _, _, mesh = serve_mod._setup(
+        arch, None, None, True, 4, False, "exact-cuda", None,
+        mesh_spec=MESH_SPEC)
+    torch.cuda.synchronize()
+    out = {"setup_s": time.perf_counter() - t0,
+           "resident_bytes": torch.cuda.memory_allocated(),
+           "setup_peak_bytes": torch.cuda.max_memory_allocated()}
+    per, whole = family_mesh_plan(params)
+    if whole:
+        raise AssertionError(f"mesh {arch}: plans left whole {whole}")
+    tokens, inputs = serve_mod.request_inputs(cfg, LM_BATCH, LM_PROMPT,
+                                              mesh.device)
+    coll, at_prefill = {}, {}
+
+    def prefill(*args, **kwargs):
+        res = prefill_fn(*args, **kwargs)
+        at_prefill.update(coll)
+        return res
+
+    def moved(kind, gathers):
+        """The collective, synced, with the bytes it delivers to this rank
+        (a gather's whole output, a reduce's sum)."""
+        fn = getattr(mesh_mod, "all_gather_list" if gathers else kind)
+        timed_fn = synced(torch, coll, kind + "_s", fn)
+
+        def wrapper(t, mesh, axes):
+            if mesh.group(axes) is None:
+                return fn(t, mesh, axes)
+            coll[kind + "_bytes"] = coll.get(kind + "_bytes", 0) + (
+                t.numel() * t.element_size() * (
+                    mesh.size(axes) if gathers else 1))
+            return timed_fn(t, mesh, axes)
+        return wrapper
+
+    prefill_fn = serve_mod.prefill
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kern, akern)
+    mesh_mod.reset_collectives()
+    t0 = time.perf_counter()
+    with patched((serve_mod, "prefill", prefill),
+                 (mesh_mod, "all_gather_list", moved("all_gather", True)),
+                 (mesh_mod, "all_reduce", moved("all_reduce", False))):
+        generated, pre_s, dec_s, logits = serve_mod.static_loop(
+            params, cfg, tokens, LM_GEN, inputs=inputs)
+        torch.cuda.synchronize()
+    out["request_s"] = time.perf_counter() - t0
+    out["collective_prefill"] = dict(at_prefill)
+    out["collective_decode"] = {k: v - at_prefill.get(k, 0)
+                                for k, v in coll.items()}
+    launches = read_counts(kern, akern)
+    b1, b2 = (route_counts(kern, "pim_matmul_fused"),
+              route_counts(kern, "pim_matmul_int"))
+    collectives = dict(mesh_mod.COLLECTIVES)
+    if generated.cpu().tolist() != want or not bool(
+            torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError(f"mesh {arch}: the tokens differ from the "
+                             "single-device run's")
+    rows = LM_BATCH * (LM_PROMPT + cfg.vision_tokens)
+    want_routes = {"pim_matmul_fused": Counter(), "pim_matmul_int": Counter()}
+    for phase, m, times in (("prefill", rows, 1),
+                            ("decode", LM_BATCH, LM_GEN)):
+        for (name, k, n), c in per[phase].items():
+            want_routes[name][kern.small_m_grid(m, k, n)[0]] += c * times
+    want_routes = {k: dict(v) for k, v in want_routes.items()}
+    if b1 != want_routes["pim_matmul_fused"] or \
+            b2 != want_routes["pim_matmul_int"] or any(
+                v for k, v in launches.items()
+                if k not in ("pim_matmul_fused", "pim_matmul_int")):
+        raise AssertionError(f"mesh {arch} launches {launches}: B1 by route "
+                             f"{b1}, B2 by route {b2}, expected "
+                             f"{want_routes}")
+    count = lambda phase, name: sum(c for (nm, _, _), c in
+                                    per[phase].items() if nm == name)
+    for phase, (n1, n2) in FAMILY_MESH_LAUNCHES[arch].items():
+        if (count(phase, "pim_matmul_fused"),
+                count(phase, "pim_matmul_int")) != (n1, n2):
+            raise AssertionError(f"mesh {arch}: B1/B2 per {phase} "
+                                 f"{dict(per[phase])}, expected {n1}/{n2}")
+    out.update({
+        "prefill_ms": pre_s * 1e3,
+        "decode_ms_per_token": dec_s * 1e3 / LM_GEN,
+        "b1_by_route": b1, "b2_by_route": b2, "collectives": collectives,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "per_prefill": {n: count("prefill", n) for n in want_routes},
+        "per_decode_step": {n: count("decode", n) for n in want_routes},
+        "shapes": {phase: [[*key, c] for key, c in per[phase].items()]
+                   for phase in per},
+        "prefill_rows": rows})
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_split_rows(torch, dev, kern, ref, arch, fam):
+    """B1 and B2 at one family's per-rank split shapes (the prefill's M and
+    the decode step's M = 8; w4a4, one plane pair, no bias): each bit for
+    bit against its plain version, then its device time beside its bound;
+    summed over one request's launches (a prefill and LM_GEN decode
+    steps)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows, total = [], {}
+    for phase, m, times in (("prefill", fam["prefill_rows"], 1),
+                            ("decode", LM_BATCH, LM_GEN)):
+        for name, k, n, count in fam["shapes"][phase]:
+            a = planes(torch, gen, 1, m, k, dev)
+            w = planes(torch, gen, 1, k, n, dev)
+            if name == "pim_matmul_int":
+                fn = lambda i: kern.pim_matmul_cuda(a, w)
+                max_err(torch, fn(0), ref.pim_matmul_ref(a, w))
+                least = bound(1, 1, m, k, n, 4, 0)
+            else:
+                a_s, w_s, _ = scales(torch, gen, m, n, dev)
+                fn = lambda i: kern.pim_matmul_fused_cuda(a, w, a_s, w_s)
+                max_err(torch, fn(0),
+                        ref.pim_matmul_fused_ref(a, w, a_s, w_s))
+                least = bound(1, 1, m, k, n, 4, 4 * m + 4 * n)
+            ms = device_ms(torch, fn, reps=50)
+            launches = count * times
+            rows.append({"entry": name, "M": m, "K": k, "N": n,
+                         "launches_per_request": launches,
+                         "route": kern.small_m_grid(m, k, n)[0], "ms": ms,
+                         "bound_ms": least[0], "bound_by": least[1]})
+            t = total.setdefault(name, {"launches": 0, "ms": 0.0,
+                                        "bound_ms": 0.0})
+            t["launches"] += launches
+            t["ms"] += ms * launches
+            t["bound_ms"] += least[0] * launches
+            del a, w
+    for name, t in total.items():
+        log(f"{arch} mesh {MESH_SPEC}, {name} at the rank's split shapes "
+            f"(w4a4, device time, bit-exact against the plain version): "
+            f"{t['launches']} launches per request, {t['ms']:.3f} ms against "
+            f"a bound of {t['bound_ms']:.3f} ms; by shape " + ", ".join(
+                f"M={r['M']} K={r['K']} N={r['N']} "
+                f"x{r['launches_per_request']} {r['route']} {r['ms']:.4f} ms "
+                f"(bound {r['bound_ms']:.4f} by {r['bound_by']})"
+                for r in rows if r["entry"] == name))
+    torch.cuda.empty_cache()
+    return {"rows": rows, "per_request": total}
+
+
+def mesh_phase(torch, dev, mods, single, families, smi):
     """(j) the mesh: two ranks spawned on the one card (gloo), after every
     kernel library is built here and the earlier phases' plans are freed;
-    each rank serves qwen3-4b at full width on a 1x2 mesh and runs the
-    checks of :func:`mesh_rank`. ``single`` is the qwen3 continuous
-    phase's result (its token streams, held to bit for bit, and its
-    times). Then B2 and B1 at the mesh path's shapes, timed here."""
+    each rank serves qwen3-4b at full width on a 1x2 mesh, then
+    whisper-medium and paligemma-3b, and runs the checks of
+    :func:`mesh_rank`. ``single`` is the qwen3 continuous phase's result
+    (its token streams, held to bit for bit, and its times), ``families``
+    the families' served paths (their tokens, held likewise). Then B2 and
+    B1 at the mesh paths' shapes, timed here."""
     import multiprocessing
     kern, ref = mods["pim_kern"], mods["pim_ref"]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     work = Path(tempfile.mkdtemp(prefix="mesh_"))
-    task = {"streams": single["streams"], "plan_dir": str(work / "plans")}
+    task = {"streams": single["streams"], "plan_dir": str(work / "plans"),
+            "families": {arch: fam["tokens"]
+                         for arch, fam in families.items()}}
     (work / "task.json").write_text(json.dumps(task))
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=mesh_rank, args=(
@@ -4347,6 +4635,25 @@ def mesh_phase(torch, dev, mods, single, smi):
             f"GB): saved {p['save_s']:.2f} s, restored on the mesh "
             f"{p['load_s']:.2f} s, kinds {p['kinds']}, logits equal; "
             f"{len(r['kernel_checks'])} kernel-level split checks equal")
+    for arch, single_fam in families.items():
+        for r in ranks:
+            f = r["families"][arch]
+            log(f"mesh rank {r['rank']}: {arch} served at full width on "
+                f"{MESH_SPEC} ({smi}): tokens equal the single-device run's "
+                f"bit for bit; prefill {f['prefill_ms']:.2f} ms (single "
+                f"device {statistics.median(single_fam['prefill_ms']):.2f}), "
+                f"decode {f['decode_ms_per_token']:.2f} ms per token "
+                f"({statistics.median(single_fam['decode_ms_per_token']):.2f}"
+                f"); per prefill {f['per_prefill']}, per decode step "
+                f"{f['per_decode_step']}; B1 by route {f['b1_by_route']}, B2 "
+                f"by route {f['b2_by_route']}; collectives "
+                f"{f['collectives']} in the request (one request, no "
+                f"warm-up of its own), synced on the host clock: "
+                f"{coll_text(f['collective_prefill'])} in prefill, "
+                f"{coll_text(f['collective_decode'])} in decode; resident "
+                f"{f['resident_bytes'] / 2 ** 30:.3f} GiB, peak "
+                f"{f['peak_bytes'] / 2 ** 30:.3f} GiB; set-up "
+                f"{f['setup_s']:.1f} s; no plan left whole")
     out["max_abs_err"] = {
         "pim_matmul_fused": lm_kernel_checks(
             torch, dev, kern, ref, shapes["pim_matmul_fused"]),
@@ -4355,6 +4662,9 @@ def mesh_phase(torch, dev, mods, single, smi):
     out["rows"] = {name: shape_numbers(torch, dev, kern, ref, sh,
                                        with_bias=False)
                    for name, sh in shapes.items()}
+    out["families"] = {arch: family_split_rows(
+        torch, dev, kern, ref, arch, ranks[0]["families"][arch])
+        for arch in families}
     return out
 
 
@@ -5104,15 +5414,30 @@ def restart_phase(train):
 
 
 # ---------------------------------------------------------------------------
-# Sharded training: gemma3-1b on meshes of two ranks sharing the card
+# Sharded training: gemma3-1b, paligemma-3b and whisper-medium on meshes of
+# two ranks sharing the card
 # ---------------------------------------------------------------------------
-# (spec, layers): the 1x2 tensor-parallel mesh at full depth, the 2x1
-# data-parallel mesh at 2 layers (None = all 26)
-TRAIN_MESHES = (("1,2", None), ("2,1", 2))
+# The runs, in order, as (arch, spec): gemma3-1b on the 1x2 tensor-parallel
+# mesh and on the 2x1 data-parallel mesh, then paligemma-3b at full width
+# and depth and whisper-medium at WHISPER_TRAIN_LAYERS layers of each stack
+# on 1x2, each family held to family_train_path's steps
+TRAIN_MESHES = (("gemma3-1b", "1,2"), ("gemma3-1b", "2,1"),
+                ("paligemma-3b", "1,2"), ("whisper-medium", "1,2"))
+# gemma3-1b's layers on each mesh: 6 of 26 on 1x2 (all 26 until
+# paligemma-3b and whisper-medium were trained on the mesh; cut for the
+# time limit, keeping five local layers and a global one), 2 on 2x1
+TRAIN_MESH_GEMMA_LAYERS = {"1,2": 6, "2,1": 2}
 TRAIN_MESH_TIMEOUT_S = 600    # both ranks' whole run, set-up included
 TRAIN_OPT = dict(lr=3e-4, total_steps=100, warmup_steps=5)
+# the parameters after the warm-up and TRAIN_STEPS steps against one
+# device's, absolute: an element whose gradient is near zero moves by a
+# different fraction of an Adam step when its gradient differs in the last
+# bits (the JAX package's bound for its sharded step)
+TRAIN_PARAM_ATOL = 5e-3
 # the leaf whose gathered gradient the control cuts in half (a lost block)
 TRAIN_MESH_CONTROL = "d:'layers'/d:'attn'/d:'wq_dh'"
+# the layer stacks' keys in a flatten path
+STACKS = ("d:'layers'", "d:'enc_layers'")
 
 
 def gemma_train_cfg(mods, layers=None):
@@ -5123,28 +5448,38 @@ def gemma_train_cfg(mods, layers=None):
                                                           num_layers=layers)
 
 
-def gemma_batches(mods, cfg, dev, n):
+def train_mesh_cfg(mods, arch, spec):
+    if arch == "gemma3-1b":
+        return gemma_train_cfg(mods, TRAIN_MESH_GEMMA_LAYERS[spec])
+    return family_train_cfg(mods, arch)
+
+
+def train_seq(cfg):
+    return TRAIN_SEQ if cfg.name == "gemma3-1b" else family_train_seq(cfg)
+
+
+def train_batches(mods, cfg, seq, dev, n):
     from repro_torch.data.pipeline import DataConfig, LMDataIterator
-    it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=TRAIN_SEQ,
+    it = LMDataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                    global_batch=TRAIN_BATCH), cfg)
     return [mods["train"].batch_to_device(next(it), dev) for _ in range(n)]
 
 
 def train_reference(torch, dev, mods, cfg, path):
-    """The single-device numbers a mesh run is held to: the loss, gradient
-    norm and gradient (saved to ``path``, leaf by leaf on the host) of the
-    state drawn from seed 0 on the first batch, then a warm-up step and
-    TRAIN_STEPS steps (loss, gradient norm each) from that state."""
+    """The single-device numbers a gemma3-1b mesh run is held to: the loss,
+    gradient norm and gradient (saved under ``path``, leaf by leaf on the
+    host) of the state drawn from seed 0 on the first batch, then a warm-up
+    step and TRAIN_STEPS steps (loss, gradient norm each) from that state,
+    and the parameters after them (saved likewise)."""
     from repro_torch.optim.adamw import AdamWConfig, global_norm
     train, tree = mods["train"], mods["tree"]
-    batches = gemma_batches(mods, cfg, dev, 1 + TRAIN_STEPS)
+    batches = train_batches(mods, cfg, TRAIN_SEQ, dev, 1 + TRAIN_STEPS)
     params = mods["lm"].init_lm(cfg, 0, device=dev)
     loss, _, grads = train.loss_and_grads(params, cfg, batches[0])
     ref = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
-           "grads": str(path)}
-    torch.save({"/".join(p): g.cpu()
-                for p, g in tree.flatten_with_path(grads)}, path)
+           "grads": str(path / "grads.pt"), "params": str(path / "params.pt"),
+           "ends": False}
+    torch.save(leaf_ends(tree, grads, ends=False), ref["grads"])
     del params, grads
     state = train.init_state(cfg, 0, device=dev)
     step_fn = train.make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
@@ -5152,6 +5487,7 @@ def train_reference(torch, dev, mods, cfg, path):
     for batch in batches:
         state, m = step_fn(state, batch)
         ref["steps"].append([m["loss"].item(), m["grad_norm"].item()])
+    torch.save(leaf_ends(tree, state["params"], ends=False), ref["params"])
     del state
     torch.cuda.empty_cache()
     return ref
@@ -5159,7 +5495,7 @@ def train_reference(torch, dev, mods, cfg, path):
 
 def train_mesh_rank(rank, world, init_file, task_file, out_file):
     """One rank of the sharded-training phase (the target of a spawned
-    process): joins the gloo group on the shared card and trains each mesh
+    process): joins the gloo group on the shared card and trains each run
     of TRAIN_MESHES; writes its numbers to ``out_file``; a failure raises
     (the process exits non-zero)."""
     import torch
@@ -5181,12 +5517,13 @@ def train_mesh_rank(rank, world, init_file, task_file, out_file):
                                            rank, world)
     try:
         runs = {}
-        for spec, layers in TRAIN_MESHES:
+        for arch, spec in TRAIN_MESHES:
             mesh = launch_mesh.make_mesh(spec, "cuda",
                                          module="repro_torch.launch.train")
-            runs[spec] = train_mesh_run(torch, mods, mesh,
-                                        gemma_train_cfg(mods, layers),
-                                        task[spec])
+            label = f"{arch} {spec}"
+            runs[label] = train_mesh_run(torch, mods, mesh,
+                                         train_mesh_cfg(mods, arch, spec),
+                                         task[label])
         Path(out_file).write_text(json.dumps(
             {"rank": rank, "device": str(mesh.device), "backend": backend,
              "runs": runs}))
@@ -5194,20 +5531,29 @@ def train_mesh_rank(rank, world, init_file, task_file, out_file):
         dist.destroy_process_group()
 
 
+def branch_counts(fkern):
+    """The flash launches by (kernel, mask branch) since the last reset."""
+    return {f"{p}/{b}": c for (p, b), c in sorted(
+        fkern.BRANCH_LAUNCHES.items())}
+
+
 def train_mesh_run(torch, mods, mesh, cfg, ref):
-    """This rank's part of one mesh: the sharded loss and gradient on the
-    first batch (the gradient gathered and, on rank 0, held leaf by leaf
-    to the single-device one, with the control), then a warm-up step and
+    """This rank's part of one mesh run: the sharded loss and gradient on
+    the first batch (the gradient gathered, whole or as :func:`leaf_ends`
+    as ``ref["ends"]`` says, and on rank 0 held leaf by leaf to the
+    single-device one, with the control), then a warm-up step and
     TRAIN_STEPS timed steps through ``make_train_step(..., mesh=)`` (the
-    last one with synced collectives, for their time), launch counts and
-    the query/KV heads of every flash launch, memory, the replicated
-    leaves' digests."""
+    last one with synced collectives, for their time), launch counts by
+    kernel and mask branch and the query/KV heads of every flash launch,
+    memory, the replicated leaves' digests, and the parameters after the
+    steps gathered likewise and (rank 0) held to the single-device
+    ones."""
     import hashlib
     from repro_torch.optim.adamw import AdamWConfig, global_norm
     train, tree, coll = mods["train"], mods["tree"], mods["coll"]
     fkern, fops = mods["fkern"], mods["fops"]
     dev = mesh.device
-    batches = gemma_batches(mods, cfg, dev, 1 + TRAIN_STEPS)
+    batches = train_batches(mods, cfg, train_seq(cfg), dev, 1 + TRAIN_STEPS)
     state = train.init_state(cfg, 0, device=dev, mesh=mesh)
     state_bytes = sum(t.nbytes for t in tree.leaves(state))
     template = train.param_template(cfg)
@@ -5224,13 +5570,14 @@ def train_mesh_run(torch, mods, mesh, cfg, ref):
         loss, _, grads = grads_fn(state["params"], batches[0])
     out = {"loss": loss.item(),
            "grad_norm": global_norm(grads, grads_fn.splits).item(),
-           "grad_launches": read_counts(fkern), "grad_heads": dict(heads),
+           "grad_launches": read_counts(fkern),
+           "grad_branches": branch_counts(fkern), "grad_heads": dict(heads),
            "state_bytes": state_bytes}
-    whole = train.gather_state(grads, mesh, template)
+    got = gather_leaves(mods, grads, mesh, template, ref["ends"])
     del grads
     if mesh.rank == 0:
-        out.update(leaf_gaps(torch, tree, whole, ref["grads"], dev))
-    del whole
+        out.update(leaf_gaps(torch, got, ref["grads"], dev))
+    del got
     torch.cuda.empty_cache()
 
     step_fn = train.make_train_step(cfg, AdamWConfig(**TRAIN_OPT), mesh=mesh)
@@ -5267,6 +5614,7 @@ def train_mesh_run(torch, mods, mesh, cfg, ref):
                      grads_fn.splits.split))
     out.update({
         "steps": steps, "step_s": step_s, "launches": read_counts(fkern),
+        "branches": branch_counts(fkern),
         "heads": dict(heads), "collectives": dict(coll.COLLECTIVES),
         "collective_s": dict(coll_s),
         "peak_bytes": torch.cuda.max_memory_allocated(dev),
@@ -5278,20 +5626,36 @@ def train_mesh_run(torch, mods, mesh, cfg, ref):
             ).hexdigest()
             for p, t in tree.flatten_with_path(state["params"])
             if not split["/".join(p)]}})
+    got = gather_leaves(mods, state["params"], mesh, template, ref["ends"])
     del state
+    if mesh.rank == 0:
+        out.update(param_gap(torch, got, ref["params"], dev))
+    del got
     torch.cuda.empty_cache()
     return out
 
 
-def leaf_gaps(torch, tree, whole, ref_file, dev):
-    """The largest per-leaf gap of the gathered gradient ``whole`` to the
-    single-device one in ``ref_file`` (over that leaf's largest
-    magnitude), its leaf, and the control: the gap when one leaf's last
-    half-block is lost."""
+def gather_leaves(mods, local, mesh, template, ends):
+    """Leaf name -> the whole leaf of a sharded tree (collective: every
+    rank calls it); with ``ends``, a stacked leaf's first and last layer
+    only (:func:`leaf_ends`)."""
+    tree = mods["tree"]
+    if ends:
+        local = tree.unflatten_like(local, [
+            t[[0, -1]] if path[0] in STACKS else t
+            for path, t in tree.flatten_with_path(local)])
+    whole = mods["train"].gather_state(local, mesh, template)
+    return {"/".join(path): t for path, t in tree.flatten_with_path(whole)}
+
+
+def leaf_gaps(torch, got, ref_file, dev):
+    """The largest per-leaf gap of the gathered gradient ``got`` (leaf name
+    -> tensor) to the single-device one in ``ref_file`` (over that leaf's
+    largest magnitude), its leaf, and the control: the gap when one leaf's
+    last half-block is lost."""
     refs = torch.load(ref_file, mmap=True, weights_only=True)
     gaps, control = {}, None
-    for path, g in tree.flatten_with_path(whole):
-        name = "/".join(path)
+    for name, g in got.items():
         want = refs[name].to(dev)
         top = want.abs().max().clamp_min(1e-30)
         gaps[name] = ((g - want).abs().max() / top).item()
@@ -5300,25 +5664,43 @@ def leaf_gaps(torch, tree, whole, ref_file, dev):
             lost[..., lost.shape[-1] // 2:] = 0
             control = ((lost - want).abs().max() / top).item()
     return {"max_leaf_gap": max(gaps.values()),
-            "worst_leaf": max(gaps, key=gaps.get), "control_gap": control}
+            "worst_leaf": max(gaps, key=gaps.get), "control_gap": control,
+            "leaves_compared": len(gaps)}
 
 
-def train_mesh_phase(torch, dev, mods, smi):
-    """Sharded training on the card: the single-device references first
-    (full-width gemma3-1b for the 1x2 mesh, 2 layers for the 2x1), freed,
-    then two ranks spawned on the one card over gloo, each training both
-    meshes (:func:`train_mesh_rank`); their numbers held to the
-    references."""
+def param_gap(torch, got, ref_file, dev):
+    """The largest absolute gap of the gathered parameters ``got`` to the
+    single-device ones in ``ref_file``, and its leaf."""
+    refs = torch.load(ref_file, mmap=True, weights_only=True)
+    gaps = {name: (p - refs[name].to(dev)).abs().max().item()
+            for name, p in got.items()}
+    return {"param_gap": max(gaps.values()),
+            "param_worst_leaf": max(gaps, key=gaps.get)}
+
+
+def train_mesh_phase(torch, dev, mods, smi, family_refs):
+    """Sharded training on the card: the gemma3-1b single-device
+    references first, freed (the families' come from
+    :func:`family_train_path`, ``family_refs``), then two ranks spawned on
+    the one card over gloo, each training every run of TRAIN_MESHES
+    (:func:`train_mesh_rank`); their numbers held to the references."""
     import multiprocessing
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     work = Path(tempfile.mkdtemp(prefix="train_mesh_"))
     t0 = time.perf_counter()
     try:
-        task = {spec: train_reference(
-            torch, dev, mods, gemma_train_cfg(mods, layers),
-            work / f"grads_{spec.replace(',', 'x')}.pt")
-            for spec, layers in TRAIN_MESHES}
+        task = {}
+        for arch, spec in TRAIN_MESHES:
+            label = f"{arch} {spec}"
+            if arch in family_refs:
+                task[label] = family_refs[arch]
+                continue
+            path = work / f"ref_{spec.replace(',', 'x')}"
+            path.mkdir()
+            task[label] = train_reference(torch, dev, mods,
+                                          train_mesh_cfg(mods, arch, spec),
+                                          path)
         ref_s = time.perf_counter() - t0
         (work / "task.json").write_text(json.dumps(task))
         torch.cuda.empty_cache()
@@ -5350,21 +5732,29 @@ def train_mesh_phase(torch, dev, mods, smi):
     out = {"card": smi, "reference_s": ref_s,
            "ranks_s": time.perf_counter() - t1, "references": task,
            "ranks": ranks}
-    for spec, layers in TRAIN_MESHES:
-        check_train_mesh(spec, layers or mods["configs"].get_config(
-            "gemma3-1b").num_layers, task[spec], [r["runs"][spec]
-                                                  for r in ranks], smi)
+    for arch, spec in TRAIN_MESHES:
+        label = f"{arch} {spec}"
+        check_train_mesh(label, spec, train_mesh_cfg(mods, arch, spec),
+                         task[label], [r["runs"][label] for r in ranks], smi)
     return out
 
 
-def check_train_mesh(spec, layers, ref, runs, smi):
-    """Hold one mesh's ranks to the single-device reference and log their
-    numbers: loss and gradient norm (the gradient pass and every step),
-    the gathered gradient's largest leaf gap (rank 0) with its control,
-    the replicated leaves equal across ranks, each flash kernel once per
-    layer and pass at the expected query/KV heads."""
+def check_train_mesh(label, spec, cfg, ref, runs, smi):
+    """Hold one mesh run's ranks to the single-device reference and log
+    their numbers: loss and gradient norm (the gradient pass and every
+    step), the gathered gradient's largest leaf gap (rank 0) with its
+    control, the parameters after the steps, the replicated leaves equal
+    across ranks, each flash kernel once per attention layer and pass (an
+    encoder-decoder's and a VLM's also by mask branch) at the expected
+    query/KV heads: a rank's block of query heads on its block of KV heads
+    where they divide, else on the one KV head the block reads."""
     dp, tp = map(int, spec.split(","))
-    want_heads = {f"{4 // tp}x1": layers}
+    attn_layers = cfg.num_layers + cfg.encoder_layers
+    kv = cfg.num_kv_heads // tp if cfg.num_kv_heads % tp == 0 else 1
+    want_heads = {f"{cfg.num_heads // tp}x{kv}": attn_layers}
+    want, want_branches = family_flash_launches(cfg)
+    branches = None if cfg.name == "gemma3-1b" else {
+        f"{p}/{b}": c for (p, b), c in sorted(want_branches.items())}
     rel = lambda a, b: abs(a - b) / abs(b)
     for r, run in enumerate(runs):
         pairs = [(run["loss"], ref["loss"], TRAIN_LOSS_REL),
@@ -5374,50 +5764,66 @@ def check_train_mesh(spec, layers, ref, runs, smi):
             pairs += [(loss, loss_1, TRAIN_LOSS_REL),
                       (gnorm, gnorm_1, TRAIN_GNORM_REL)]
         bad = [(a, b, lim) for a, b, lim in pairs if rel(a, b) > lim]
-        launches = {k: run["launches"][k] for k in FLASH_KERNELS}
         if bad or len(run["steps"]) != len(ref["steps"]) or any(
-                v != layers * TRAIN_STEPS for v in launches.values()) or \
-                any(run["grad_launches"][k] != layers
-                    for k in FLASH_KERNELS) or \
+                run["launches"][k] != v * TRAIN_STEPS or
+                run["grad_launches"][k] != v for k, v in want.items()) or \
                 run["grad_heads"] != want_heads or run["heads"] != {
-                    k: v * TRAIN_STEPS for k, v in want_heads.items()}:
+                    k: v * TRAIN_STEPS for k, v in want_heads.items()} or (
+                    branches is not None and (
+                        run["grad_branches"] != branches or
+                        run["branches"] != {k: v * TRAIN_STEPS
+                                            for k, v in branches.items()})):
             raise AssertionError(
-                f"mesh {spec} rank {r}: {bad} beyond their limits, launches "
-                f"{launches} (grad pass {run['grad_launches']}), heads "
-                f"{run['heads']} (expected {want_heads} per step)")
+                f"mesh {label} rank {r}: {bad} beyond their limits, launches "
+                f"{run['launches']} (grad pass {run['grad_launches']}; "
+                f"expected {want} per step), by branch {run['branches']} "
+                f"(expected {branches}), heads {run['heads']} (expected "
+                f"{want_heads} per step)")
     first = runs[0]
     if not first["max_leaf_gap"] <= TRAIN_LEAF_GAP_REL or \
-            not first["control_gap"] > TRAIN_LEAF_GAP_REL:
+            not first["control_gap"] > TRAIN_LEAF_GAP_REL or \
+            not first["param_gap"] <= TRAIN_PARAM_ATOL:
         raise AssertionError(
-            f"mesh {spec}: largest gathered-gradient leaf gap "
+            f"mesh {label}: largest gathered-gradient leaf gap "
             f"{first['max_leaf_gap']} ({first['worst_leaf']}; limit "
-            f"{TRAIN_LEAF_GAP_REL}), control {first['control_gap']}")
+            f"{TRAIN_LEAF_GAP_REL}), control {first['control_gap']}; "
+            f"parameters after the steps {first['param_gap']} "
+            f"({first['param_worst_leaf']}; limit {TRAIN_PARAM_ATOL})")
     if any(run["replicated"] != first["replicated"] for run in runs):
-        raise AssertionError(f"mesh {spec}: replicated leaves differ "
+        raise AssertionError(f"mesh {label}: replicated leaves differ "
                              "across ranks")
+    what = (f"{cfg.encoder_layers} + {cfg.num_layers} layers"
+            if cfg.encoder_layers else f"{cfg.num_layers} layers")
     for r, run in enumerate(runs):
         per_step = {k: v // TRAIN_STEPS for k, v in run["collectives"].items()}
         synced = run["step_s"][-1]
         coll_s = sum(run["collective_s"].values())
-        log(f"training mesh {spec} rank {r} (gemma3-1b, {layers} layers, "
-            f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, gloo on one card; {smi}): "
-            f"step {', '.join(f'{t * 1e3:.1f}' for t in run['step_s'][:-1])}"
+        log(f"training mesh {label} rank {r} ({what}, batch {TRAIN_BATCH} x "
+            f"{train_seq(cfg)}"
+            + (f" after {cfg.vision_tokens} patches" if cfg.vision_tokens
+               else "")
+            + f", gloo on one card; {smi}): step "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in run['step_s'][:-1])}"
             f" ms, the last with synced collectives {synced * 1e3:.1f} ms "
             f"of which collectives {coll_s * 1e3:.1f} ms "
             f"({coll_s / synced:.1%}); collectives per step {per_step}; "
             f"peak {run['peak_bytes'] / 2 ** 30:.3f} GiB, resident "
             f"{run['resident_bytes'] / 2 ** 30:.3f} GiB; "
             f"{run['split_leaves']} of {run['leaves']} leaves split; "
-            f"flash launches per step {layers} each at heads "
-            f"{run['grad_heads']}")
+            f"flash launches per step {want} at heads {run['grad_heads']}"
+            + (f", by branch {run['grad_branches']}" if branches else ""))
     peaks = sum(run["peak_bytes"] for run in runs)
-    log(f"training mesh {spec}: loss {first['loss']:.7f} vs one device "
+    log(f"training mesh {label}: loss {first['loss']:.7f} vs one device "
         f"{ref['loss']:.7f}, gradient norm {first['grad_norm']:.7g} vs "
         f"{ref['grad_norm']:.7g}, largest gathered-gradient leaf gap "
-        f"{first['max_leaf_gap']:.3g} ({first['worst_leaf']}; control, a "
-        f"lost half-block: {first['control_gap']:.3g}); step losses "
-        + ", ".join(f"{a[0]:.5f}/{b[0]:.5f}" for a, b in
-                    zip(first["steps"], ref["steps"]))
+        f"{first['max_leaf_gap']:.3g} over {first['leaves_compared']} "
+        + ("leaves (the stacked ones at their first and last layer)"
+           if ref["ends"] else "leaves")
+        + f" ({first['worst_leaf']}; control, a lost half-block: "
+        f"{first['control_gap']:.3g}); parameters after the steps within "
+        f"{first['param_gap']:.3g} ({first['param_worst_leaf']}); step "
+        "losses " + ", ".join(f"{a[0]:.5f}/{b[0]:.5f}" for a, b in
+                              zip(first["steps"], ref["steps"]))
         + f" (mesh/one device); replicated leaves equal across ranks; sum "
         f"of the ranks' peaks {peaks / 2 ** 30:.3f} GiB of the card's 80")
 
@@ -5514,7 +5920,7 @@ cells = [dryrun.run_cell(a, s, "pod", save=False, verbose=False)
          for a in archs for s in dryrun.SHAPES]
 sweep_s = time.perf_counter() - t0
 t0 = time.perf_counter()
-mesh = dryrun.run_cell("gemma3-1b", "train_4k", "1,2", save=False,
+mesh = dryrun.run_cell("paligemma-3b", "train_4k", "1,2", save=False,
                        verbose=False)
 json.dump({"cells": cells, "sweep_s": sweep_s, "mesh_cell": mesh,
            "mesh_cell_s": time.perf_counter() - t0},
@@ -5631,8 +6037,8 @@ def front_train(torch, mods, counters, smi):
 
 def front_dryrun(job, train_mesh, smi):
     """Collect the dry-run job: every sweep cell ``ok`` or ``skipped``,
-    and the 1x2 gemma3-1b cell's float32 state bytes per rank equal to
-    each rank's real local state in phase 21."""
+    and the 1x2 paligemma-3b cell's float32 state bytes per rank equal to
+    each rank's real local state in phase 21 (full width and depth)."""
     proc, out, err = job
     t0 = time.perf_counter()
     try:
@@ -5654,7 +6060,8 @@ def front_dryrun(job, train_mesh, smi):
     bad = [(c["arch"], c["shape"], c.get("error")) for c in cells
            if c["status"] not in ("ok", "skipped")]
     mesh = res["mesh_cell"]
-    real = [r["runs"]["1,2"]["state_bytes"] for r in train_mesh["ranks"]]
+    real = [r["runs"]["paligemma-3b 1,2"]["state_bytes"]
+            for r in train_mesh["ranks"]]
     want = mesh.get("bytes_per_rank", {}).get("state_f32")
     log(f"front doors, dry-run (CPU only, beside the card's phases): "
         f"{len(cells)} pod cells of {len(DRYRUN_ARCHS)} configs in "
@@ -5671,7 +6078,7 @@ def front_dryrun(job, train_mesh, smi):
                 f"{r['memory_s'] * 1e3:.3f} ms, collective "
                 f"{r['collective_s'] * 1e3:.3f} ms (H100 rates)"
                 + (f", {c['assumed']}" if "assumed" in c else ""))
-    log(f"front doors, dry-run gemma3-1b x train_4k x 1,2 "
+    log(f"front doors, dry-run paligemma-3b x train_4k x 1,2 "
         f"({mesh['status']}, {res['mesh_cell_s']:.1f} s): float32 state "
         f"{want} bytes a rank; phase 21's ranks hold {real} ({smi})")
     if bad or mesh["status"] != "ok" or any(r != want for r in real):
@@ -5926,7 +6333,7 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     kernels.append(rowsum_entry(rel_rows, qwen3_rel, smi))
     rel_checks = reliability_checks(torch, dev, mods)
     mark("qwen3 and reliability")
-    mesh = mesh_phase(torch, dev, mods, qwen3_cont, smi)
+    mesh = mesh_phase(torch, dev, mods, qwen3_cont, families, smi)
     kernels += mesh_entries(mesh)
     mark("mesh")
     mods.update({"train": train, "flash_kern": fkern, "tree": tree})
@@ -5935,11 +6342,18 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
                              training["launches"], flash_err)
     restart = restart_phase(train)
     mark("training and restart")
-    families_trained = {
-        arch: family_train_path(torch, dev, mods, counters, arch, smi)
-        for arch in FAMILIES}
-    mark("whisper and paligemma trained")
-    train_mesh = train_mesh_phase(torch, dev, mods, smi)
+    ref_dir = Path(tempfile.mkdtemp(prefix="train_refs_"))
+    try:
+        families_trained = {
+            arch: family_train_path(torch, dev, mods, counters, arch, smi,
+                                    ref_dir)
+            for arch in FAMILIES}
+        mark("whisper and paligemma trained")
+        train_mesh = train_mesh_phase(
+            torch, dev, mods, smi, {arch: fam["reference"] for arch, fam
+                                    in families_trained.items()})
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
     mark("training mesh")
     front = front_doors_phase(torch, mods, counters, dryrun_job, train_mesh,
                               smi)

@@ -265,25 +265,16 @@ def _kind_from_rules(name: str, mesh, is_expert: bool) -> Optional[str]:
     return None
 
 
-# Leaves of the encoder-decoder and the VLM prefix: neither cross-attention
-# nor the patch projector has a split route (ROADMAP A6b).
-_NO_MESH_ROUTE = ("enc_layers", "xattn", "vproj_dh")
-
-
 def place_plan_tree(tree: Any, mesh, axis: str = "model"
                     ) -> Tuple[Any, List[str]]:
     """:func:`shard_plan_tree`'s walk: the placed tree and the names of
-    the plans it replicated. Raises for a tree of the encoder-decoder or
-    the VLM prefix."""
+    the plans it replicated. Plans are placed by leaf name wherever they
+    sit (an encoder's ``enc_layers``, a decoder's ``xattn``); float
+    leaves, such as the VLM's fake-quantized ``vproj_dh``, stay whole."""
     replicated: List[str] = []
 
     def walk(node, name):
         if isinstance(node, dict):
-            refused = [k for k in _NO_MESH_ROUTE if k in node]
-            if refused:
-                raise NotImplementedError(
-                    f"{refused[0]}: the encoder-decoder and the VLM prefix "
-                    "do not run on a mesh yet (ROADMAP A6b)")
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             items = [walk(v, name) for v in node]

@@ -37,13 +37,12 @@ A cell's record:
   reference's train cells. The port's layers run as a Python loop, so the
   count is at full depth; the reference counts an unrolled 2- and 4-layer
   stack and extrapolates in L, because XLA's cost analysis counts a scan
-  body once. This difference is deliberate. Two routes are counted
-  data-parallel, at the rank's block of the batch with whole parameters,
-  and say so in ``flops_route``: prefill and decode, since the port's
-  model splits float weights in training only (its mesh serving splits
-  programmed plans), and the training step of the encoder-decoder and
-  the VLM prefix, whose sharded step the port does not run yet (ROADMAP
-  A6b). Such a count is an upper bound on a model-split rank's.
+  body once. This difference is deliberate. Prefill and decode are
+  counted data-parallel, at the rank's block of the batch with whole
+  parameters, and say so in ``flops_route``, since the port's model
+  splits float weights in training only (its mesh serving splits
+  programmed plans). Such a count is an upper bound on a model-split
+  rank's.
 * **Collective bytes by kind**: through a stand-in for
   ``torch.distributed`` inside :mod:`repro_torch.distributed.collectives`
   that leaves the right local shapes and logs each call's output bytes
@@ -88,8 +87,7 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (DATA_AXES, PartitionSpec as P,
                                               split_dims)
 from repro_torch.launch import train as train_mod
-from repro_torch.models.lm import (check_mesh_supported, decode_step,
-                                   init_cache, prefill)
+from repro_torch.models.lm import decode_step, init_cache, prefill
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import leaves
 
@@ -420,18 +418,9 @@ def run_step(cfg: ModelConfig, shape: str, mesh) -> Tuple[str, Any]:
     kind = info["kind"]
     ins = input_specs(cfg, shape)
     if kind == "train":
-        try:
-            check_mesh_supported(cfg)
-            sharded = True
-        except NotImplementedError:
-            sharded = False
-        state = train_mod.state_template(cfg)
-        if sharded:
-            state = train_mod.shard_state(state, mesh)
-            step = train_mod.make_train_step(cfg, AdamWConfig(), mesh=mesh)
-            return "sharded", step(state, ins)
-        step = train_mod.make_train_step(cfg, AdamWConfig())
-        return "data-parallel (A6b)", step(state, _batch_block(mesh, ins))
+        state = train_mod.shard_state(train_mod.state_template(cfg), mesh)
+        step = train_mod.make_train_step(cfg, AdamWConfig(), mesh=mesh)
+        return "sharded", step(state, ins)
     params = train_mod.param_template(cfg)
     local = _batch_block(mesh, ins)
     if kind == "prefill":

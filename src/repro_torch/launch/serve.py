@@ -43,8 +43,9 @@ detection for any detectable fault.
 The encoder-decoder (whisper) and the VLM prefix (paligemma) serve in
 static mode: the request's stub frames or patches are drawn after its
 tokens (:func:`request_inputs`), and :func:`static_loop` counts the VLM's
-prefix in the cache's positions. Continuous batching and meshes refuse
-them (ROADMAP A6b for the mesh).
+prefix in the cache's positions. Continuous batching refuses them, as
+the JAX package does; a mesh places both stacks' plans and the
+cross-attention's by name, and keeps ``vproj_dh`` whole on every rank.
 
 Meshes (``--mesh DP,TP``, :mod:`repro_torch.launch.mesh`): one process
 per rank, started by a launcher (``torchrun --standalone --nproc-per-node
@@ -104,9 +105,8 @@ from repro_torch.engine import mesh as mesh_mod
 from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_serve_mesh
-from repro_torch.models.lm import (check_mesh_supported, decode_step,
-                                   init_lm, layer_trees, prefill,
-                                   stack_layers)
+from repro_torch.models.lm import (decode_step, init_lm, layer_trees,
+                                   prefill, stack_layers)
 from repro_torch.quant.quantize import fake_quantize
 
 # Weight suffixes the PIM deployment touches (layers.py naming
@@ -465,8 +465,6 @@ def _setup(arch: str, layers: Optional[int], d_model: Optional[int],
     if layers or d_model:
         cfg = cfg.reduced(num_layers=layers or 2, d_model=d_model or 64,
                           vocab=min(cfg.vocab_size, 512))
-    if mesh_spec:
-        check_mesh_supported(cfg)
     mesh = make_serve_mesh(mesh_spec, device) if mesh_spec else None
     device = mesh.device if mesh is not None else resolve_device(device)
     substrate = _resolve_substrate(pim_substrate, pim_emulate)

@@ -63,8 +63,7 @@ from repro_torch.distributed.sharding import (DATA_AXES, PartitionSpec as P,
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.layers import vocab_shard
-from repro_torch.models.lm import (check_mesh_supported, forward, init_lm,
-                                   table_name)
+from repro_torch.models.lm import forward, init_lm, table_name
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
                                      adamw_update)
 from repro_torch.optim.compression import (compress_grads, decompress_grads,
@@ -264,7 +263,9 @@ def split_table(mesh, params_template: PyTree) -> Dict[Tuple[str, tuple], P]:
     local per-layer shape) -> per-layer spec of every leaf stored split.
     Raises when two leaves of one name would share a local shape with
     different splits (the model's call sites could not tell them
-    apart)."""
+    apart). Cross-attention's leaves (``xattn``) and an encoder's
+    (``enc_layers``) share names, local shapes and specs with the
+    decoder's self-attention and MLP, so one entry serves them all."""
     table: Dict[Tuple[str, tuple], P] = {}
     whole = set()
     for (path, leaf), spec in zip(flatten_with_path(params_template),
@@ -308,9 +309,9 @@ def sharded_loss_and_grads(cfg: ModelConfig, mesh):
     each takes its block where the data axes divide it). The gradients
     are this rank's slices of the whole batch's gradient (averaged over
     the data ranks) and the loss is the global one. ``fn.splits`` marks
-    the leaves stored split over ``model``. Raises for the
-    encoder-decoder and the VLM prefix (ROADMAP A6b)."""
-    check_mesh_supported(cfg)
+    the leaves stored split over ``model``. The encoder-decoder's and
+    the VLM's batch entries (``frames``, ``patches``) split with the
+    tokens."""
     template = param_template(cfg)
     table = split_table(mesh, template)
 
@@ -413,8 +414,6 @@ def train_loop(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
                           vocab=min(cfg.vocab_size, 512))
     if attn_backend is not None:
         cfg = dataclasses.replace(cfg, attn_backend=attn_backend)
-    if mesh is not None:
-        check_mesh_supported(cfg)
     if isinstance(mesh, str):
         mesh = make_mesh(mesh, device, module="repro_torch.launch.train")
     dev = resolve_device(device) if mesh is None else mesh.device

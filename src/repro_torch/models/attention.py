@@ -30,6 +30,9 @@ rank's query block reads. qk-norm's weight enters a rank's heads with its
 gradient summed over the axis. A split that falls mid-head gathers q and
 attends every head on every rank. ``wo_hd``'s row split takes either.
 GQA grouping is contiguous: query head h reads KV head h // (H / KV).
+Cross-attention splits the same way, its K and V projected from the
+encoder's output (whole on every rank, its gradient summed over the
+axis by the column split's input crossing).
 """
 from __future__ import annotations
 
@@ -121,32 +124,38 @@ def _kv_for_block(t: torch.Tensor, lo: int, hi: int, num_heads: int
 
 def _project_qkv_split(p: Params, x: torch.Tensor, num_heads: int,
                        num_kv_heads: int, head_dim: int,
-                       positions: torch.Tensor, rope_theta: float,
-                       norm_eps: float, block: Optional[Tuple[int, int]]):
+                       positions: Optional[torch.Tensor], rope_theta: float,
+                       norm_eps: float, block: Optional[Tuple[int, int]],
+                       kv_x: Optional[torch.Tensor] = None):
     """:func:`_project_qkv` under sharded training. With a query ``block``
     q holds this rank's heads and k/v the KV heads they read; without one
-    q, k and v are whole on every rank."""
+    q, k and v are whole on every rank. ``kv_x`` is the keys' and values'
+    source when it is not ``x`` (cross-attention's encoder output);
+    ``positions`` None applies no RoPE."""
     b, s, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    t = kv_x.shape[1]
     local = block is not None
     kv_local = local and num_kv_heads % (
         num_heads // (block[1] - block[0])) == 0
     q = proj(x, p["wq_dh"], "wq_dh", local=local)
-    k = proj(x, p["wk_dh"], "wk_dh", local=kv_local)
-    v = proj(x, p["wv_dh"], "wv_dh", local=kv_local)
+    k = proj(kv_x, p["wk_dh"], "wk_dh", local=kv_local)
+    v = proj(kv_x, p["wv_dh"], "wv_dh", local=kv_local)
     if "bq_bh" in p:
         q = q + (p["bq_bh"] if local else whole(p["bq_bh"], "bq_bh"))
         k = k + (p["bk_bh"] if kv_local else whole(p["bk_bh"], "bk_bh"))
         v = v + (p["bv_bh"] if kv_local else whole(p["bv_bh"], "bv_bh"))
     q = q.reshape(b, s, -1, head_dim)
-    k = k.reshape(b, s, -1, head_dim)
-    v = v.reshape(b, s, -1, head_dim)
+    k = k.reshape(b, t, -1, head_dim)
+    v = v.reshape(b, t, -1, head_dim)
     if "qnorm_d" in p:
         q = rms_norm(q, shared(p["qnorm_d"], p["wq_dh"], "wq_dh")
                      if local else p["qnorm_d"], norm_eps)
         k = rms_norm(k, shared(p["knorm_d"], p["wk_dh"], "wk_dh")
                      if kv_local else p["knorm_d"], norm_eps)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if positions is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
     if local and not kv_local:      # whole K/V into this rank's heads
         mesh, axis, _ = split_of(p["wq_dh"], "wq_dh")
         k = _kv_for_block(coll.copy_to(k, mesh, axis), *block, num_heads)
@@ -330,15 +339,20 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
     V are projected from ``enc_out`` here (float32 in prefill; the caller
     stores them in the cache's dtype). Plain tensor ops around ``proj``,
     as the JAX package computes it (its query and key lengths differ, and
-    it reaches no Pallas kernel)."""
+    it reaches no Pallas kernel). The projections are
+    :func:`_project_qkv_split`'s with the encoder's output as the K/V
+    source: on a whole leaf or a plan exactly ``proj``; under sharded
+    training q, k and v split by heads as the self-attention's (the rank
+    attends its heads) and ``wo_hd`` is a row split."""
     b, s, _ = x.shape
     t = enc_out.shape[1]
-    q = proj(x, p["wq_dh"]).reshape(b, s, num_heads, head_dim)
-    k = proj(enc_out, p["wk_dh"]).reshape(b, t, num_kv_heads, head_dim)
-    v = proj(enc_out, p["wv_dh"]).reshape(b, t, num_kv_heads, head_dim)
+    q, k, v = _project_qkv_split(
+        p, x, num_heads, num_kv_heads, head_dim, positions=None,
+        rope_theta=0.0, norm_eps=1e-6, block=_query_block(p, num_heads),
+        kv_x=enc_out)
     mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask).reshape(b, s, num_heads * head_dim)
-    out = proj(out, p["wo_hd"])
+    out = _sdpa(q, k, v, mask).reshape(b, s, -1)
+    out = proj(out, p["wo_hd"], "wo_hd")
     if return_kv:
         return out, (k, v)
     return out
@@ -352,7 +366,7 @@ def cross_attention_decode(p: Params, x: torch.Tensor, xk: torch.Tensor,
     cache gives bf16 probabilities and output, as in JAX)."""
     b, s, _ = x.shape
     t = xk.shape[1]
-    q = proj(x, p["wq_dh"]).reshape(b, s, num_heads, head_dim)
+    q = proj(x, p["wq_dh"], "wq_dh").reshape(b, s, num_heads, head_dim)
     mask = torch.ones((b, s, t), dtype=torch.bool, device=x.device)
     out = _sdpa(q, xk, xv, mask).reshape(b, s, num_heads * head_dim)
-    return proj(out, p["wo_hd"])
+    return proj(out, p["wo_hd"], "wo_hd")

@@ -39,8 +39,11 @@ mesh=)``) ``forward`` runs this rank's part of a tensor-parallel step:
 the layers' call sites name their leaves, the embedding is vocab-parallel
 and the logits it returns are this rank's block of the vocab, masked at
 the block's offset (``launch.train.cross_entropy`` reduces them). The
-encoder-decoder and the VLM prefix have no mesh route
-(:func:`check_mesh_supported`; ROADMAP A6b).
+encoder stack runs split like the decoder's (its row splits end in a
+sum, so ``enc_out`` is whole on every rank), cross-attention splits by
+heads (``attention.cross_attention_block``) and the patch projector
+``vproj_dh`` is a named column split, gathered before the prefix joins
+the token embeddings.
 
 API:
   init_lm(cfg, gen, device[, layer_fn])       -> params
@@ -64,8 +67,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.layers import (Params, dense_init, embed,
-                                       embedding_init, matmul_promote,
-                                       mlp_apply, mlp_init, rms_norm,
+                                       embedding_init, mlp_apply,
+                                       mlp_init, proj, rms_norm,
                                        unembed, vocab_shard)
 
 
@@ -73,16 +76,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for a block type the LM stack does not know."""
     if cfg.block_type not in ("attn", "ssm", "hybrid"):
         raise ValueError(f"unknown block_type {cfg.block_type!r}")
-
-
-def check_mesh_supported(cfg: ModelConfig) -> None:
-    """Raise for the families that have no mesh route: neither
-    cross-attention nor the patch projector ``vproj_dh`` has a split
-    route."""
-    if cfg.encoder_layers or cfg.vision_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder and the VLM prefix do not run "
-            "on a mesh yet (ROADMAP A6b)")
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +298,12 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Token embeddings, with the VLM's projected patches before them;
     returns (x, positions, prefix_len), prefix_len the patch count (0
-    without patches)."""
+    without patches). Under sharded training a split ``vproj_dh`` gives
+    the gathered columns; a whole leaf is a plain float matmul."""
     x = embed(params["embed_vd"], batch["tokens"], "embed_vd")
     prefix_len = 0
     if cfg.vision_tokens and "patches" in batch:
-        xv = matmul_promote(batch["patches"], params["vproj_dh"])
+        xv = proj(batch["patches"], params["vproj_dh"], "vproj_dh")
         x = torch.cat([xv.to(x.dtype), x], dim=1)
         prefix_len = batch["patches"].shape[1]
     return x, _positions(x), prefix_len

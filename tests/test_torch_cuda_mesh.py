@@ -1,9 +1,11 @@
 """The mesh on the card: two ranks sharing one GPU over gloo
 (``repro_torch.launch.mesh`` picks gloo when ranks share a card), each
 holding its slice of the split plans. Column and row splits at qwen3-4b's
-projection shapes and expert splits of a moonshot expert stack, on
-``exact-cuda`` (and ``analog-cuda`` for the experts), equal the unsplit
-plans bit for bit; the row splits launch B2 (the PIM matmul kernel's
+projection shapes, expert splits of a moonshot expert stack, on
+``exact-cuda`` (and ``analog-cuda`` for the experts), and one full-width
+layer tree of whisper-medium (with its cross-attention) and of
+paligemma-3b placed as serving places it, equal the unsplit plans bit for
+bit; the row splits launch B2 (the PIM matmul kernel's
 int32 entry point) on each rank's K block, once per call, and it equals
 its plain version. Every test needs an NVIDIA GPU and nvcc and skips
 without them; this file imports no JAX:
@@ -77,3 +79,20 @@ def test_splits_on_the_card_bit_exact(cuda, tmp_path):
                 ("pim_matmul_fused", "pim_matmul_int")
             assert routes[name] == {route: 1}, (case, routes)
             assert not routes[other], (case, routes)
+
+
+def test_family_layer_splits_on_the_card_bit_exact(cuda, tmp_path):
+    """whisper-medium's and paligemma-3b's layer trees at full width: every
+    split plan equals its whole plan on exact-cuda, at the (K, N) each
+    rank's kernel sees: whisper's columns N 512 (q, k, v of both
+    attentions) and 2048 (the MLP's up), rows K 512 and 2048; paligemma's
+    columns N 1024, 128 (its one KV head's k and v) and 8192, rows K 1024
+    and 8192."""
+    for got in _run_on_ranks(tmp_path, "cuda_family_splits"):
+        assert got["equal"] and all(got["equal"].values()), got["equal"]
+        shapes = {tuple(s) for s in got["shapes"]}
+        assert shapes == {
+            ("col", 1024, 512), ("col", 1024, 2048), ("row", 512, 1024),
+            ("row", 2048, 1024),
+            ("col", 2048, 1024), ("col", 2048, 128), ("col", 2048, 8192),
+            ("row", 1024, 2048), ("row", 8192, 2048)}, shapes

@@ -16,7 +16,6 @@ Tolerances:
   rank, and the traced FLOP count equals ``FlopCounterMode`` of the same
   step on real CPU tensors: equal.
 """
-import dataclasses
 import json
 import math
 import os
@@ -220,15 +219,16 @@ def test_flops_equal_the_real_step(monkeypatch, arch, mesh_kind, shape):
                      else "data-parallel")
 
 
-def test_encoder_decoder_trains_data_parallel():
-    """whisper's sharded step is not ported (A6b): its train cell is
-    counted data-parallel and says so, and is ``ok``."""
-    res = dryrun.run_cell("whisper-medium", "train_4k", "2,2", save=False,
-                          verbose=False, cfg=dataclasses.replace(
-                              _reduced("whisper-medium"), encoder_layers=2))
+@pytest.mark.parametrize("arch", ("whisper-medium", "paligemma-3b"))
+def test_encoder_decoder_and_vlm_train_sharded(arch):
+    """The encoder-decoder's and the VLM's train cells trace the sharded
+    step (the encoder stack, cross-attention and the patch projector
+    split), say so, log its collectives and are ``ok``."""
+    res = dryrun.run_cell(arch, "train_4k", "2,2", save=False,
+                          verbose=False, cfg=_reduced(arch))
     assert res["status"] == "ok", res.get("error")
-    assert res["flops_route"] == "data-parallel (A6b)"
-    assert res["collective_total"] == 0
+    assert res["flops_route"] == "sharded"
+    assert res["collective_total"] > 0
 
 
 def test_skipped_and_failed_cells(tmp_path, monkeypatch):

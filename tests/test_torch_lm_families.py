@@ -39,6 +39,7 @@ from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.core.pim import DensePlan, PimConfig
 from repro_torch.engine import mesh as t_engine_mesh
+from repro_torch.launch import mesh as t_launch_mesh
 from repro_torch.launch import serve as t_serve
 from repro_torch.launch import train as t_train
 from repro_torch.models import lm as t_lm
@@ -452,23 +453,48 @@ def test_lm_loss_and_train_step_match_jax(arch):
 
 
 # ---------------------------------------------------------------------------
-# meshes: not in this slice
+# meshes: the entry points take both families (the split routes run on
+# gloo ranks in tests/test_torch_mesh.py and tests/test_torch_train_mesh.py)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", FAMILIES)
-def test_mesh_raises_naming_a6b(arch):
-    """serve --mesh, the engine's plan placement and the sharded train
-    step refuse both families before touching a process group."""
-    _, cfg, _, tp = _model(arch)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        t_serve.serve(arch, layers=2, d_model=64, pim=True, mesh="1,2",
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        t_train.make_train_step(cfg, t_adamw.AdamWConfig(**OPT),
-                                mesh=object())
-    with pytest.raises(NotImplementedError, match="A6b"):
-        t_train.train_loop(arch, steps=1, layers=2, d_model=64,
-                           device="cpu", mesh="1,2")
+def test_mesh_entry_points_take_the_family(arch):
+    """serve --mesh, the engine's plan placement and the sharded train step
+    run both families, with no refusal of the family: on a one-rank mesh
+    (no process group) the served tokens, the placed plans and one train
+    step equal the single-device ones bit for bit, and a mesh larger than
+    the world raises naming the torchrun line."""
+    jcfg, cfg, jp, tp = _model(arch)
+    kw = dict(layers=2, d_model=64, pim=True, device="cpu",
+              pim_substrate="exact-torch")
+    one = t_serve.serve(arch, mesh="1,1", **kw)
+    assert one["mesh"] == "1,1"
+    np.testing.assert_array_equal(one["generated"],
+                                  t_serve.serve(arch, **kw)["generated"])
+    mesh = t_launch_mesh.make_serve_mesh("1,1", "cpu")
     planned = t_serve.plan_params_for_pim(tp, PimConfig(
         weight_bits=4, act_bits=4, substrate="exact-torch"))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        t_engine_mesh.shard_plan_tree(planned, mesh=object())
+    placed, replicated = t_engine_mesh.place_plan_tree(planned, mesh)
+    assert replicated == []
+    plans = [p for _, p in flatten_with_path(placed)
+             if isinstance(p, DensePlan)]
+    assert plans and all(p.shard is None for p in plans)
+    batch = t_train.batch_to_device(j_data.lm_batch(j_data.DataConfig(
+        vocab_size=jcfg.vocab_size, seq_len=16, global_batch=2), jcfg, 0),
+        "cpu")
+    steps = []
+    for m in (None, mesh):
+        state = convert.train_state_from_reference(jax.tree.map(
+            np.asarray, {"params": jp, "opt": j_adamw.adamw_init(jp),
+                         "step": jnp.zeros((), jnp.int32)}), "cpu")
+        state, metrics = t_train.make_train_step(
+            cfg, t_adamw.AdamWConfig(**OPT), mesh=m)(state, batch)
+        steps.append((metrics, state))
+    for key in ("loss", "grad_norm"):
+        assert float(steps[0][0][key]) == float(steps[1][0][key]), key
+    for a, b in zip(leaves(steps[0][1]["params"]),
+                    leaves(steps[1][1]["params"])):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="torchrun --standalone "
+                       "--nproc-per-node 2"):
+        t_train.train_loop(arch, steps=1, layers=2, d_model=64,
+                           device="cpu", mesh="1,2")

@@ -33,6 +33,7 @@ from repro.engine import mesh as j_mesh
 from repro.engine import persist as j_persist
 from repro.models import lm as j_lm
 from repro.models import moe as j_moe
+from repro_torch import convert
 from repro_torch.distributed import sharding
 from repro_torch.engine import mesh as t_mesh
 from repro_torch.launch import mesh as launch_mesh
@@ -285,6 +286,112 @@ def test_serve_continuous_on_a_mesh(ranks):
         assert got["tokens"] == want
         assert (got["mesh"], got["backend"], got["ranks"]) == \
             ("2,2", "gloo", WORLD)
+
+
+FAMILIES = ("whisper-medium", "paligemma-3b")
+FAMILY_SERVE = dict(layers=2, d_model=64, pim=True, device="cpu",
+                    pim_substrate="exact-torch")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_static_serve_on_a_mesh(ranks, arch):
+    """``serve(..., mesh="2,2")`` of the reduced encoder-decoder and VLM
+    (both stacks' plans and the cross-attention's split, the patch
+    projector whole): every rank's tokens equal the single-process
+    serve's bit for bit on exact-torch."""
+    want = t_serve.serve(arch, **FAMILY_SERVE)["generated"].tolist()
+    for got in ranks.run("serve_static_mesh",
+                         kwargs=dict(FAMILY_SERVE, arch=arch, mesh="2,2")):
+        assert got["generated"] == want
+        assert (got["mesh"], got["backend"], got["ranks"]) == \
+            ("2,2", "gloo", WORLD)
+
+
+JAX_FAMILY_KINDS = r"""
+import json
+import jax
+from repro.configs.base import get_config
+from repro.core import pim
+from repro.core.pim import PimConfig
+from repro.engine import shard_plan_tree
+from repro.launch.mesh import make_serve_mesh
+from repro.launch.serve import plan_params_for_pim
+from repro.models.lm import init_lm
+out = {}
+for arch in ("whisper-medium", "paligemma-3b"):
+    cfg = get_config(arch).reduced(num_layers=2, d_model=64, vocab=64)
+    planned = plan_params_for_pim(init_lm(cfg, jax.random.PRNGKey(0)),
+                                  PimConfig(substrate="exact-jnp"))
+    placed = shard_plan_tree(planned, make_serve_mesh("2,2"))
+    flat = jax.tree_util.tree_flatten_with_path(
+        placed, is_leaf=lambda x: isinstance(x, pim.Plan))[0]
+    out[arch] = {"/".join(str(k.key) for k in path):
+                 None if leaf.shard is None else leaf.shard.kind
+                 for path, leaf in flat if isinstance(leaf, pim.Plan)}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_family_kinds():
+    """JAX's ``shard_plan_tree`` of both reduced families' planned trees
+    on a 2x2 mesh (one subprocess with 4 forced host devices): path ->
+    split kind of each stacked plan."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", JAX_FAMILY_KINDS], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_plan_kinds_match_jax(ranks, jax_family_kinds, arch):
+    """The port's placement of the same planned tree (JAX's parameters,
+    converted) gives every plan JAX's split kind: ``enc_layers`` and
+    ``xattn`` by leaf name, like the decoder's; the patch projector
+    ``vproj_dh`` is a float leaf and stays whole on every rank."""
+    cfg = j_get_config(arch).reduced(num_layers=2, d_model=64, vocab=64)
+    params = convert.params_from_reference(
+        j_lm.init_lm(cfg, jax.random.PRNGKey(0)), "cpu")
+    want = jax_family_kinds[arch]
+    stacks = {p.split("/")[0] for p in want}
+    assert stacks == ({"layers", "enc_layers"} if cfg.encoder_layers
+                      else {"layers"})
+    assert set(want.values()) == {"col", "row"}
+    for got in ranks.run("family_kinds", params=params):
+        kinds = {}
+        for path, kind in got["kinds"]:
+            kinds.setdefault(re.sub(r"\[\d+\]", "", path), set()).add(kind)
+        assert kinds == {p: {k} for p, k in want.items()}
+        assert got["replicated"] == []
+        if cfg.vision_tokens:
+            assert got["floats"]["vproj_dh"] == [cfg.vision_dim, cfg.d_model]
+
+
+def test_family_plan_dir_round_trip_on_a_mesh(ranks, tmp_path):
+    """whisper on the 2x2 mesh with ``plan_dir``: the first serve programs
+    and saves the stamped plans (``enc_layers`` and ``xattn`` among them),
+    the second restores them; both give the single-process tokens, and
+    ``load_plans(mesh=)`` restores the saved kinds."""
+    arch = "whisper-medium"
+    want = t_serve.serve(arch, **FAMILY_SERVE)["generated"].tolist()
+    kwargs = dict(FAMILY_SERVE, arch=arch, mesh="2,2",
+                  plan_dir=str(tmp_path / "plans"))
+    replies = ranks.run("serve_plan_dir", kwargs=kwargs)
+    said = [run["said"] for run in replies[0]["runs"]]
+    assert "saved programmed plans" in said[0], said[0]
+    assert "restored programmed plans" in said[1], said[1]
+    for got in replies:
+        assert [run["generated"] for run in got["runs"]] == [want, want]
+        assert got["extras_mesh"] == "2,2"
+        kinds = {re.sub(r"\[\d+\]", "", p): k for p, k in got["kinds"]}
+        for stack in ("layers", "enc_layers"):
+            assert kinds[f"{stack}/attn/wq_dh"] == "col"
+            assert kinds[f"{stack}/mlp/wo_hd"] == "row"
+        assert kinds["layers/xattn/wk_dh"] == "col"
+        assert kinds["layers/xattn/wo_hd"] == "row"
 
 
 def test_mesh_needs_its_ranks():

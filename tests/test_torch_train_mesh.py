@@ -54,18 +54,25 @@ SCALAR = dict(rtol=1e-5)
 GRAD_REL, PARAM_ATOL = 1e-4, 5e-3
 OPT = dict(lr=3e-4, total_steps=10, warmup_steps=2)
 BATCH, SEQ = 4, 32
-ARCHS = ("qwen3-4b", "gemma3-1b", "moonshot-v1-16b-a3b", "hymba-1.5b")
+ARCHS = ("qwen3-4b", "gemma3-1b", "moonshot-v1-16b-a3b", "hymba-1.5b",
+         "whisper-medium", "paligemma-3b")
 # (arch, mesh): every config on 2x2, and each on a 1x4 or 4x1 mesh
 CASES = [(a, "2,2") for a in ARCHS] + [
     ("qwen3-4b", "1,4"), ("gemma3-1b", "1,4"),
-    ("moonshot-v1-16b-a3b", "4,1"), ("hymba-1.5b", "1,4")]
+    ("moonshot-v1-16b-a3b", "4,1"), ("hymba-1.5b", "1,4"),
+    ("whisper-medium", "1,4"), ("paligemma-3b", "4,1")]
+# the flash route (its plain version here): gemma3-1b's sliding windows,
+# whisper's non-causal encoder and causal decoder, paligemma's prefix-LM
+FLASH_ARCHS = ("gemma3-1b", "whisper-medium", "paligemma-3b")
 
 
 def _jcfg(arch):
     """The reduced configs: qwen3-4b as the JAX sharded-step test reduces
     it; gemma3-1b (one KV head, sliding windows, a tied vocab) on the
     flash route; moonshot (8 experts, shared experts) for the expert
-    split and the router losses; hymba for the SSM's projections."""
+    split and the router losses; hymba for the SSM's projections; whisper
+    (2 encoder layers, cross-attention over 4 heads) and paligemma (16
+    stub patches through ``vproj_dh``, one KV head) on the flash route."""
     if arch == "qwen3-4b":
         cfg = j_get_config(arch).reduced(num_layers=2, d_model=64,
                                          vocab=256)
@@ -75,7 +82,7 @@ def _jcfg(arch):
 
 def _tcfg(arch):
     cfg = convert.model_config_from_reference(_jcfg(arch))
-    if arch == "gemma3-1b":
+    if arch in FLASH_ARCHS:
         cfg = dataclasses.replace(cfg, attn_backend="pallas")
     return cfg
 
@@ -173,14 +180,20 @@ def test_spec_tables_match_jax(arch, shape):
     st = t_train.state_shardings(tmesh, tstate)
     assert st["opt"].mu is st["params"] and st["opt"].nu is st["params"]
     assert tuple(st["step"]) == () and tuple(st["opt"].step) == ()
+    cfg = _jcfg(arch)
     for b in (BATCH, 3):
         batch = {"tokens": np.zeros((b, SEQ), np.int32),
                  "targets": np.zeros((b, SEQ), np.int32)}
+        if cfg.vision_tokens:
+            batch["patches"] = np.zeros(
+                (b, cfg.vision_tokens, cfg.vision_dim), np.float32)
+        if cfg.encoder_layers:
+            batch["frames"] = np.zeros((b, SEQ, cfg.d_model), np.float32)
         jb = j_train.batch_shardings(jmesh, batch)
         tb = t_train.batch_shardings(tmesh, {k: torch.from_numpy(v)
                                              for k, v in batch.items()})
-        for k in batch:
-            assert _norm(tb[k]) == _padded(jb[k].spec, 2), (k, b)
+        for k, v in batch.items():
+            assert _norm(tb[k]) == _padded(jb[k].spec, v.ndim), (k, b)
 
 
 @pytest.mark.parametrize("shape,spec,dims", [

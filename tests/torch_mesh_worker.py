@@ -363,6 +363,51 @@ def serve_mesh(kwargs):
             "ranks": res.get("mesh_ranks"), "pid": os.getpid()}
 
 
+def serve_static_mesh(kwargs):
+    """``serve`` (the static loop) on the mesh: its tokens and mesh
+    fields."""
+    from repro_torch.launch import serve
+    res = serve.serve(**kwargs)
+    return {"generated": np.asarray(res["generated"]).tolist(),
+            "mesh": res.get("mesh"), "backend": res.get("mesh_backend"),
+            "ranks": res.get("mesh_ranks")}
+
+
+def family_kinds(params, spec="2,2"):
+    """``plan_params_for_pim`` of a float parameter tree on exact-torch,
+    placed on the mesh: every plan's (path, kind), the names the walk
+    replicated, and the float leaves outside the layer stacks (name ->
+    shape), which stay whole."""
+    from repro_torch.launch import serve
+    mesh = _mesh(spec)
+    planned = serve.plan_params_for_pim(params, PimConfig(
+        weight_bits=4, act_bits=4, substrate="exact-torch"))
+    placed, replicated = mesh_mod.place_plan_tree(planned, mesh)
+    return {"kinds": _kinds(placed), "replicated": replicated,
+            "floats": {k: list(v.shape) for k, v in placed.items()
+                       if isinstance(v, torch.Tensor)}}
+
+
+def serve_plan_dir(kwargs):
+    """``serve`` on the mesh with ``plan_dir`` twice (programmed and saved,
+    then restored), what rank 0 said each time, and the directory
+    restored with ``load_plans(mesh=)``: its plans' kinds and extras."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    runs = []
+    for _ in range(2):
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            res = serve.serve(**kwargs)
+        runs.append({"generated": np.asarray(res["generated"]).tolist(),
+                     "said": said.getvalue()})
+    placed, _, extras = engine.load_plans(kwargs["plan_dir"],
+                                          mesh=_mesh(kwargs["mesh"]))
+    return {"runs": runs, "kinds": _kinds(placed),
+            "extras_mesh": extras.get("mesh")}
+
+
 # ---------------------------------------------------------------------------
 # on the card (tests/test_torch_cuda_mesh.py)
 # ---------------------------------------------------------------------------
@@ -412,6 +457,44 @@ def cuda_splits(spec="1,2"):
                 engine.matmul(x, full, paired=paired))
     return {"equal": out, "routes": routes, "backend": mesh.backend,
             "device": str(dev)}
+
+
+def cuda_family_splits(spec="1,2"):
+    """One full-width layer tree of whisper-medium (a decoder layer, with
+    its cross-attention) and of paligemma-3b, programmed on exact-cuda and
+    placed on the mesh as serving places them: every split plan against
+    its whole plan at M = 512 and 8, bit for bit. Returns {case: equal}
+    and the (kind, K, N) of each rank's slices, as the kernel sees them."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    mesh = _mesh(spec)
+    dev = mesh.device
+    cfg = PimConfig(weight_bits=4, act_bits=4, substrate="exact-cuda")
+    out, shapes = {}, set()
+    for arch in ("whisper-medium", "paligemma-3b"):
+        model = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        layer = lm._init_layer(model, gen, dev,
+                               cross_attention=model.encoder_layers > 0)
+        whole = serve.plan_layer(layer, cfg)
+        del layer
+        placed, replicated = mesh_mod.place_plan_tree(whole, mesh)
+        assert not replicated, replicated
+        wholes = dict(flatten_with_path(whole))
+        for path, plan in flatten_with_path(placed):
+            if not isinstance(plan, pim.DensePlan):
+                continue
+            name = "/".join(path)
+            full = wholes[path]
+            shapes.add((plan.shard.kind, *plan.planes.shape[-2:]))
+            for m in (512, 8):
+                x = _rand((m, plan.k), m).to(dev)
+                out[f"{arch} {name} M={m}"] = torch.equal(
+                    engine.matmul(x, plan), engine.matmul(x, full))
+        del whole, placed
+        torch.cuda.empty_cache()
+    return {"equal": out, "shapes": sorted(shapes)}
 
 
 # ---------------------------------------------------------------------------

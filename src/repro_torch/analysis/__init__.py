@@ -21,12 +21,18 @@ names kept at their resolution site) is enforced mechanically here:
                 card, a TorchFunctionMode on the CPU; optional NaN
                 checks) and ``CompileCounter`` (new step signatures and
                 ``nvcc`` builds, per name).
+  trace.py      In-process spans and counters at the program's layer
+                boundaries (``span``, ``fine``, ``count``), recorded by
+                an armed ``Recorder`` and mirrored onto a running
+                ``torch.profiler``'s timeline; the one registry of armed
+                consumers (the compile counter reads a recorder).
   cli.py        ``python -m repro_torch.analysis`` entry point; chains
                 ruff when it is installed.
 
 This module (and the lint machinery) imports no torch, so the lint pass
 runs on a bare Python install; import
-:mod:`repro_torch.analysis.sanitize` explicitly for the runtime layer.
+:mod:`repro_torch.analysis.sanitize` or :mod:`repro_torch.analysis.trace`
+explicitly for the runtime layer.
 """
 from repro_torch.analysis.lint import (Checker, Finding, available_checkers,
                                        get_checker, lint_paths, lint_source,

@@ -25,7 +25,11 @@
   ``decode_window``, and ``*_fb`` for the fallback replays) and each
   ``nvcc`` build the kernel runtime runs (``nvcc:<source>``): the port's
   compiles. ``counter.expect(prefill=1, decode=1)`` is the serving
-  claim that every step runs at one signature.
+  claim that every step runs at one signature. :func:`record_compile`
+  is a counter of :mod:`repro_torch.analysis.trace` (``compile``, keyed
+  by ``target``), and a compile counter reads the counters-only
+  :class:`~repro_torch.analysis.trace.Recorder` it arms: one registry of
+  armed consumers for the tracing and the sanitizers.
 
 This module imports torch; :mod:`repro_torch.analysis` itself does not.
 """
@@ -33,21 +37,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import Dict, Iterator, Optional, Sequence, Union
 
 import torch
 from torch.overrides import TorchFunctionMode
 
-_ACTIVE: List["CompileCounter"] = []
-_LOCK = threading.Lock()
+from repro_torch.analysis import trace
 
 
 def record_compile(name: str) -> None:
-    """Tell every armed :class:`CompileCounter` of one compile."""
-    with _LOCK:
-        for counter in _ACTIVE:
-            counter.record(name)
+    """Count one compile of ``name`` for every armed recorder (and so for
+    every armed :class:`CompileCounter`)."""
+    trace.count(trace.COMPILE, target=name)
 
 
 class CompileCountError(AssertionError):
@@ -71,7 +72,7 @@ class CompileCounter:
 
     def __init__(self, names: Optional[Sequence[str]] = None) -> None:
         self.names = tuple(names) if names is not None else None
-        self.counts: Dict[str, int] = {}
+        self._recorder = trace.Recorder(spans=False)
 
     def _wanted(self, name: str) -> bool:
         return self.names is None or any(
@@ -79,18 +80,26 @@ class CompileCounter:
             for n in self.names)
 
     def record(self, name: str) -> None:
-        if self._wanted(name):
-            self.counts[name] = self.counts.get(name, 0) + 1
+        """Count one compile of ``name`` here alone."""
+        self._recorder.add(trace.COMPILE, target=name)
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """Compiles per name counted while armed (the names wanted)."""
+        out: Dict[str, int] = {}
+        for labels, n in self._recorder.counted(trace.COMPILE).items():
+            name = dict(labels)["target"]
+            if self._wanted(name):
+                out[name] = n
+        return out
 
     # -- context manager ------------------------------------------------
     def __enter__(self) -> "CompileCounter":
-        with _LOCK:
-            _ACTIVE.append(self)
+        self._recorder.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
-        with _LOCK:
-            _ACTIVE.remove(self)
+        self._recorder.__exit__(*exc)
 
     # -- assertions -----------------------------------------------------
     def count(self, name: str) -> int:

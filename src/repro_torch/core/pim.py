@@ -42,6 +42,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import trace
 from repro_torch.core.cell import DEFAULT_CELL
 from repro_torch.kernels.analog_readout import ops as analog_ops
 from repro_torch.kernels.analog_readout.ref import (analog_readout_fused_ref,
@@ -340,9 +341,13 @@ def _quantize_activations(x2: torch.Tensor, cfg: PimConfig):
     """Dynamic per-row activation quantization + nibble decomposition.
     Returns (QTensor, planes (Pa, M, K)): the ``act`` that the matmul
     functions below take instead of quantizing ``x2`` themselves (the
-    engine quantizes a row block once for every expert it meets)."""
-    a_q = quantize(x2, bits=cfg.act_bits, axis=(1,))
-    return a_q, to_nibbles(a_q.values, cfg.act_bits)
+    engine quantizes a row block once for every expert it meets). Its
+    two parts are the fine spans ``pim.quantize`` and ``pim.nibbles``."""
+    with trace.fine("pim.quantize"):
+        a_q = quantize(x2, bits=cfg.act_bits, axis=(1,))
+    with trace.fine("pim.nibbles"):
+        planes = to_nibbles(a_q.values, cfg.act_bits)
+    return a_q, planes
 
 
 def _pad_act_planes(a_planes: torch.Tensor, plan: DensePlan
@@ -350,8 +355,9 @@ def _pad_act_planes(a_planes: torch.Tensor, plan: DensePlan
     """Pad activation planes out to the plan's pre-padded K (the per-call
     half of the padding contract)."""
     pad_k = plan.planes.shape[1] - plan.k
-    if pad_k:
-        a_planes = F.pad(a_planes, (0, pad_k))
+    with trace.fine("pim.pad"):
+        if pad_k:
+            a_planes = F.pad(a_planes, (0, pad_k))
     return a_planes
 
 

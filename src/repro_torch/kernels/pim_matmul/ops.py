@@ -11,7 +11,9 @@ programs a plan with ``engine.program`` and executes with
 
 Dispatch is by device: tensors on the CPU take the plain version in
 :mod:`.ref`; CUDA tensors launch the kernel (or raise — there is no
-fallback). ``LAUNCHES`` counts kernel launches per entry point.
+fallback). ``LAUNCHES`` counts kernel launches per entry point. The
+fused call's plain version is a ``b1.launch`` span as the kernel's launch
+is, under the route ``plain``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels.pim_matmul.pim_matmul import (LAUNCHES,
                                                        pim_matmul_cuda,
                                                        pim_matmul_fused_cuda,
@@ -56,8 +59,12 @@ def pim_matmul_fused(a_planes: torch.Tensor, w_planes: torch.Tensor,
     if on_cuda(a_planes, w_planes, a_scale, w_scale, bias):
         return pim_matmul_fused_cuda(a_planes, w_planes, a_scale, w_scale,
                                      bias, want_rowsum=want_rowsum)
-    return pim_matmul_fused_ref(a_planes, w_planes, a_scale, w_scale, bias,
-                                want_rowsum=want_rowsum)
+    pa, m, k = a_planes.shape
+    with trace.fine("b1.launch", ("plain", pa, w_planes.shape[0], m, k,
+                                  w_planes.shape[2], bias is not None,
+                                  want_rowsum)):
+        return pim_matmul_fused_ref(a_planes, w_planes, a_scale, w_scale,
+                                    bias, want_rowsum=want_rowsum)
 
 
 def pim_matmul_quantized(x: torch.Tensor, w_q_values: torch.Tensor,

@@ -40,7 +40,10 @@ and the wgmma route on K-major weight planes.
 ``LAUNCHES`` counts successful launches per kernel entry point, and
 ``ROUTE_LAUNCHES`` the same by route, so a run can show that its main path
 went through the kernels; ``ROWSUM_LAUNCHES`` counts the fused entry
-point's launches with the ABFT row-sum epilogue, by route.
+point's launches with the ABFT row-sum epilogue, by route. Each fused
+launch is also a ``b1.launch`` fine span of
+:mod:`repro_torch.analysis.trace`, keyed by ``(route, Pa, Pw, M, K, N,
+bias, rowsum)``.
 
 ``kernel_tiles`` is the deterministic tile chooser of the JAX package,
 kept unchanged: ``prepare_weights`` pads planes to it at programming time,
@@ -53,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import runtime
 
 DEFAULT_BM = 128
@@ -219,7 +223,8 @@ def pim_matmul_fused_cuda(a_planes: torch.Tensor, w_planes: torch.Tensor,
         if want_rowsum else None
     route, strip, splits = _route(a_planes, w_planes)
     lib = _library()
-    with torch.cuda.device(dev):
+    with trace.fine("b1.launch", (route, pa, pw, m, k, n, bias is not None,
+                                  want_rowsum)), torch.cuda.device(dev):
         rc = lib.pim_matmul_fused(
             a_planes.data_ptr(), w_planes.data_ptr(), a_scale.data_ptr(),
             w_scale.data_ptr(), None if bias is None else bias.data_ptr(),

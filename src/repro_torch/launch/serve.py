@@ -29,7 +29,9 @@ in the JAX package). ``--plan-dir
 DIR`` persists the programmed tree (:func:`repro_torch.engine.save_plans`)
 so that a restart restores it instead of programming again. An OPIMA
 hardware latency/energy estimate is reported next to the wall-clock
-numbers; ``--metrics-json PATH`` writes the structured result.
+numbers; ``--metrics-json PATH`` writes the structured result, with a
+``trace`` section: the run's spans (count, total and self ms per name)
+and counters, recorded by :mod:`repro_torch.analysis.trace`.
 
 Reliability (continuous mode, :mod:`repro_torch.reliability`):
 ``--abft sample|always`` programs every plan with its ABFT checksum
@@ -83,6 +85,7 @@ Run (full width, on the card; ``--device cpu`` runs the plain versions):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -96,6 +99,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import engine
+from repro_torch.analysis import trace
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core import pim as pim_mod
 from repro_torch.core.perfmodel import network_perf, total_power_w
@@ -485,6 +489,15 @@ def _mesh_fields(result: Dict[str, Any], spec: Optional[str], mesh) -> None:
         result["mesh_backend"] = mesh.backend
 
 
+def _recording(metrics_json: Optional[str]):
+    """A :class:`~repro_torch.analysis.trace.Recorder` for the run when
+    its result is written (``--metrics-json``, rank 0), else nothing: the
+    result's ``trace`` section is its summary."""
+    if metrics_json and _rank0():
+        return trace.Recorder()
+    return contextlib.nullcontext()
+
+
 def write_metrics_json(path: str, result: Dict[str, Any]) -> None:
     """Dump a serve result as structured JSON (arrays -> lists)."""
     def conv(v):
@@ -605,8 +618,10 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 16, gen: int = 8,
         device=device)
     dev = dev_mesh.device if dev_mesh is not None else resolve_device(device)
     tokens, inputs = request_inputs(cfg, batch, prompt_len, dev)
-    generated, t_prefill, t_decode, _ = static_loop(params, cfg, tokens, gen,
-                                                    inputs=inputs)
+    recording = _recording(metrics_json)
+    with recording:
+        generated, t_prefill, t_decode, _ = static_loop(
+            params, cfg, tokens, gen, inputs=inputs)
     total_s = t_prefill + t_decode
     generated = generated.cpu().numpy()
 
@@ -648,6 +663,7 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 16, gen: int = 8,
         result.update(opima_lm_estimate(cfg, batch, prompt_len, gen,
                                         pim_cfg))
     if metrics_json and _rank0():
+        result["trace"] = recording.summary()
         write_metrics_json(metrics_json, result)
     return result
 
@@ -846,6 +862,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
                                 prefix_cache=prefix_cache,
                                 admission_policy=admission_policy,
                                 reliability=manager)
+    recording = _recording(metrics_json)
     if sanitizer is not None:
         # every decode step call runs under the host-read guard, and the
         # compile counter proves each step ran at one signature (first
@@ -856,14 +873,16 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
         names = (prefill_name, "insert", "decode", "decode_window", "nvcc:")
         with sanitizer.compile_counter(names) as counter:
             sched.warmup()
-            run = sched.run(requests)
+            with recording:
+                run = sched.run(requests)
         expected = {prefill_name: 1, "insert": 1, "decode": 1}
         if sync_every > 1:
             expected["decode_window"] = 1
         counter.expect(**expected)
     else:
         sched.warmup()   # keep first-call costs out of the metered run
-        run = sched.run(requests)
+        with recording:
+            run = sched.run(requests)
 
     result: Dict[str, Any] = dict(run.metrics)
     if manager is not None:
@@ -901,6 +920,7 @@ def serve_continuous(arch: str, num_slots: int = 4, num_requests: int = 16,
                 run.metrics["generated_tokens"] / (pass_s * total_passes))
             result["opima_power_w"] = est["opima_power_w"]
     if metrics_json and _rank0():
+        result["trace"] = recording.summary()
         write_metrics_json(metrics_json, result)
     return result
 

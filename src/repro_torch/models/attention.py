@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (Params, apply_rope, dense_init, proj,
@@ -316,13 +317,18 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
                                      head_dim, positions, rope_theta,
                                      norm_eps, _query_block(p, num_heads))
     s = x.shape[1]
-    if flash:
-        out = flash_ops.flash_attention(q, k, v, causal, window, prefix_len)
-    elif s > blockwise_threshold:
-        out = blockwise_attention(q, k, v, positions, window, causal, block,
-                                  prefix_len)
-    else:
-        out = full_attention(q, k, v, positions, window, causal, prefix_len)
+    route = "flash" if flash else (
+        "blockwise" if s > blockwise_threshold else "full")
+    with trace.fine("attn.prompt", route):
+        if flash:
+            out = flash_ops.flash_attention(q, k, v, causal, window,
+                                            prefix_len)
+        elif s > blockwise_threshold:
+            out = blockwise_attention(q, k, v, positions, window, causal,
+                                      block, prefix_len)
+        else:
+            out = full_attention(q, k, v, positions, window, causal,
+                                 prefix_len)
     out = proj(out.reshape(x.shape[0], s, -1), p["wo_hd"], "wo_hd")
     if return_kv:
         return out, (k, v)

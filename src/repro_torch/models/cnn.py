@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import engine
+from repro_torch.analysis import trace
 from repro_torch.core.pim import PimConfig
 from repro_torch.core.workloads import ConvSpec, DenseSpec, LayerSpec
 from repro_torch.kernels.runtime import resolve_device
@@ -204,48 +205,51 @@ def cnn_forward(params: Params, layers: Sequence[LayerSpec], x: torch.Tensor,
     if plans is not None and quant_bits:
         raise ValueError("precomputed plans capture raw float weights; they "
                          "cannot honor quant_bits — pass one or the other")
-    ex = _Executor(params, quant_bits, pim, plans, rng)
-    specs = list(layers)
-    i = 0
-    while i < len(specs):
-        spec = specs[i]
-        name = spec.name
-        if isinstance(spec, ConvSpec) and name.endswith(".b1"):
-            # Inception block: 7 consecutive specs
-            b1s, b3rs, b3s, b5rs, b5as, b5bs, bps = specs[i:i + 7]
-            if x.shape[1] > b1s.in_h:
-                x = _maxpool(x, x.shape[1] // b1s.in_h)
-            b1 = ex.conv(b1s, x)
-            b3 = ex.conv(b3s, ex.conv(b3rs, x))
-            b5 = ex.conv(b5bs, ex.conv(b5as, ex.conv(b5rs, x)))
-            bp = ex.conv(bps, _avgpool3_same(x))
-            x = torch.cat([b1, b3, b5, bp], dim=-1)
-            i += 7
-        elif isinstance(spec, ConvSpec) and name.endswith(".sq"):
-            # SqueezeNet fire module: sq -> (e1 || e3) concat
-            sqs, e1s, e3s = specs[i:i + 3]
-            if x.shape[1] > sqs.in_h:
-                x = _maxpool(x, x.shape[1] // sqs.in_h)
-            sq = ex.conv(sqs, x)
-            x = torch.cat([ex.conv(e1s, sq), ex.conv(e3s, sq)], dim=-1)
-            i += 3
-        elif isinstance(spec, ConvSpec) and name.endswith("c1") and \
-                "b" in name:
-            # ResNet basic block: c1 -> c2 (+ds shortcut), residual add
-            c1s, c2s = specs[i], specs[i + 1]
-            has_ds = i + 2 < len(specs) and specs[i + 2].name.endswith("ds")
-            h = ex.conv(c2s, ex.conv(c1s, x), relu=False)
-            shortcut = ex.conv(specs[i + 2], x, relu=False) if has_ds else x
-            x = torch.relu(h + shortcut)
-            i += 3 if has_ds else 2
-        elif isinstance(spec, ConvSpec):
-            last = (i == len(specs) - 1)           # SqueezeNet conv10 head
-            x = ex.conv(spec, x, relu=not last)
-            i += 1
-        else:
-            last = (i == len(specs) - 1)
-            x = ex.dense(spec, x, relu=not last)
-            i += 1
-    if x.dim() == 4:
-        x = x.mean(dim=(1, 2))
-    return x
+    with trace.span("cnn.forward", batch=x.shape[0]):
+        ex = _Executor(params, quant_bits, pim, plans, rng)
+        specs = list(layers)
+        i = 0
+        while i < len(specs):
+            spec = specs[i]
+            name = spec.name
+            if isinstance(spec, ConvSpec) and name.endswith(".b1"):
+                # Inception block: 7 consecutive specs
+                b1s, b3rs, b3s, b5rs, b5as, b5bs, bps = specs[i:i + 7]
+                if x.shape[1] > b1s.in_h:
+                    x = _maxpool(x, x.shape[1] // b1s.in_h)
+                b1 = ex.conv(b1s, x)
+                b3 = ex.conv(b3s, ex.conv(b3rs, x))
+                b5 = ex.conv(b5bs, ex.conv(b5as, ex.conv(b5rs, x)))
+                bp = ex.conv(bps, _avgpool3_same(x))
+                x = torch.cat([b1, b3, b5, bp], dim=-1)
+                i += 7
+            elif isinstance(spec, ConvSpec) and name.endswith(".sq"):
+                # SqueezeNet fire module: sq -> (e1 || e3) concat
+                sqs, e1s, e3s = specs[i:i + 3]
+                if x.shape[1] > sqs.in_h:
+                    x = _maxpool(x, x.shape[1] // sqs.in_h)
+                sq = ex.conv(sqs, x)
+                x = torch.cat([ex.conv(e1s, sq), ex.conv(e3s, sq)], dim=-1)
+                i += 3
+            elif isinstance(spec, ConvSpec) and name.endswith("c1") and \
+                    "b" in name:
+                # ResNet basic block: c1 -> c2 (+ds shortcut), residual add
+                c1s, c2s = specs[i], specs[i + 1]
+                has_ds = i + 2 < len(specs) and \
+                    specs[i + 2].name.endswith("ds")
+                h = ex.conv(c2s, ex.conv(c1s, x), relu=False)
+                shortcut = ex.conv(specs[i + 2], x, relu=False) \
+                    if has_ds else x
+                x = torch.relu(h + shortcut)
+                i += 3 if has_ds else 2
+            elif isinstance(spec, ConvSpec):
+                last = (i == len(specs) - 1)           # SqueezeNet conv10 head
+                x = ex.conv(spec, x, relu=not last)
+                i += 1
+            else:
+                last = (i == len(specs) - 1)
+                x = ex.dense(spec, x, relu=not last)
+                i += 1
+        if x.dim() == 4:
+            x = x.mean(dim=(1, 2))
+        return x

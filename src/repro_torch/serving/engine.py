@@ -78,6 +78,16 @@ and a fallback replay runs unguarded, as in the JAX engine. Inside its
 ``session()``, ``nan_debug`` folds a NaN count of each dispatch's float
 outputs into that one copy, and a NaN raises ``FloatingPointError``.
 
+Spans and counters (:mod:`repro_torch.analysis.trace`, recorded while a
+recorder is armed): ``engine.prefill`` / ``engine.prefill_chunk`` (the
+request, the rows run) and ``engine.insert`` (the request, its slot);
+``engine.generate`` (the slots stepped, their requests, the steps) around
+each decode dispatch; inside any dispatch ``engine.place`` (each placement
+of step inputs on the device), ``engine.step`` (the step call),
+``engine.fetch`` (the one device-to-host copy, where the host waits for
+the device) and ``engine.replay`` (an ABFT fallback replay); counters
+``engine.prefill_rows`` and ``engine.prompt_tokens``.
+
 Meshes (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh`): every rank
 runs the engine over params whose plans are split over the mesh
 (:mod:`repro_torch.engine.mesh`), and each split matmul hands every rank
@@ -96,6 +106,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.analysis import trace
 from repro_torch.analysis.sanitize import record_compile
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
@@ -168,10 +179,12 @@ class PrefillTask:
     at a time so the scheduler can interleave prompt chunks with decode
     steps. ``prefix`` is set once ``finished``."""
 
-    def __init__(self, tokens: np.ndarray, shared_prefix_len: int = 0):
+    def __init__(self, tokens: np.ndarray, shared_prefix_len: int = 0,
+                 request_id: Hashable = None):
         self.tokens = np.asarray(tokens, np.int32).reshape(-1)
         self.length = int(self.tokens.shape[0])
         self.shared_prefix_len = shared_prefix_len
+        self.request_id = request_id      # carried by its spans
         self.key = token_key(self.tokens)
         self.prefix: Optional[Prefix] = None
         # chunked-mode cursor state (filled in by the engine)
@@ -364,7 +377,9 @@ class ServingEngine:
                              dtype=self._compute_dtype, device=self.device)
 
     def _tokens(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(arr, np.int64)).to(self.device)
+        with trace.span("engine.place"):
+            return torch.from_numpy(np.asarray(arr, np.int64)).to(
+                self.device)
 
     def _warm(self, params, fallback: bool) -> None:
         """Each step function this engine uses, once, on ``params``."""
@@ -417,7 +432,7 @@ class ServingEngine:
         verified matmul's count stays on the device. ``guard`` (a context
         manager) wraps the step call alone. Returns the output and the
         closed scope (its tags and per-tag count vector)."""
-        with abft.collect_scope() as scope:
+        with abft.collect_scope() as scope, trace.span("engine.step"):
             with guard if guard is not None else contextlib.nullcontext():
                 out = fn(*args)
         return out, scope
@@ -439,9 +454,10 @@ class ServingEngine:
         if nan_of:
             parts.append(torch.stack([torch.isnan(t).sum() for t in nan_of])
                          .sum().reshape(1))
-        # repro-lint: disable=RPR101 (the dispatch's one sanctioned read)
-        host = (torch.cat(parts) if len(parts) > 1
-                else parts[0]).cpu().numpy()
+        flat = torch.cat(parts) if len(parts) > 1 else parts[0]
+        with trace.span("engine.fetch"):
+            # repro-lint: disable=RPR101 (the dispatch's one sanctioned read)
+            host = flat.cpu().numpy()
         out, at = [], 0
         for t in tensors:
             out.append(host[at:at + t.numel()].reshape(tuple(t.shape)))
@@ -497,12 +513,13 @@ class ServingEngine:
         bad = man.drain()
         if bad:
             man.record_violations(bad)
-            t0 = time.perf_counter()
-            if restore is not None:
-                restore()
-            out, scope = self._dispatch(run, man.fallback, True)
-            host = self._fetch(reads(out), scope, self._nan_inputs(out))
-            man.note_retry(time.perf_counter() - t0)
+            with trace.span("engine.replay"):
+                t0 = time.perf_counter()
+                if restore is not None:
+                    restore()
+                out, scope = self._dispatch(run, man.fallback, True)
+                host = self._fetch(reads(out), scope, self._nan_inputs(out))
+                man.note_retry(time.perf_counter() - t0)
             self._after_violation()
         return out, host
 
@@ -563,8 +580,8 @@ class ServingEngine:
                 return starts
             s = s_eff + C
 
-    def start_prefill(self, tokens, shared_prefix_len: int = 0
-                      ) -> PrefillTask:
+    def start_prefill(self, tokens, shared_prefix_len: int = 0,
+                      request_id: Hashable = None) -> PrefillTask:
         """Begin a prefill. Returns a task whose remaining work is a
         sequence of ``prefill_step`` calls (exactly one step-function call
         each) — the scheduler interleaves them with decode steps.
@@ -573,8 +590,9 @@ class ServingEngine:
         ``shared_prefix_len`` marks a shared-prefix boundary (e.g. the
         system prompt length). It only enables KV reuse when both the
         prefix cache and chunked prefill are on; otherwise it is
-        ignored (exact full-prompt caching still applies)."""
-        task = PrefillTask(tokens, shared_prefix_len)
+        ignored (exact full-prompt caching still applies). ``request_id``
+        labels the task's spans."""
+        task = PrefillTask(tokens, shared_prefix_len, request_id)
         plen = task.length
         if not (1 <= plen <= self.prompt_pad):
             raise ValueError(f"prompt length {plen} not in "
@@ -629,7 +647,11 @@ class ServingEngine:
         if self.prefill_chunk is None:
             padded = np.zeros((1, self.prompt_pad), np.int32)
             padded[0, :plen] = task.tokens
-            tok0, kv = self._run_prefill(self._tokens(padded), plen)
+            with trace.span("engine.prefill", request=task.request_id,
+                            rows=self.prompt_pad, prompt=plen):
+                tok0, kv = self._run_prefill(self._tokens(padded), plen)
+            trace.count("engine.prefill_rows", self.prompt_pad)
+            trace.count("engine.prompt_tokens", plen)
             task.prefix = Prefix(length=plen, first_token=tok0, kv=kv,
                                  key=task.key)
         else:
@@ -640,8 +662,13 @@ class ServingEngine:
             last = (phase == len(task.phases) - 1 and
                     idx == len(starts) - 1)
             li = (plen - 1) - start if last else 0
-            tok, task.scratch = self._run_chunk(
-                task.scratch, self._tokens(blk), start, li, last)
+            with trace.span("engine.prefill_chunk", request=task.request_id,
+                            rows=self.prefill_chunk, start=start):
+                tok, task.scratch = self._run_chunk(
+                    task.scratch, self._tokens(blk), start, li, last)
+            trace.count("engine.prefill_rows", self.prefill_chunk)
+            if last:
+                trace.count("engine.prompt_tokens", plen)
             if idx + 1 < len(starts):
                 task.cursor = (phase, idx + 1)
             elif phase + 1 < len(task.phases):
@@ -704,8 +731,9 @@ class ServingEngine:
             if slot is None:
                 raise RuntimeError("no free slot; call generate() until "
                                    "one retires")
-        state.cache = self._insert_fn(state.cache, prefix.kv, slot,
-                                      prefix.length)
+        with trace.span("engine.insert", request=request_id, slot=slot):
+            state.cache = self._insert_fn(state.cache, prefix.kv, slot,
+                                          prefix.length)
         view = SlotView(request_id=request_id, slot=slot,
                         prompt_len=prefix.length, pos=prefix.length,
                         tokens=[int(prefix.first_token)],
@@ -745,59 +773,63 @@ class ServingEngine:
             return state, StepResult(events=[], finished=[], steps=0)
         w = self.sync_every if max_steps is None else max(1, min(
             int(max_steps), self.sync_every))
-        tok_vec = np.zeros((self.num_slots, 1), np.int64)
-        pos_vec = np.zeros((self.num_slots,), np.int64)
-        done_vec = np.ones((self.num_slots,), bool)
-        left_vec = np.zeros((self.num_slots,), np.int64)
-        for slot, view in active.items():
-            tok_vec[slot, 0] = view.tokens[-1]
-            pos_vec[slot] = view.pos
-            done_vec[slot] = False
-            left_vec[slot] = view.budget_left
-        tok_dev, pos_dev = self._tokens(tok_vec), self._tokens(pos_vec)
-        cache = state.cache
-        man = self.reliability
-        if w > 1:
-            done_dev = torch.from_numpy(done_vec).to(self.device)
-            left_dev = self._tokens(left_vec)
-            restore = (self._snapshot(cache, pos_dev, w)
-                       if man is not None and not man.degraded else None)
-            out, (toks_seq, valid_seq) = self._checked(
-                lambda params, fb: self._window_fn(
-                    params, cache, tok_dev, pos_dev, done_dev, left_dev, w,
-                    fb),
-                lambda out: [out[0], out[1]], restore, guarded=True)
-            valid_seq = valid_seq.astype(bool)
-        else:
-            # a replay needs no restore: the step writes each row's one
-            # position before it reads it, and reads no later position,
-            # so the replay overwrites every entry the faulty step wrote
-            out, (nxt,) = self._checked(
-                lambda params, fb: self._decode_fn(params, cache, tok_dev,
-                                                   pos_dev, fb),
-                lambda out: [out[0]], guarded=True)
-            toks_seq = nxt[None]
-            valid_seq = ~done_vec[None]
-        state.cache = out[2]
-        events: List[TokenEvent] = []
-        finished: List[Tuple[SlotView, int]] = []
-        for i in range(w):           # step-major: sync_every=1 ordering
-            for slot in sorted(active):
-                view = active[slot]
-                if view.done or not valid_seq[i, slot]:
-                    continue
-                tok = int(toks_seq[i, slot])
-                view.tokens.append(tok)
-                view.pos += 1
-                events.append(TokenEvent(
-                    request_id=view.request_id, slot=slot, token=tok,
-                    index=len(view.tokens) - 1, step_offset=i))
-                reason = self._classify(tok)
-                if reason is not None or view.budget_left == 0:
-                    view.done = True
-                    view.stop_reason = reason or "budget"
-                    finished.append((view, i))
-        for view, _ in finished:
-            del state.slots[view.slot]
-            state.alloc.free(view.slot)
-        return state, StepResult(events=events, finished=finished, steps=w)
+        slots = sorted(active)
+        with trace.span("engine.generate", slots=slots, steps=w,
+                        requests=[active[k].request_id for k in slots]):
+            tok_vec = np.zeros((self.num_slots, 1), np.int64)
+            pos_vec = np.zeros((self.num_slots,), np.int64)
+            done_vec = np.ones((self.num_slots,), bool)
+            left_vec = np.zeros((self.num_slots,), np.int64)
+            for slot, view in active.items():
+                tok_vec[slot, 0] = view.tokens[-1]
+                pos_vec[slot] = view.pos
+                done_vec[slot] = False
+                left_vec[slot] = view.budget_left
+            tok_dev, pos_dev = self._tokens(tok_vec), self._tokens(pos_vec)
+            cache = state.cache
+            man = self.reliability
+            if w > 1:
+                with trace.span("engine.place"):
+                    done_dev = torch.from_numpy(done_vec).to(self.device)
+                left_dev = self._tokens(left_vec)
+                restore = (self._snapshot(cache, pos_dev, w)
+                           if man is not None and not man.degraded else None)
+                out, (toks_seq, valid_seq) = self._checked(
+                    lambda params, fb: self._window_fn(
+                        params, cache, tok_dev, pos_dev, done_dev, left_dev, w,
+                        fb),
+                    lambda out: [out[0], out[1]], restore, guarded=True)
+                valid_seq = valid_seq.astype(bool)
+            else:
+                # a replay needs no restore: the step writes each row's one
+                # position before it reads it, and reads no later position,
+                # so the replay overwrites every entry the faulty step wrote
+                out, (nxt,) = self._checked(
+                    lambda params, fb: self._decode_fn(params, cache, tok_dev,
+                                                       pos_dev, fb),
+                    lambda out: [out[0]], guarded=True)
+                toks_seq = nxt[None]
+                valid_seq = ~done_vec[None]
+            state.cache = out[2]
+            events: List[TokenEvent] = []
+            finished: List[Tuple[SlotView, int]] = []
+            for i in range(w):           # step-major: sync_every=1 ordering
+                for slot in sorted(active):
+                    view = active[slot]
+                    if view.done or not valid_seq[i, slot]:
+                        continue
+                    tok = int(toks_seq[i, slot])
+                    view.tokens.append(tok)
+                    view.pos += 1
+                    events.append(TokenEvent(
+                        request_id=view.request_id, slot=slot, token=tok,
+                        index=len(view.tokens) - 1, step_offset=i))
+                    reason = self._classify(tok)
+                    if reason is not None or view.budget_left == 0:
+                        view.done = True
+                        view.stop_reason = reason or "budget"
+                        finished.append((view, i))
+            for view, _ in finished:
+                del state.slots[view.slot]
+                state.alloc.free(view.slot)
+            return state, StepResult(events=events, finished=finished, steps=w)

@@ -36,6 +36,12 @@ produced tokens are bit-identical to a static ``prefill`` +
 ``decode_step`` run of the same request (tested), including under
 chunked prefill and prefix-cache hits.
 
+Spans and counters (:mod:`repro_torch.analysis.trace`): one
+``sched.iteration`` per loop iteration, holding a ``sched.admit`` (the
+request, its slot) per unit of admission work and the engine's spans;
+counters ``sched.decode_steps`` and ``sched.occupied_slot_steps``, whose
+ratio over the slot count is the run's ``mean_slot_occupancy``.
+
 The scheduler clock is virtual — one decode step advances time by 1.0 —
 so latency accounting (TTFT, per-request latency) is deterministic and
 trace-replayable; wall-clock throughput is reported alongside. In
@@ -56,6 +62,7 @@ from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.serving.engine import PrefillTask, ServingEngine, SlotView
@@ -377,117 +384,132 @@ class ContinuousScheduler:
                 finish(view, req, admit_at, first_wall, now)
 
         while pending or ready or admitting or state.slots:
-            while pending and pending[0].arrival <= step:
-                ready.append(pending.popleft())
-            sweep_deadlines(step)
-            if not ready and not admitting and not state.slots:
-                if not pending:
-                    break        # the sweep drained the last request
-                step = pending[0].arrival   # idle: jump to next arrival
-                continue
-            # --- admission: up to max_prefills_per_step units of prefill
-            # work per iteration — one unit == one step call, so a
-            # chunked long prompt spreads across iterations and decode
-            # keeps running in between. Under "fifo", in-flight tasks
-            # advance first and ready requests claim free slots only when
-            # nothing is in flight. Under "sjf", a short ready request
-            # may open its own task while a long chunked admission is
-            # still in flight (slots permitting), and the in-flight task
-            # with the fewest remaining prefill units advances first —
-            # so a one-chunk prompt is not stuck behind a 16-chunk one.
-            sjf = self.admission_policy == "sjf"
-            units = 0
-            while units < self.max_prefills_per_step:
-                start_new = bool(ready) and (
-                    not admitting or
-                    (sjf and state.alloc.num_free > 0 and
-                     min(self._req_units(r) for r in ready) <
-                     min(self._task_units_left(t) for _, t, _ in admitting)))
-                if start_new:
-                    pick = (min(range(len(ready)),
-                                key=lambda i: (self._req_units(ready[i]), i))
-                            if sjf else 0)
-                    slot = state.alloc.alloc(ready[pick].request_id)
-                    if slot is None:
-                        if not admitting:
-                            break
-                    else:
-                        req = ready.pop(pick)
-                        task = engine.start_prefill(req.tokens,
-                                                    req.shared_prefix_len)
-                        admitting.append((req, task, slot))
-                if not admitting:
-                    break
-                ei = (min(range(len(admitting)),
-                          key=lambda j: (
-                              self._task_units_left(admitting[j][1]), j))
-                      if sjf else 0)
-                req, task, slot = admitting[ei]
-                done = engine.prefill_step(task)
-                units += 1
-                prefill_units += 1
-                if done:
-                    admitting.pop(ei)
-                    state, view = engine.insert(
-                        task.prefix, state,
-                        max_new_tokens=req.max_new_tokens,
-                        request_id=req.request_id, slot=slot)
-                    prefills += 1
-                    admit_at = step + 1.0
-                    first_wall = time.time() - t0
-                    cb.on_admit(req.request_id, slot, admit_at)
-                    cb.on_token(req.request_id, view.tokens[0], 0)
-                    if view.done:
-                        # budget of one — or the prefill token itself is
-                        # a stop token: complete without a decode step
-                        finish(view, req, admit_at, first_wall, admit_at)
-                    else:
-                        live[slot] = (req, admit_at, first_wall)
-            # --- decode over all occupied slots -------------------------
-            # With sync_every > 1, up to a full window of fused decode
-            # steps runs on-device between host syncs. The bound keeps
-            # the virtual accounting exact in budget-only mode: no slot
-            # may exhaust its budget mid-window and no admission
-            # opportunity may be skipped. Ragged windows (2..k-1) run
-            # *fused* through the masked window — the per-slot validity
-            # mask freezes rows past the bound, so tokens and latency
-            # accounting match single-stepping while the host syncs once.
-            active_n = len(state.slots)
-            if state.slots:
-                window = 1
-                if self.sync_every > 1:
-                    window = min(self.sync_every,
-                                 min(v.budget_left
-                                     for v in state.slots.values()))
-                    if admitting:
-                        window = 1   # chunk-per-step interleave
-                    elif state.alloc.num_free > 0:
-                        if ready:
-                            window = 1
-                        elif pending:
-                            window = min(window, max(1, int(np.ceil(
-                                pending[0].arrival - step))))
-                    # never fuse past a live request's deadline: the
-                    # sweep retires at host-sync granularity, so the
-                    # window must stop where the earliest deadline lands
-                    dls = [v[0].deadline - step for v in live.values()
-                           if v[0].deadline is not None]
-                    if dls:
-                        window = min(window, max(1, int(np.ceil(min(dls)))))
-                    window = max(1, window)
-                state, res = engine.generate(state, max_steps=window)
-                host_syncs += 1
-                decode_steps += res.steps
-                occupancy_acc += res.steps * active_n
-                for ev in res.events:
-                    cb.on_token(ev.request_id, ev.token, ev.index)
-                for view, i_last in res.finished:
-                    req, admit_at, first_wall = live.pop(view.slot)
-                    finish(view, req, admit_at, first_wall,
-                           step + i_last + 1.0)
-                step += float(res.steps)
-            else:
-                step += 1.0
+            with trace.span("sched.iteration"):
+                while pending and pending[0].arrival <= step:
+                    ready.append(pending.popleft())
+                sweep_deadlines(step)
+                if not ready and not admitting and not state.slots:
+                    if not pending:
+                        break        # the sweep drained the last request
+                    step = pending[0].arrival   # idle: jump to next arrival
+                    continue
+                # --- admission: up to max_prefills_per_step units of
+                # prefill work per iteration — one unit == one step call,
+                # so a chunked long prompt spreads across iterations and
+                # decode keeps running in between. Under "fifo", in-flight
+                # tasks advance first and ready requests claim free slots
+                # only when nothing is in flight. Under "sjf", a short
+                # ready request may open its own task while a long chunked
+                # admission is still in flight (slots permitting), and the
+                # in-flight task with the fewest remaining prefill units
+                # advances first — so a one-chunk prompt is not stuck
+                # behind a 16-chunk one.
+                sjf = self.admission_policy == "sjf"
+                units = 0
+                while units < self.max_prefills_per_step:
+                    start_new = bool(ready) and (
+                        not admitting or
+                        (sjf and state.alloc.num_free > 0 and
+                         min(self._req_units(r) for r in ready) <
+                         min(self._task_units_left(t)
+                             for _, t, _ in admitting)))
+                    if start_new:
+                        pick = (min(range(len(ready)),
+                                    key=lambda i: (
+                                        self._req_units(ready[i]), i))
+                                if sjf else 0)
+                        slot = state.alloc.alloc(ready[pick].request_id)
+                        if slot is None:
+                            if not admitting:
+                                break
+                        else:
+                            req = ready.pop(pick)
+                            task = engine.start_prefill(
+                                req.tokens, req.shared_prefix_len,
+                                request_id=req.request_id)
+                            admitting.append((req, task, slot))
+                    if not admitting:
+                        break
+                    ei = (min(range(len(admitting)),
+                              key=lambda j: (
+                                  self._task_units_left(admitting[j][1]), j))
+                          if sjf else 0)
+                    req, task, slot = admitting[ei]
+                    # one unit of a request's admission: its prefill step and,
+                    # once the prefill is done, its insert
+                    with trace.span("sched.admit", request=req.request_id,
+                                    slot=slot):
+                        done = engine.prefill_step(task)
+                        units += 1
+                        prefill_units += 1
+                        if done:
+                            admitting.pop(ei)
+                            state, view = engine.insert(
+                                task.prefix, state,
+                                max_new_tokens=req.max_new_tokens,
+                                request_id=req.request_id, slot=slot)
+                            prefills += 1
+                            admit_at = step + 1.0
+                            first_wall = time.time() - t0
+                            cb.on_admit(req.request_id, slot, admit_at)
+                            cb.on_token(req.request_id, view.tokens[0], 0)
+                            if view.done:
+                                # budget of one — or the prefill token
+                                # itself is a stop token: complete
+                                # without a decode step
+                                finish(view, req, admit_at, first_wall,
+                                       admit_at)
+                            else:
+                                live[slot] = (req, admit_at, first_wall)
+                # --- decode over all occupied slots -------------------------
+                # With sync_every > 1, up to a full window of fused decode
+                # steps runs on-device between host syncs. The bound keeps
+                # the virtual accounting exact in budget-only mode: no slot
+                # may exhaust its budget mid-window and no admission
+                # opportunity may be skipped. Ragged windows (2..k-1) run
+                # *fused* through the masked window — the per-slot validity
+                # mask freezes rows past the bound, so tokens and latency
+                # accounting match single-stepping while the host syncs once.
+                active_n = len(state.slots)
+                if state.slots:
+                    window = 1
+                    if self.sync_every > 1:
+                        window = min(self.sync_every,
+                                     min(v.budget_left
+                                         for v in state.slots.values()))
+                        if admitting:
+                            window = 1   # chunk-per-step interleave
+                        elif state.alloc.num_free > 0:
+                            if ready:
+                                window = 1
+                            elif pending:
+                                window = min(window, max(1, int(np.ceil(
+                                    pending[0].arrival - step))))
+                        # never fuse past a live request's deadline: the
+                        # sweep retires at host-sync granularity, so the
+                        # window must stop where the earliest deadline lands
+                        dls = [v[0].deadline - step for v in live.values()
+                               if v[0].deadline is not None]
+                        if dls:
+                            window = min(window,
+                                         max(1, int(np.ceil(min(dls)))))
+                        window = max(1, window)
+                    state, res = engine.generate(state, max_steps=window)
+                    host_syncs += 1
+                    decode_steps += res.steps
+                    occupancy_acc += res.steps * active_n
+                    trace.count("sched.decode_steps", res.steps)
+                    trace.count("sched.occupied_slot_steps",
+                                res.steps * active_n)
+                    for ev in res.events:
+                        cb.on_token(ev.request_id, ev.token, ev.index)
+                    for view, i_last in res.finished:
+                        req, admit_at, first_wall = live.pop(view.slot)
+                        finish(view, req, admit_at, first_wall,
+                               step + i_last + 1.0)
+                    step += float(res.steps)
+                else:
+                    step += 1.0
 
         wall_s = time.time() - t0
         if engine.reliability is not None:

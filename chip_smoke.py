@@ -320,7 +320,12 @@ package. Phases, each of which raises on failure:
 
 Each path's launch counts are set to 0 just before its requests and read
 just after (B1's also by route, held to what the route chooser gives the
-path's shapes). It prints a ``{"kernels": [...]}`` line (one entry per
+path's shapes). The fused activation quantizer's launches are counted
+with them and held equal to the path's quantize calls on the card (every
+call takes the kernel); each shape a path quantizes is checked bit for bit
+against the eager path on the path's own rows and timed beside its bytes
+bound, an ``act_quant`` entry per path (the mesh's ranks count it only).
+It prints a ``{"kernels": [...]}`` line (one entry per
 kernel and path), then the device line
 ``{"ok": true, "device": {...}}`` last. ``--json PATH`` also writes every
 number of the run (per-shape timings, the profiles, the study rows) to
@@ -385,6 +390,7 @@ KERNEL_SOURCE = "src/repro_torch/csrc/pim_matmul.cu"
 ANALOG_SOURCE = "src/repro_torch/csrc/analog_readout.cu"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+QUANT_SOURCE = "src/repro_torch/csrc/act_quant.cu"
 REPLACES = {
     "flash_attention_fwd":
         "src/repro/kernels/flash_attention/flash_attention.py:94",
@@ -403,7 +409,17 @@ REPLACES = {
         "src/repro/kernels/analog_readout/analog_readout.py:263",
     "analog_readout":
         "src/repro/kernels/analog_readout/analog_readout.py:322",
+    # XLA fuses the JAX package's quantizer; eager PyTorch cannot
+    "act_quant": "no TPU kernel: XLA fused it "
+                 "(src/repro/core/pim.py _quantize_activations)",
 }
+# The fused activation quantizer's counts: its launches, and the calls of
+# pim._quantize_activations on rows on the card (QuantCalls), which
+# read_counts holds equal; the launch checks of the other kernels leave
+# both out. Each shape a path quantizes is checked and timed on the first
+# QUANT_SAMPLE_ROWS rows the path gave it, tiled to the shape's M.
+QUANT_COUNTS = ("act_quant", "quantize_calls")
+QUANT_SAMPLE_ROWS = 256
 # (M, Ka, Kw, N): the analog kernels take the weights' K in whole WDM
 # chunks (336 = 21 * 16); the activation planes as wide or narrower, as
 # the main path passes them (stage 0: 576 of 1024; the stem: 27 of 32)
@@ -602,10 +618,23 @@ def reset_counts(*kernel_modules):
 
 
 def read_counts(*kernel_modules):
+    """Launches since the last reset by kernel; where the fused quantizer
+    is counted, its launches must equal the quantize calls on the card:
+    every call took the kernel (it has no eager route there)."""
     counts = {}
     for mod in kernel_modules:
         counts.update(mod.LAUNCHES)
+    if counts.get("act_quant", 0) != counts.get("quantize_calls", 0):
+        raise AssertionError(
+            f"{counts.get('quantize_calls', 0)} quantize calls on the card "
+            f"but {counts.get('act_quant', 0)} act_quant launches")
     return counts
+
+
+def other_kernels(launches, *names):
+    """Launches of kernels other than ``names`` and the quantizer."""
+    return {k: v for k, v in launches.items()
+            if v and k not in names and k not in QUANT_COUNTS}
 
 
 def route_counts(kern, name):
@@ -1527,6 +1556,117 @@ def analog_entries(rows, apath, err):
 
 
 # ---------------------------------------------------------------------------
+# The fused activation quantizer (act_quant) on every main path
+# ---------------------------------------------------------------------------
+class QuantCalls:
+    """The calls of ``pim._quantize_activations`` on rows on the card since
+    the last reset, counted as a kernel module counts its launches (each
+    must be one act_quant launch: :func:`read_counts`). Installed over the
+    module attribute, which every caller goes through. It also keeps, per
+    (M, K, width, bits, dtype) since the last :meth:`take`, the calls and
+    the first ``QUANT_SAMPLE_ROWS`` rows of the first call."""
+
+    def __init__(self, pim):
+        self.LAUNCHES = {"quantize_calls": 0}
+        self.seen = {}
+        self.inner = pim._quantize_activations
+        pim._quantize_activations = self
+
+    def reset_launches(self):
+        self.LAUNCHES["quantize_calls"] = 0
+
+    def __call__(self, x2, cfg, width=None):
+        if x2.is_cuda and x2.shape[0]:
+            self.LAUNCHES["quantize_calls"] += 1
+            key = (*x2.shape, width, cfg.act_bits, x2.dtype)
+            if key not in self.seen:
+                self.seen[key] = [x2[:QUANT_SAMPLE_ROWS].clone(), 0]
+            self.seen[key][1] += 1
+        return self.inner(x2, cfg, width)
+
+    def take(self):
+        """The shapes seen since the last take, and a fresh start."""
+        seen, self.seen = self.seen, {}
+        return seen
+
+
+def quant_bound(m, k, width, bits, dtype_bytes):
+    """Least time (ms) of one quantize call: the rows read once, each
+    plane written once at the padded width, the codes once more for two
+    planes, a float32 scale a row."""
+    pa = 1 if bits <= 4 else 2
+    moved = m * k * dtype_bytes + pa * m * (width or k) + \
+        (m * k if pa == 2 else 0) + 4 * m
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def quant_rows(torch, qkern, pim, seen, what):
+    """Per shape a path quantized: the kernel against the eager path
+    (``pim._quantize_plain`` and the padding) on the card, bit for bit, on
+    the path's sampled rows tiled to the shape's M; the kernel's device
+    time, the eager path's, and the bytes bound."""
+    import torch.nn.functional as F
+    rows = []
+    for (m, k, width, bits, dtype), (sample, calls) in seen.items():
+        x = sample.repeat(-(-m // sample.shape[0]), 1)[:m].contiguous()
+
+        def plain():
+            a_q, planes = pim._quantize_plain(x, bits)
+            if width is not None:
+                planes = F.pad(planes, (0, width - k))
+            return a_q.values, a_q.scale, planes
+
+        got, want = qkern.act_quant_cuda(x, bits, width), plain()
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        row = {"m": m, "k": k, "width": width, "bits": bits,
+               "dtype": str(dtype).split(".")[-1], "calls": calls,
+               "max_abs_err": err,
+               "ms": device_ms(torch, lambda i: qkern.act_quant_cuda(
+                   x, bits, width)),
+               "plain_ms": time_ms(torch, plain),
+               "bound_ms": quant_bound(m, k, width, bits,
+                                       x.element_size())}
+        rows.append(row)
+        del x
+    rows.sort(key=lambda r: -r["calls"] * r["ms"])
+    total = lambda key: sum(r[key] * r["calls"] for r in rows)
+    log(f"act_quant on {what}: {len(rows)} shapes, "
+        f"{sum(r['calls'] for r in rows)} calls, bit-identical to the "
+        f"eager path; over the calls {total('ms'):.3f} ms (eager "
+        f"{total('plain_ms'):.3f} ms, bytes bound {total('bound_ms'):.3f} "
+        "ms); by shape " + ", ".join(
+            f"{r['m']}x{r['k']}->{r['width'] or r['k']} {r['bits']}b "
+            f"{r['dtype']} x{r['calls']} {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f}, eager {r['plain_ms']:.4f})"
+            for r in rows[:8]))
+    return rows
+
+
+def quant_entry(rows, launches, path):
+    """The quantizer's line for one path: its launches in the path's own
+    counted run, and times summed over every quantize call the path made
+    (its counted runs, warm-ups and checks)."""
+    total = lambda key: sum(r[key] * r["calls"] for r in rows)
+    return {
+        "name": "act_quant", "path": path, "route": "cuda",
+        "source": QUANT_SOURCE, "replaces": REPLACES["act_quant"],
+        "launches": launches["act_quant"],
+        "calls": sum(r["calls"] for r in rows),
+        "max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"), "bound_by": "bytes",
+        "library_ms": None,
+        "per": ("every quantize call of the path (counted runs, warm-ups "
+                "and checks), device time per shape on the path's rows "
+                "tiled to its M; plain_ms is the eager path it replaced "
+                "(quantize, nibble planes, pad) on the same rows; bound_ms "
+                "reads each row once and writes each plane at the padded "
+                "width (and the codes for two planes) once; library_ms is "
+                "null: no single PyTorch call quantizes rows"),
+    }
+
+
+# ---------------------------------------------------------------------------
 # The LM paths: the SSD scan kernel, hymba-1.5b served on the PIM engine,
 # the serve() entry point, mamba2-370m
 # ---------------------------------------------------------------------------
@@ -2063,8 +2203,8 @@ def hymba_path(torch, dev, mods, counters):
     want = {"ssd_scan": cfg.num_layers * LM_REQUESTS,
             "pim_matmul_fused": per_step * (1 + LM_GEN) * LM_REQUESTS}
     got = numbers["launches"]
-    if any(got[k] != v for k, v in want.items()) or any(
-            got[k] for k in got if k not in want):
+    if any(got[k] != v for k, v in want.items()) or \
+            other_kernels(got, *want):
         raise AssertionError(f"hymba launches {got}, expected {want} and "
                              "no other kernel")
     want_routes = expected_routes(mods["pim_kern"], lm_plan_shapes(planned),
@@ -2475,15 +2615,14 @@ def moe_phase_launches(torch, mods, planned, cfg, tokens, counters):
                                LM_PROMPT + LM_GEN)
     torch.cuda.synchronize()
     out["prefill"] = route_counts(kern, "pim_matmul_fused")
-    others = {k: v for k, v in read_counts(*counters).items()
-              if v and k != "pim_matmul_fused"}
+    others = other_kernels(read_counts(*counters), "pim_matmul_fused")
     reset_counts(*counters)
     lm.decode_step(planned, cfg, cache, logits.argmax(-1)[:, None],
                    LM_PROMPT)
     torch.cuda.synchronize()
     out["decode_step"] = route_counts(kern, "pim_matmul_fused")
-    others.update({k: v for k, v in read_counts(*counters).items()
-                   if v and k != "pim_matmul_fused"})
+    others.update(other_kernels(read_counts(*counters),
+                                "pim_matmul_fused"))
     shapes = lm_plan_shapes(planned)
     want = {"prefill": expected_routes(kern, Counter({
                 s: c for s, c in shapes.items()
@@ -2549,8 +2688,8 @@ def moonshot_path(torch, dev, mods, counters):
     per_step = cfg.num_layers * moe_layer_launches(cfg)
     want = {"pim_matmul_fused": per_step * (1 + LM_GEN) * LM_REQUESTS}
     got = numbers["launches"]
-    if any(got[k] != v for k, v in want.items()) or any(
-            got[k] for k in got if k not in want):
+    if any(got[k] != v for k, v in want.items()) or \
+            other_kernels(got, *want):
         raise AssertionError(f"moonshot launches {got}, expected {want} "
                              "and no other kernel")
     out["launches_by_route"] = route_counts(kern, "pim_matmul_fused")
@@ -2697,15 +2836,16 @@ def family_serve_path(torch, dev, mods, counters, arch, smi):
     pre, step = family_b1_launches(cfg)
     want = {"pim_matmul_fused": (pre + LM_GEN * step) * LM_REQUESTS}
     got = numbers["launches"]
-    if any(got[k] != v for k, v in want.items()) or any(
-            got[k] for k in got if k not in want):
+    if any(got[k] != v for k, v in want.items()) or \
+            other_kernels(got, *want):
         raise AssertionError(f"{arch} launches {got}, expected {want} and "
                              "no other kernel")
     got_pre, got_step = phase_counts(torch, lm, planned, cfg, tokens,
                                      counters, inputs)
-    if got_pre != dict.fromkeys(got_pre, 0) | {"pim_matmul_fused": pre} or \
-            got_step != dict.fromkeys(got_step, 0) | {
-                "pim_matmul_fused": step}:
+    if got_pre["pim_matmul_fused"] != pre or \
+            got_step["pim_matmul_fused"] != step or \
+            other_kernels(got_pre, "pim_matmul_fused") or \
+            other_kernels(got_step, "pim_matmul_fused"):
         raise AssertionError(f"{arch} launches per prefill {got_pre}, per "
                              f"decode step {got_step}; expected {pre} and "
                              f"{step} pim_matmul_fused, no other kernel")
@@ -3009,8 +3149,8 @@ def qwen3_program_phase(torch, dev, mods, counters, plan_dir):
         t["serve_s"] = time.perf_counter() - t0
         launches = read_counts(*counters)
     want = qwen3_launches(cfg) * (1 + LM_GEN)
-    if launches["pim_matmul_fused"] != want or any(
-            v for k, v in launches.items() if k != "pim_matmul_fused"):
+    if launches["pim_matmul_fused"] != want or \
+            other_kernels(launches, "pim_matmul_fused"):
         raise AssertionError(f"qwen3 programming run: launches {launches}, "
                              f"expected {want} pim_matmul_fused")
     if "program_s" not in t or "save_s" not in t:
@@ -3404,8 +3544,7 @@ def qwen3_continuous_phase(torch, dev, mods, counters, plan_dir, cfg,
         expect[kern.small_m_grid(CONT_SLOTS, k, n)[0]] += \
             c * (res["decode_steps"] + 1)
     if routes != dict(expect) or launches["pim_matmul_fused"] != sum(
-            expect.values()) or any(v for k, v in launches.items()
-                                    if k != "pim_matmul_fused"):
+            expect.values()) or other_kernels(launches, "pim_matmul_fused"):
         raise AssertionError(f"qwen3 continuous launches {launches}, by "
                              f"route {routes}; expected {dict(expect)}")
     if res["num_requests"] != CONT_REQUESTS or res["prefill_traces"] != 1 \
@@ -3995,6 +4134,7 @@ def mesh_rank(rank, world, init_file, task_file, out_file):
     from repro_torch import configs, engine, serving
     from repro_torch.core import pim
     from repro_torch.engine import mesh as mesh_mod
+    from repro_torch.kernels.act_quant import act_quant as qkern
     from repro_torch.kernels.analog_readout import analog_readout as akern
     from repro_torch.kernels.pim_matmul import pim_matmul as kern
     from repro_torch.kernels.pim_matmul import ref
@@ -4006,7 +4146,8 @@ def mesh_rank(rank, world, init_file, task_file, out_file):
     torch.backends.cudnn.allow_tf32 = False
     mods = {"configs": configs, "engine": engine, "serving": serving,
             "pim": pim, "mesh": mesh_mod, "kern": kern, "akern": akern,
-            "ref": ref, "serve": serve_mod, "lm": lm}
+            "ref": ref, "serve": serve_mod, "lm": lm,
+            "counters": (kern, akern, qkern, QuantCalls(pim))}
     task = json.loads(Path(task_file).read_text())
     backend = launch_mesh.init_distributed("cuda", f"file://{init_file}",
                                            rank, world)
@@ -4128,8 +4269,7 @@ def mesh_serve(torch, mods, task):
     (host clock around the engine's verbs, as single-device, and nothing
     else timed in this run), resident and peak memory. Then
     :func:`mesh_collectives`' instrumented run."""
-    serve_mod, serving, kern, akern = (mods["serve"], mods["serving"],
-                                       mods["kern"], mods["akern"])
+    serve_mod, serving, kern = mods["serve"], mods["serving"], mods["kern"]
     mesh_mod = mods["mesh"]
     Engine = serving.ServingEngine
     t, mem = {}, {}
@@ -4157,7 +4297,7 @@ def mesh_serve(torch, mods, task):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(kern, akern)
+    reset_counts(*mods["counters"])
     mesh_mod.reset_collectives()
     t0 = time.perf_counter()
     with patched((serve_mod, "_setup", setup),
@@ -4170,7 +4310,7 @@ def mesh_serve(torch, mods, task):
             arrival_rate=CONT_RATE, seed=0, mesh=MESH_SPEC)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = read_counts(kern, akern)
+    launches = read_counts(*mods["counters"])
     b1 = route_counts(kern, "pim_matmul_fused")
     b2 = route_counts(kern, "pim_matmul_int")
     got = {str(k): v for k, v in entry_streams(res).items()}
@@ -4192,9 +4332,8 @@ def mesh_serve(torch, mods, task):
                           if nm == name) for name in want}
     if b1 != want_b1 or b2 != want_b2 or per_step != {
             "pim_matmul_fused": MESH_COL * layers,
-            "pim_matmul_int": MESH_ROW * layers} or any(
-            v for k, v in launches.items()
-            if k not in ("pim_matmul_fused", "pim_matmul_int")):
+            "pim_matmul_int": MESH_ROW * layers} or other_kernels(
+                launches, "pim_matmul_fused", "pim_matmul_int"):
         raise AssertionError(f"mesh launches {launches}: B1 by route {b1} "
                              f"(expected {want_b1}), B2 by route {b2} "
                              f"(expected {want_b2}); per forward step "
@@ -4386,8 +4525,7 @@ def mesh_family_serve(torch, mods, arch, want):
     (CUDA events; the device synchronized around every collective, whose
     own host seconds and bytes are read for prefill and decode apart),
     resident and peak memory."""
-    serve_mod, kern, akern, mesh_mod = (mods["serve"], mods["kern"],
-                                        mods["akern"], mods["mesh"])
+    serve_mod, kern, mesh_mod = mods["serve"], mods["kern"], mods["mesh"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4427,7 +4565,7 @@ def mesh_family_serve(torch, mods, arch, want):
 
     prefill_fn = serve_mod.prefill
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(kern, akern)
+    reset_counts(*mods["counters"])
     mesh_mod.reset_collectives()
     t0 = time.perf_counter()
     with patched((serve_mod, "prefill", prefill),
@@ -4440,7 +4578,7 @@ def mesh_family_serve(torch, mods, arch, want):
     out["collective_prefill"] = dict(at_prefill)
     out["collective_decode"] = {k: v - at_prefill.get(k, 0)
                                 for k, v in coll.items()}
-    launches = read_counts(kern, akern)
+    launches = read_counts(*mods["counters"])
     b1, b2 = (route_counts(kern, "pim_matmul_fused"),
               route_counts(kern, "pim_matmul_int"))
     collectives = dict(mesh_mod.COLLECTIVES)
@@ -4456,9 +4594,8 @@ def mesh_family_serve(torch, mods, arch, want):
             want_routes[name][kern.small_m_grid(m, k, n)[0]] += c * times
     want_routes = {k: dict(v) for k, v in want_routes.items()}
     if b1 != want_routes["pim_matmul_fused"] or \
-            b2 != want_routes["pim_matmul_int"] or any(
-                v for k, v in launches.items()
-                if k not in ("pim_matmul_fused", "pim_matmul_int")):
+            b2 != want_routes["pim_matmul_int"] or other_kernels(
+                launches, "pim_matmul_fused", "pim_matmul_int"):
         raise AssertionError(f"mesh {arch} launches {launches}: B1 by route "
                              f"{b1}, B2 by route {b2}, expected "
                              f"{want_routes}")
@@ -6181,6 +6318,7 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     from repro_torch.core import pim, workloads
     from repro_torch.data import pipeline
     from repro_torch.kernels import runtime
+    from repro_torch.kernels.act_quant import act_quant as qkern
     from repro_torch.kernels.analog_readout import analog_readout as akern
     from repro_torch.kernels.analog_readout import ops as aops
     from repro_torch import tree
@@ -6218,10 +6356,14 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     ssd_err, ssd_rows = ssd_kernel_phase(torch, dev, skern, sref)
     flash_err, flash_rows = flash_kernel_phase(torch, dev, fkern, fref)
     mark("kernel phases")
-    counters = (kern, akern, skern, fkern)
+    quant = QuantCalls(pim)
+    counters = (kern, akern, skern, fkern, qkern, quant)
+    quant_on = lambda what: quant_rows(torch, qkern, pim, quant.take(),
+                                       what)
     model = build_model(torch, dev, cnn, workloads, pipeline)
     path, run_request, exact_logits = main_path(torch, model, cnn, pim,
                                                 counters)
+    quant_shapes = {"resnet18 exact": quant_on("resnet18 exact")}
     log_latency("exact", path)
     profile = profile_request(torch, {"cnn": cnn, "pim": pim}, run_request,
                               PIM_KERNELS, "exact")
@@ -6230,10 +6372,16 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
                             path["launches"], err,
                             routes=path["launches_by_route"]),
                kernel_entry("pim_matmul_int", "int", rows,
-                            path["launches"], err)]
+                            path["launches"], err),
+               quant_entry(quant_shapes["resnet18 exact"], path["launches"],
+                           "resnet18 exact")]
 
+    quant.take()
     apath, run_analog = analog_path(torch, model, cnn, pim, counters,
                                     exact_logits)
+    quant_shapes["resnet18 analog"] = quant_on("resnet18 analog")
+    kernels.append(quant_entry(quant_shapes["resnet18 analog"],
+                               apath["launches"], "resnet18 analog"))
     log_latency("analog", apath)
     aprofile = profile_request(torch, {"cnn": cnn, "pim": pim}, run_analog,
                                ANALOG_KERNELS, "analog")
@@ -6248,7 +6396,11 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
             "ssd_wrap": skern, "ssd_ref": sref, "pim_ops": pops,
             "pim_kern": kern,
             "pim_ref": ref}
+    quant.take()
     hymba = hymba_path(torch, dev, mods, counters)
+    quant_shapes["hymba-1.5b pim"] = quant_on("hymba-1.5b pim")
+    kernels.append(quant_entry(quant_shapes["hymba-1.5b pim"],
+                               hymba["launches"], "hymba-1.5b pim"))
     lm_err = lm_kernel_checks(torch, dev, kern, ref, hymba["shapes"])
     lm_rows = shape_numbers(torch, dev, kern, ref, hymba["shapes"],
                             with_bias=False)
@@ -6277,7 +6429,13 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     mamba2 = mamba2_path(torch, dev, mods, counters)
     mark("serve entry and mamba2")
     mods["moe"] = moe
+    quant.take()
     moonshot = moonshot_path(torch, dev, mods, counters)
+    quant_shapes["moonshot-v1-16b-a3b pim"] = quant_on(
+        "moonshot-v1-16b-a3b pim")
+    kernels.append(quant_entry(quant_shapes["moonshot-v1-16b-a3b pim"],
+                               moonshot["launches"],
+                               "moonshot-v1-16b-a3b pim"))
     moe_err = lm_kernel_checks(torch, dev, kern, ref, moonshot["shapes"])
     moe_rows = shape_numbers(torch, dev, kern, ref, moonshot["shapes"],
                              with_bias=False)
@@ -6301,13 +6459,23 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
              f"{b1['decode_bound_ms']:.3f} ms); library_ms covers the "
              "prefill shapes (torch._int_mm takes M > 16)")))
     mark("moonshot")
-    families = {arch: family_serve_path(torch, dev, mods, counters, arch, smi)
-                for arch in FAMILIES}
+    families = {}
+    for arch in FAMILIES:
+        quant.take()
+        families[arch] = family_serve_path(torch, dev, mods, counters, arch,
+                                           smi)
+        quant_shapes[f"{arch} pim"] = quant_on(f"{arch} pim")
+        kernels.append(quant_entry(quant_shapes[f"{arch} pim"],
+                                   families[arch]["launches"], f"{arch} pim"))
     mark("whisper and paligemma served")
     mods.update({"serving": serving, "engine": engine, "ckpt": ckpt,
                  "reliability": reliability, "analog_kern": akern})
+    quant.take()
     qwen3, qwen3_cont, qwen3_rel, sanitized = qwen3_phases(
         torch, dev, mods, counters, smi)
+    quant_shapes["qwen3-4b pim"] = quant_on("qwen3-4b pim")
+    kernels.append(quant_entry(quant_shapes["qwen3-4b pim"],
+                               qwen3_cont["launches"], "qwen3-4b pim"))
     q_err = lm_kernel_checks(torch, dev, kern, ref, qwen3_cont["shapes"])
     q_rows = shape_numbers(torch, dev, kern, ref, qwen3_cont["shapes"],
                            with_bias=False)
@@ -6333,6 +6501,7 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
     kernels.append(rowsum_entry(rel_rows, qwen3_rel, smi))
     rel_checks = reliability_checks(torch, dev, mods)
     mark("qwen3 and reliability")
+    quant.take()
     mesh = mesh_phase(torch, dev, mods, qwen3_cont, families, smi)
     kernels += mesh_entries(mesh)
     mark("mesh")
@@ -6391,6 +6560,7 @@ def run_phases(torch, opts, smi, t_start, dryrun_job) -> int:
              "flash_shapes": flash_rows, "train": training,
              "restart": restart, "train_mesh": train_mesh,
              "front_doors": front, "phase_s": phase_s,
+             "act_quant_shapes": quant_shapes,
              "kernels": kernels},
             indent=1, default=str))
     log(json.dumps({"kernels": kernels}))

@@ -8,7 +8,8 @@ substrate runs. Dispatch lives in :mod:`repro_torch.engine`.
      them to the kernel's tile multiples and WDM-chunk boundaries — the
      JAX package's layout, so plans convert between the two packages.
   2. Activations are quantized per row at every call and decomposed the
-     same way.
+     same way (on the card in one launch of the fused quantizer,
+     ``csrc/act_quant.cu``).
   3. Every (act-plane, weight-plane) pair is one integer product over K.
   4. The aggregation unit shift-adds the planes and rescales; on
      ``exact-cuda`` this is the hand-written kernel's fused epilogue, bit
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.analysis import trace
 from repro_torch.core.cell import DEFAULT_CELL
+from repro_torch.kernels.act_quant import act_quant as act_kern
 from repro_torch.kernels.analog_readout import ops as analog_ops
 from repro_torch.kernels.analog_readout.ref import (analog_readout_fused_ref,
                                                     inv_half_levels)
@@ -52,6 +54,7 @@ from repro_torch.kernels.pim_matmul.pim_matmul import kernel_tiles
 from repro_torch.kernels.pim_matmul.ref import (pim_matmul_ref,
                                                 plane_partials, rowsum_int32,
                                                 shift_add, wrap_int32)
+from repro_torch.kernels.runtime import on_cuda
 from repro_torch.quant.nibbles import NIBBLE_BASE, num_nibbles, to_nibbles
 from repro_torch.quant.quantize import QTensor, quantize
 
@@ -337,26 +340,49 @@ def _check_widths(cfg: PimConfig) -> None:
             "int64/float accumulation path")
 
 
-def _quantize_activations(x2: torch.Tensor, cfg: PimConfig):
+def _quantize_activations(x2: torch.Tensor, cfg: PimConfig,
+                          width: Optional[int] = None):
     """Dynamic per-row activation quantization + nibble decomposition.
-    Returns (QTensor, planes (Pa, M, K)): the ``act`` that the matmul
-    functions below take instead of quantizing ``x2`` themselves (the
-    engine quantizes a row block once for every expert it meets). Its
-    two parts are the fine spans ``pim.quantize`` and ``pim.nibbles``."""
-    with trace.fine("pim.quantize"):
-        a_q = quantize(x2, bits=cfg.act_bits, axis=(1,))
+    Returns (QTensor, planes (Pa, M, K or width)): the ``act`` that the
+    matmul functions below take instead of quantizing ``x2`` themselves
+    (the engine quantizes a row block once for every expert it meets).
+
+    Dispatch is by device, as B1's is. Rows on the card go through the
+    fused kernel (``csrc/act_quant.cu``) in one launch, the fine span
+    ``pim.quantize`` keyed ``"kernel"``: the planes are ``width`` wide
+    when one is given (zero beyond K, so :func:`_pad_act_planes` has
+    nothing left to do), up to 4 bits the codes are a view of the one
+    plane, and rows the kernel does not take raise (no fallback). CPU
+    rows run :func:`_quantize_plain` and leave the padding to
+    :func:`_pad_act_planes`."""
+    bits = cfg.act_bits
+    if on_cuda(x2):
+        with trace.fine("pim.quantize", "kernel"):
+            values, scale, planes = act_kern.act_quant_cuda(x2, bits, width)
+        return QTensor(values=values, scale=scale, bits=bits), planes
+    return _quantize_plain(x2, bits)
+
+
+def _quantize_plain(x2: torch.Tensor, bits: int):
+    """The eager steps the fused kernel replaces, on any device: the fine
+    spans ``pim.quantize`` keyed ``"plain"`` and ``pim.nibbles``, planes
+    (Pa, M, K). The CPU route of :func:`_quantize_activations`, and what
+    the card's tests hold the kernel to bit for bit."""
+    with trace.fine("pim.quantize", "plain"):
+        a_q = quantize(x2, bits=bits, axis=(1,))
     with trace.fine("pim.nibbles"):
-        planes = to_nibbles(a_q.values, cfg.act_bits)
+        planes = to_nibbles(a_q.values, bits)
     return a_q, planes
 
 
 def _pad_act_planes(a_planes: torch.Tensor, plan: DensePlan
                     ) -> torch.Tensor:
     """Pad activation planes out to the plan's pre-padded K (the per-call
-    half of the padding contract)."""
-    pad_k = plan.planes.shape[1] - plan.k
+    half of the padding contract), from their current width: planes
+    already that wide come back as they are."""
+    pad_k = plan.planes.shape[1] - a_planes.shape[-1]
     with trace.fine("pim.pad"):
-        if pad_k:
+        if pad_k > 0:
             a_planes = F.pad(a_planes, (0, pad_k))
     return a_planes
 
@@ -463,7 +489,8 @@ def exact_cuda_matmul2d(x2: torch.Tensor, plan: DensePlan, cfg: PimConfig,
     padded row-sum equals the logical one) for the ABFT check; ``out`` is
     the same either way. On CPU tensors the same call runs the kernel's
     plain version."""
-    a_q, a_planes = act or _quantize_activations(x2, cfg)
+    a_q, a_planes = act or _quantize_activations(x2, cfg,
+                                                 plan.planes.shape[1])
     res = pim_ops.pim_matmul_fused(_pad_act_planes(a_planes, plan),
                                    plan.planes, a_q.scale,
                                    plan.padded_scale,

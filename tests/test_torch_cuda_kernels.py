@@ -8,10 +8,14 @@ that has only PyTorch:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch import engine
+from repro_torch.analysis import trace
+from repro_torch.core import pim
 from repro_torch.core.pim import PimConfig
 from repro_torch.core.workloads import mobilenet, resnet18
+from repro_torch.kernels.act_quant import act_quant as aq
 from repro_torch.kernels.pim_matmul import ops
 from repro_torch.kernels.pim_matmul.pim_matmul import (LAUNCHES,
                                                        ROUTE_LAUNCHES,
@@ -275,3 +279,173 @@ def test_wgmma_level_overflow_wraps(cuda, pa, pw):
     w = torch.full((pw, k, n), 127, dtype=torch.int8, device=cuda)
     _, _, a_s, w_s, bias = _card_inputs(1, 1, m, 16, n, cuda, 6)
     _all_variants_equal(a, w, a_s, w_s, bias)
+
+
+# ---------------------------------------------------------------------------
+# The fused activation quantizer (csrc/act_quant.cu) against the eager path
+# ---------------------------------------------------------------------------
+# (M, K) of the cells: ResNet18 at batch 128 (stem, stage 1, a 1x1
+# shortcut, stage 4), qwen3-4b's decode (8 rows) and prefill (4,096 rows)
+# at K 2560, 4096 and 9728, a small M, and an odd K
+QUANT_SHAPES = ((131072, 27), (131072, 576), (32768, 64), (2048, 4608),
+                (128, 512), (8, 2560), (8, 9728), (4096, 2560),
+                (4096, 4096), (4096, 9728), (37, 333))
+
+
+def _plan_width(k):
+    """K as programming pads it (``pim.plan_from_qtensor``)."""
+    bk = min(512, k)
+    kp = -(-k // bk) * bk
+    return kp + (-kp) % min(8, k)
+
+
+def _scale_rule_rows(bits, k, count=2):
+    """Rows whose abs-max makes ``amax / qmax`` and ``amax * (1 / qmax)``
+    two floats, with elements half a step of either scale past a code."""
+    q = np.float32((1 << (bits - 1)) - 1)
+    inv = np.float32(1) / q
+    rng = np.random.default_rng(bits)
+    rows = []
+    for a in rng.uniform(0.5, 50.0, 100 * count).astype(np.float32):
+        if len(rows) == count:
+            break
+        by_div, by_mul = a / q, a * inv
+        if by_div == by_mul:
+            continue
+        row = np.zeros(k, np.float32)
+        row[0] = a
+        steps = np.arange(1, k, dtype=np.float32) % q
+        half = (steps + np.float32(0.5))
+        row[1::2] = (half * by_div)[0::2]
+        row[2::2] = (half * by_mul)[1::2]
+        row[1:] = np.minimum(row[1:], a)
+        rows.append(row)
+    assert len(rows) == count, "the two rules agree too often"
+    return np.stack(rows)
+
+
+def _quant_rows(m, k, bits, device, seed=0):
+    """Normal rows at per-row magnitudes from 1e-3 to 1e3 on the card; row
+    0 all zero (the eps floor), row 1 exact ties (abs-max qmax, so the
+    scale is one step a code), rows 2-3 :func:`_scale_rule_rows`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device)
+    x *= 10.0 ** (6 * torch.rand((m, 1), generator=gen, device=device) - 3)
+    if m >= 4:
+        q = (1 << (bits - 1)) - 1
+        x[0] = 0.0
+        ties = torch.arange(k, device=device, dtype=torch.float32) % q + 0.5
+        x[1] = torch.where(torch.arange(k, device=device) % 2 == 0, ties,
+                           -ties)
+        x[1, 0] = q
+        x[2:4] = torch.from_numpy(_scale_rule_rows(bits, k)).to(device)
+    return x
+
+
+def _eager(x, bits, width=None):
+    """The eager path on the card's rows (``pim._quantize_plain``, the
+    steps the kernel replaces), padded to ``width``."""
+    a_q, planes = pim._quantize_plain(x, bits)
+    if width is not None:
+        planes = F.pad(planes, (0, width - x.shape[1]))
+    return a_q.values, a_q.scale, planes
+
+
+def _assert_same_quant(x, bits, width):
+    got = aq.act_quant_cuda(x, bits, width)
+    want = _eager(x, bits, width)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("padded", (False, True), ids=("k", "kp"))
+@pytest.mark.parametrize("bits", (4, 8))
+@pytest.mark.parametrize("m,k", QUANT_SHAPES)
+def test_act_quant_bit_exact_at_the_cells_shapes(cuda, m, k, bits, padded,
+                                                 dtype):
+    """Codes, scales and planes (padded to the plan's K or not) equal the
+    eager path's on the card, ties, zero rows and both scale rules'
+    half-way points included; bfloat16 rows (decode's attention output)
+    rounded where the eager path rounds them."""
+    x = _quant_rows(m, k, bits, cuda, seed=m + k).to(dtype)
+    _assert_same_quant(x, bits, _plan_width(k) if padded else None)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("bits", (3, 4, 5, 8))
+def test_act_quant_scale_rule_is_the_cards(cuda, bits, dtype):
+    """Where ``amax / qmax`` and ``amax * (1 / qmax)`` differ, the kernel
+    gives the eager path's scale, and its codes."""
+    x = torch.from_numpy(_scale_rule_rows(bits, 576, count=64)).to(
+        cuda, dtype)
+    _assert_same_quant(x, bits, None)
+    _assert_same_quant(x, bits, 1024)
+
+
+def test_act_quant_wrapper_checks(cuda):
+    """What the kernel takes as it is (row-strided views), what it copies
+    first (columns not at unit stride), and what it refuses without a
+    launch; no rows launch nothing."""
+    wide = _quant_rows(64, 600, 4, cuda, seed=5)
+    for x in (wide[:, :576], wide[:, 1:577], wide[3:40, :333],
+              wide.bfloat16()[:, 2:578], wide.t(), wide[:, ::2]):
+        _assert_same_quant(x, 4, 1024)
+    before = aq.LAUNCHES["act_quant"]
+    for x, bits in ((wide.half(), 4), (wide.double(), 4), (wide.cpu(), 4),
+                    (wide, 1), (wide, 9), (wide[None], 4)):
+        with pytest.raises(ValueError, match="takes float32 or bfloat16"):
+            aq.act_quant_cuda(x, bits)
+    with pytest.raises(ValueError, match="narrower"):
+        aq.act_quant_cuda(wide, 4, 599)
+    for bits in (4, 8):
+        values, scale, planes = aq.act_quant_cuda(wide[:0], bits, 640)
+        assert values.shape == (0, 600) and scale.shape == (0, 1)
+        assert planes.shape == (1 if bits == 4 else 2, 0, 640)
+    assert aq.LAUNCHES["act_quant"] == before
+
+
+@pytest.mark.parametrize("substrate", ("exact-cuda", "exact-torch",
+                                       "analog-cuda"))
+def test_quantize_activations_has_no_eager_fallback_on_the_card(cuda,
+                                                                substrate):
+    """Float16 rows on the card raise at the quantizer: no substrate
+    quantizes them quietly with the eager steps (no ``pim.quantize``
+    span keyed ``plain``, no launch)."""
+    g = torch.Generator().manual_seed(3)
+    plan = engine.program(torch.randn((576, 64), generator=g).to(cuda),
+                          PimConfig(substrate=substrate))
+    x = torch.randn((32, 576), generator=g).to(cuda, torch.float16)
+    before = aq.LAUNCHES["act_quant"]
+    with trace.Recorder() as rec:
+        with pytest.raises(ValueError, match="takes float32 or bfloat16"):
+            pim._quantize_activations(x, plan.cfg)
+        with pytest.raises(ValueError, match="takes float32 or bfloat16"):
+            engine.matmul(x, plan)
+    assert aq.LAUNCHES["act_quant"] == before
+    assert set(rec.aggregate("pim.quantize")) <= {"kernel"}
+    assert rec.aggregate("pim.nibbles") == {}
+
+
+def test_exact_cuda_quantizes_through_the_kernel(cuda):
+    """The engine's exact-cuda matmul quantizes in one launch (the span
+    ``pim.quantize`` keyed ``kernel``, no ``pim.nibbles``) at the plan's
+    width, and equals exact-torch bit for bit."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((300, 576), generator=g).to(cuda)
+    plan = engine.program(torch.randn((576, 64), generator=g).to(cuda),
+                          PimConfig(substrate="exact-cuda"))
+    _, planes = pim._quantize_activations(x, plan.cfg, plan.planes.shape[1])
+    assert planes.shape == (1, 300, 1024)
+    before = aq.LAUNCHES["act_quant"]
+    with trace.Recorder() as rec:
+        out = engine.matmul(x, plan)
+    assert aq.LAUNCHES["act_quant"] == before + 1
+    agg = rec.aggregate("pim.quantize")
+    assert set(agg) == {"kernel"} and agg["kernel"][0] == 1
+    assert rec.aggregate("pim.nibbles") == {}
+    assert torch.equal(out, engine.matmul(
+        x, plan, cfg=PimConfig(substrate="exact-torch")))
